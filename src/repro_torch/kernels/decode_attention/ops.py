@@ -1,0 +1,32 @@
+"""Public decode-attention op (port of
+``repro.kernels.decode_attention.ops``).
+
+Same signature as the reference op.  A CUDA tensor launches the
+hand-written kernel (or raises); a CPU tensor runs the plain twin
+``ref.decode_attention_ref``.  A (W,) ``pos`` is broadcast to (B, W) —
+as a zero-stride view on the CUDA path, which the kernel reads through
+its strides.  ``block_kv`` is accepted for the reference signature; the
+CUDA tile is the kernel's own.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+
+def decode_attention(q, k, v, pos, *, block_kv: int = 512) -> torch.Tensor:
+    """q: (B, 1, H, hd) one new token; k, v: (B, W, K, hd) ring cache;
+    pos: (W,) or (B, W) slot positions (-1 empty).  Returns (B, 1, H, hd).
+    """
+    del block_kv               # TPU VMEM tiling; the CUDA tile is fixed
+    B, _, H, hd = q.shape
+    K = k.shape[2]
+    if pos.ndim == 1:
+        pos = pos[None].expand(B, pos.shape[0])
+    if q.device.type != "cpu":
+        return decode_attention_cuda(q, k, v, pos, sm_scale=hd ** -0.5)
+    qg = q[:, 0].reshape(B, K, H // K, hd)
+    out = decode_attention_ref(qg, k, v, pos, sm_scale=hd ** -0.5)
+    return out.reshape(B, 1, H, hd)

@@ -1,0 +1,34 @@
+"""Public flash-attention op (port of ``repro.kernels.flash_attention.ops``).
+
+Same signature as the reference op, so the tests call both with the same
+arguments.  A CUDA tensor launches the hand-written kernel (or raises); a
+CPU tensor runs the plain PyTorch twin ``ref.attention_ref`` — that is how
+the CPU tests run.  There is no fall-back from one to the other.  The
+model layout (B, S, heads, hd) is read by the kernel through strides, so
+there are no transposes and no TPU pad-to-128 on the CUDA path.
+``block_q`` / ``block_kv`` are accepted for the reference signature; the
+CUDA tile is the kernel's own and the result does not depend on them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    block_q: int = 512, block_kv: int = 512) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) -> (B, Sq, H, hd)."""
+    del block_q, block_kv      # TPU VMEM tiling; the CUDA tile is fixed
+    sm_scale = q.shape[-1] ** -0.5
+    if q.device.type != "cpu":
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    sm_scale=sm_scale)
+    out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window,
+                        sm_scale=sm_scale)
+    return out.transpose(1, 2)

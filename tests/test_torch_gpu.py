@@ -1,0 +1,150 @@
+"""The port's CUDA kernels on the card (skipped where there is no GPU).
+
+Run on a GPU machine with
+  python -m pytest -q -m gpu tests/test_torch_gpu.py
+Each kernel is held against its plain PyTorch twin on the same CUDA
+inputs (fp32 2e-5 for attention, 1e-3 for the SSD scan, bf16 2e-2), its
+launch counter must move by exactly one per call, and a CPU tensor must
+never reach it.  The CUDA engine must route a short stream like the CPU
+engine does.  Nothing here imports JAX (the GPU machine has none).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    decode_attention_cuda)
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _randn(gen, *shape, dtype=torch.float32, device="cuda"):
+    return torch.randn(shape, generator=gen).to(device, dtype)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,dtype", [
+    (64, 128, 4, 4, 32, True, None, torch.float32),    # serving shape
+    (3, 32, 2, 2, 16, True, None, torch.float32),      # CI shape
+    (2, 96, 4, 4, 32, True, 40, torch.float32),
+    (2, 64, 8, 2, 64, False, None, torch.float32),
+    (2, 128, 4, 4, 32, True, None, torch.bfloat16),
+    (1, 70, 2, 1, 120, True, None, torch.float32),
+])
+def test_flash_kernel_matches_plain(cuda, B, S, H, K, hd, causal, window,
+                                    dtype):
+    gen = torch.Generator().manual_seed(0)
+    q = _randn(gen, B, S, H, hd, dtype=dtype)
+    k = _randn(gen, B, S, K, hd, dtype=dtype)
+    v = _randn(gen, B, S, K, hd, dtype=dtype)
+    n0 = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == n0 + 1
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal,
+                        window=window).transpose(1, 2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,W,H,K,hd,dtype", [
+    (64, 128, 4, 4, 32, torch.float32),
+    (2, 32, 2, 2, 16, torch.float32),
+    (4, 200, 8, 2, 64, torch.float32),
+    (4, 128, 4, 4, 32, torch.bfloat16),
+])
+def test_decode_kernel_matches_plain(cuda, B, W, H, K, hd, dtype):
+    gen = torch.Generator().manual_seed(1)
+    q = _randn(gen, B, 1, H, hd, dtype=dtype)
+    k = _randn(gen, B, W, K, hd, dtype=dtype)
+    v = _randn(gen, B, W, K, hd, dtype=dtype)
+    lens = torch.randint(1, W + 1, (B,), generator=gen)
+    ar = torch.arange(W)
+    pos = torch.where(ar[None] < lens[:, None], ar[None], -1)
+    pos = pos.to("cuda", torch.int32)
+    n0 = decode_attention_cuda.launches
+    out = decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == n0 + 1
+    ref = decode_attention_ref(q[:, 0].reshape(B, K, H // K, hd), k, v,
+                               pos).reshape(B, 1, H, hd)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    # empty slots are inert whatever they hold
+    kg, vg = k.clone(), v.clone()
+    inval = (pos < 0)[:, :, None, None].expand_as(kg)
+    kg[inval], vg[inval] = 1e4, -1e4
+    torch.testing.assert_close(decode_attention(q, kg, vg, pos), out,
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("Bsz,S,H,hp,N,chunk", [
+    (64, 128, 6, 64, 32, 64),      # serving shape
+    (2, 32, 2, 16, 8, 16),         # CI shape
+    (3, 96, 2, 32, 16, 32),
+])
+def test_ssd_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk):
+    gen = torch.Generator().manual_seed(2)
+    x = _randn(gen, Bsz, S, H, hp)
+    dt = torch.nn.functional.softplus(_randn(gen, Bsz, S, H) - 2.0)
+    adt = -torch.arange(1, H + 1, device="cuda").float() * dt
+    B = _randn(gen, Bsz, S, N)
+    C = _randn(gen, Bsz, S, N)
+    n0 = ssd_scan_cuda.launches
+    out = ssd_scan(x, adt, dt, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == n0 + 1
+    ref = ssd_scan_chunked_ref(x, adt, dt, B, C, chunk)
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
+
+
+def test_cpu_tensors_never_reach_the_kernels(cuda):
+    counters = (flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda)
+    before = [c.launches for c in counters]
+    q = torch.randn((1, 16, 2, 8))
+    flash_attention(q, q, q)
+    decode_attention(q[:, :1], q, q, torch.arange(16, dtype=torch.int32))
+    a = torch.randn((1, 16, 2)) * 0.1
+    b = torch.randn((1, 16, 4))
+    ssd_scan(q, -a.abs(), a.abs(), b, b, chunk=8)
+    assert [c.launches for c in counters] == before
+
+
+def test_cuda_engine_routes_like_the_cpu_engine(cuda):
+    """The CI ladder on a short stream: identical routing on the card and
+    on the CPU, from the same seeded initial weights."""
+    from repro_torch.core import (BatchedCascadeEngine, SimulatedExpert,
+                                  kernel_cascade_config)
+    from repro_torch.data import make_stream
+    from repro_torch.models.kernel_students import TINY_SSM_CI, TINY_TF_CI
+    stream = make_stream("hatespeech", seed=0, n_samples=48)
+    cfg = kernel_cascade_config(2, mu=3e-6, tf_flash_spec=TINY_TF_CI,
+                                ssm_spec=TINY_SSM_CI)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = BatchedCascadeEngine(cfg, SimulatedExpert(stream),
+                                   n_streams=8, device=dev)
+        m = eng.run(stream)
+        runs[dev] = (m["predictions"], np.concatenate(
+            [np.asarray(x) for x in eng.history["level"]]),
+            [lvl.forwards for lvl in eng.levels])
+    assert np.array_equal(runs["cpu"][0], runs["cuda"][0])
+    assert np.array_equal(runs["cpu"][1], runs["cuda"][1])
+    assert runs["cpu"][2] == runs["cuda"][2]

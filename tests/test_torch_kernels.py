@@ -1,0 +1,219 @@
+"""Port kernels' plain versions vs the JAX package's ops and refs (CPU).
+
+On the CPU each port op (``repro_torch.kernels.*.ops``) runs its plain
+PyTorch twin; the JAX op runs its Pallas kernel in interpret mode, as the
+JAX package's own tests run it.  Inputs are made with numpy from a seed
+and handed to both.  Tolerances: 2e-5 fp32 / 2e-2 bf16 for flash and
+decode attention, 2e-3 for the SSD scan against ``ssd_scan_ref`` (the
+tolerances the JAX package pins between its own op and ref).  Cases: the
+kernel ladder's CI shapes plus the edge cases the CUDA kernels are held
+to on the card (window, non-causal, GQA, bf16, head dim 120, garbage in
+empty ring slots, a (W,) pos).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention import decode_attention as j_decode  # noqa: E402
+from repro.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_ref as j_decode_ref)
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as j_attn_ref  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan as j_ssd  # noqa: E402
+from repro.kernels.ssd_scan.ref import ssd_scan_ref as j_ssd_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_scan_chunked_ref, ssd_scan_ref)
+
+FP32_TOL = 2e-5
+BF16_TOL = 2e-2
+SSD_TOL = 2e-3
+
+
+def _np(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a)).to(dtype)
+
+
+def _j(a, dtype=jnp.float32):
+    return jnp.asarray(a, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+FLASH_CASES = {
+    # name: (B, S, H, K, hd, causal, window, block, bf16)
+    "ci-path": (3, 32, 2, 2, 16, True, None, 16, False),
+    "window": (2, 32, 2, 2, 16, True, 8, 16, False),
+    "non-causal": (2, 32, 2, 2, 16, False, None, 16, False),
+    "gqa": (2, 32, 4, 2, 16, True, None, 16, False),
+    "bf16": (2, 32, 2, 2, 16, True, None, 16, True),
+    "hd120": (1, 32, 2, 1, 120, True, None, 16, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_plain_matches_jax(case):
+    B, S, H, K, hd, causal, window, block, bf16 = FLASH_CASES[case]
+    rng = np.random.default_rng(100 + sorted(FLASH_CASES).index(case))
+    q, k, v = _np(rng, B, S, H, hd), _np(rng, B, S, K, hd), \
+        _np(rng, B, S, K, hd)
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    tol = BF16_TOL if bf16 else FP32_TOL
+    out = flash_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), causal=causal,
+                          window=window, block_q=block, block_kv=block)
+    assert out.shape == (B, S, H, hd) and out.dtype == tdt
+    j_op = j_flash(_j(q, jdt), _j(k, jdt), _j(v, jdt), causal=causal,
+                   window=window, block_q=block, block_kv=block)
+    j_ref = j_attn_ref(*(_j(a, jdt).transpose(0, 2, 1, 3) for a in (q, k, v)),
+                       causal=causal, window=window).transpose(0, 2, 1, 3)
+    got = out.float().numpy()
+    for want in (j_op, j_ref):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+    # the port's ref (B, H, S, hd layout) is what the op runs on the CPU
+    direct = attention_ref(*(_t(a, tdt).transpose(1, 2) for a in (q, k, v)),
+                           causal=causal, window=window).transpose(1, 2)
+    assert torch.equal(direct, out)
+
+
+def test_flash_block_args_do_not_change_the_result():
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(_np(rng, 2, 32, 2, 16)) for _ in range(3))
+    a = flash_attention(q, k, v, block_q=8, block_kv=8)
+    b = flash_attention(q, k, v)
+    assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("nvalid", [1, 7, 17, 32])
+def test_decode_plain_matches_jax_ring_tails(nvalid):
+    """The readout's shape (G=1, W=max_len) with odd valid tails."""
+    B, W, H, hd = 2, 32, 2, 16
+    rng = np.random.default_rng(200 + nvalid)
+    q, k, v = _np(rng, B, 1, H, hd), _np(rng, B, W, H, hd), \
+        _np(rng, B, W, H, hd)
+    pos = np.where(np.arange(W) < nvalid, np.arange(W), -1).astype(np.int32)
+    pos_b = np.broadcast_to(pos[None], (B, W)).copy()
+    out = decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(pos_b),
+                           block_kv=16)
+    j_op = j_decode(_j(q), _j(k), _j(v), jnp.asarray(pos_b), block_kv=16)
+    j_ref = j_decode_ref(_j(q)[:, 0].reshape(B, H, 1, hd), _j(k), _j(v),
+                         jnp.asarray(pos_b)).reshape(B, 1, H, hd)
+    for want in (j_op, j_ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   atol=FP32_TOL, rtol=FP32_TOL)
+    # a (W,) pos broadcasts to the same answer
+    out_w = decode_attention(_t(q), _t(k), _t(v), torch.from_numpy(pos))
+    assert torch.equal(out_w, out)
+    # finite garbage in the empty slots leaves the output unchanged
+    if nvalid < W:
+        kg, vg = k.copy(), v.copy()
+        kg[:, nvalid:] = 77.0
+        vg[:, nvalid:] = -1e4 * _np(rng, B, W - nvalid, H, hd)
+        out_g = decode_attention(_t(q), _t(kg), _t(vg),
+                                 torch.from_numpy(pos_b))
+        np.testing.assert_allclose(out_g.numpy(), out.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decode_plain_matches_jax_gqa(bf16):
+    B, W, H, K, hd = 2, 32, 4, 2, 16
+    rng = np.random.default_rng(300 + bf16)
+    q, k, v = _np(rng, B, 1, H, hd), _np(rng, B, W, K, hd), \
+        _np(rng, B, W, K, hd)
+    pos = np.where(rng.random((B, W)) < 0.7, np.arange(W)[None], -1)
+    pos[:, 0] = 0
+    pos = pos.astype(np.int32)
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    tol = BF16_TOL if bf16 else FP32_TOL
+    out = decode_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt),
+                           torch.from_numpy(pos), block_kv=16)
+    j_op = j_decode(_j(q, jdt), _j(k, jdt), _j(v, jdt), jnp.asarray(pos),
+                    block_kv=16)
+    j_ref = j_decode_ref(_j(q, jdt)[:, 0].reshape(B, K, H // K, hd),
+                         _j(k, jdt), _j(v, jdt),
+                         jnp.asarray(pos)).reshape(B, 1, H, hd)
+    for want in (j_op, j_ref):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+    direct = decode_attention_ref(_t(q, tdt)[:, 0].reshape(B, K, H // K, hd),
+                                  _t(k, tdt), _t(v, tdt),
+                                  torch.from_numpy(pos))
+    assert torch.equal(direct.reshape(B, 1, H, hd), out)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+SSD_CASES = {
+    # name: (Bsz, S, H, hp, N, chunk)
+    "ci-path": (2, 32, 2, 16, 8, 16),
+    "one-chunk": (2, 16, 3, 8, 4, 16),
+    "chunk-gt-seq": (1, 24, 2, 8, 8, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_plain_matches_jax(case):
+    Bsz, S, H, hp, N, chunk = SSD_CASES[case]
+    rng = np.random.default_rng(400 + sorted(SSD_CASES).index(case))
+    x = _np(rng, Bsz, S, H, hp)
+    dt = np.log1p(np.exp(_np(rng, Bsz, S, H))).astype(np.float32)
+    adt = (-0.4 * dt).astype(np.float32)
+    B, C = _np(rng, Bsz, S, N), _np(rng, Bsz, S, N)
+    out = ssd_scan(_t(x), _t(adt), _t(dt), _t(B), _t(C), chunk=chunk)
+    j_op = j_ssd(_j(x), _j(adt), _j(dt), _j(B), _j(C), chunk=chunk)
+    j_ref = j_ssd_ref(_j(x), _j(adt), _j(dt), _j(B), _j(C))
+    for want in (j_op, j_ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   atol=SSD_TOL, rtol=SSD_TOL)
+    seq = ssd_scan_ref(_t(x), _t(adt), _t(dt), _t(B), _t(C))
+    np.testing.assert_allclose(out.numpy(), seq.numpy(), atol=SSD_TOL,
+                               rtol=SSD_TOL)
+    assert torch.equal(out, ssd_scan_chunked_ref(
+        _t(x), _t(adt), _t(dt), _t(B), _t(C), min(chunk, S)))
+
+
+def test_ssd_rejects_ragged_sequence():
+    x = torch.zeros((1, 24, 1, 4))
+    a = torch.zeros((1, 24, 1))
+    b = torch.zeros((1, 24, 2))
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan(x, a, a, b, b, chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: a non-CPU tensor never takes the plain path
+# ---------------------------------------------------------------------------
+def test_meta_tensors_go_to_the_kernel_launcher_and_raise():
+    """Only a CPU tensor runs the plain twin; any other device goes to the
+    CUDA launcher, which refuses a non-CUDA tensor instead of falling
+    back."""
+    q = torch.empty((1, 8, 1, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, q, q)
+    pos = torch.empty((1, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_attention(q[:, :1], q, q, pos)
+    a = torch.empty((1, 8, 1), device="meta")
+    b = torch.empty((1, 8, 2), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_scan(q, a, a, b, b, chunk=8)
