@@ -21,12 +21,36 @@ Phases (any failure exits non-zero and prints no result line):
      items, simulated expert: every kernel's launch count over this run
      must be > 0 and equal the layers x forwards the engine counted;
   5. the served levels' final params: kernel path vs plain path logits
-     at batch 64 — same argmax on every row, logits within tolerance.
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+     at batch 64 — same argmax on every row, logits within tolerance;
+  6. zoo-kernels: Mixtral-8x22B at full width (d_model 6144, 48/8 heads
+     of 128, 8 experts of d_ff 16384, bf16), depth cut to 2 layers,
+     weights from a seeded CUDA generator; prompts from
+     ``lm_batches(seed=0)``, 2 x 2048 tokens.  The inputs each kernel
+     gets in layer 0 (prefill and the first decode step) are captured,
+     and each kernel is held against its plain version on them and on
+     O(1) random inputs at the same shapes — moe_gmm at C=640 (prefill,
+     both projections) and C=4 (decode), plus fp32 and ragged rows;
+     flash and decode attention at the zoo shapes — with tolerances
+     scaled by max|plain|, beside their times, the library call's
+     (``torch.bmm``, SDPA) and the bf16 bound;
+  7. zoo-serve: one prefill of the 2 x 2048 prompts and 16 greedy
+     ``decode_step``s through ``repro_torch.models.transformer``: prefill
+     ms, decode ms/step, tokens/s, peak device memory, and every zoo
+     kernel's launches (counted from zero over this run, equal to what
+     the layers, MoE groups and steps imply); then one more prefill and
+     4 decode steps under torch.profiler (device busy time, idle share,
+     device time by kernel group).  Then (a) prefill/decode
+     consistency at full width (S=256, a capacity that drops no token)
+     and (b) card (kernels) vs CPU (plain twins) at the smoke config in
+     fp32, from the same weights.
+The line before the last is the per-kernel JSON record (all four
+kernels; ``launches`` is the total over the cascade and zoo serving
+runs, each counted from zero, and ``paths`` has each path's own count,
+shapes and times); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -39,16 +63,28 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 PEAK_FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # SSD: 1e-3 scaled by the plain output's largest magnitude when that is
 # below 1 (the served students' SSD outputs are ~1e-4; an absolute 1e-3
 # would pass a kernel that returned zeros)
 TOL = {"flash_attention": 2e-5, "decode_attention": 2e-5, "ssd_scan": 1e-3,
        "bf16": 2e-2}
 LOGIT_TOL = {"tinytf_flash": 1e-4, "ssm": 2e-3}
+# zoo rows: tolerance x max|plain| (bf16 outputs differ by at most an ulp
+# or two where two fp32 sums of another order round apart; fp32 gmm sums
+# 6144-16384 products); zoo logits: (a) the tolerance the reference gives
+# its own prefill/decode paths in bf16 (tests/test_archs_smoke.py), (b)
+# fp32 on the card vs the CPU
+ZOO_TOL = {"bf16": 1e-2, "fp32": 1e-5}
+ZOO_LOGIT_TOL = {"consistency": 6e-2, "card_vs_cpu": 1e-4}
+ZOO_ARCH = "mixtral-8x22b"
+ZOO_LAYERS = 2
+ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE = 2, 2048, 16
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:27",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:24",
+    "moe_gmm": "src/repro/kernels/moe_gmm/kernel.py:22",
 }
 SOURCE = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 
@@ -89,13 +125,20 @@ from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm.kernel import moe_gmm_cuda  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import gmm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 LAUNCHERS = {"flash_attention": flash_attention_cuda,
              "decode_attention": decode_attention_cuda,
              "ssd_scan": ssd_scan_cuda}
+ZOO_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
+                 "flash_attention": flash_attention_cuda,
+                 "decode_attention": decode_attention_cuda}
 
 
 # ---------------------------------------------------------------------------
@@ -108,10 +151,11 @@ def flash_plain(q, k, v, causal=True, window=None):
 
 
 def flash_library(q, k, v, causal=True, window=None):
-    assert window is None
+    # one SDPA call computes the function only when no window cuts in
+    assert window is None or window >= q.shape[1]
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=causal).transpose(1, 2)
+        is_causal=causal, enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
 
 
 def decode_plain(q, k, v, pos):
@@ -130,19 +174,23 @@ def decode_library(q, k, v, pos):
     mask = (pos >= 0)[:, None, None, :]
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=mask).transpose(1, 2)
+        attn_mask=mask, enable_gqa=H != k.shape[2]).transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
-# analytic bounds: max(bytes / HBM rate, FLOPs / fp32 rate)
+# analytic bounds: max(bytes / HBM rate, FLOPs / peak rate of the dtype:
+# fp32 outside the tensor cores, bf16 dense tensor cores)
 # ---------------------------------------------------------------------------
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, dtype=torch.float32):
+    """max(bytes / HBM rate, FLOPs / the peak rate of ``dtype``), in ms."""
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else PEAK_FP32_FLOP_PER_S
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -158,7 +206,7 @@ def flash_bound(q, k, v, causal=True, window=None):
         mask &= kp > qp - window
     pairs = int(mask.sum())
     flops = B * H * pairs * 4 * hd                # q.k and p.v
-    return _bound(_nbytes(q, k, v, q), flops)
+    return _bound(_nbytes(q, k, v, q), flops, q.dtype)
 
 
 def decode_bound(q, k, v, pos):
@@ -169,7 +217,7 @@ def decode_bound(q, k, v, pos):
     valid = int((pos >= 0).sum())                 # slots this data needs
     kv_bytes = 2 * valid * K * hd * k.element_size()
     flops = valid * H * 4 * hd
-    return _bound(_nbytes(q, pos, q) + kv_bytes, flops)
+    return _bound(_nbytes(q, pos, q) + kv_bytes, flops, q.dtype)
 
 
 def ssd_bound(x, adt, dt, B, C, chunk):
@@ -180,6 +228,14 @@ def ssd_bound(x, adt, dt, B, C, chunk):
     per_chunk = 2 * tri * N + 2 * tri * hp + 2 * L * hp * N + 2 * hp * N * L
     flops = Bsz * H * (S // L) * per_chunk
     return _bound(_nbytes(x, adt, dt, B, C, x), flops)
+
+
+def gmm_bound(x, w):
+    """Dense grouped product: every capacity row is computed."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    out_bytes = E * C * F * x.element_size()
+    return _bound(_nbytes(x, w) + out_bytes, 2 * E * C * D * F, x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -258,22 +314,29 @@ def capture_path_inputs(batch, tf_spec, ssm_spec, tokens, gen):
 
 
 def check(name, label, kernel_fn, plain_fn, tol, results, library_fn=None,
-          bound=None, timed=False, scaled=False):
+          bound=None, timed=False, scaled=False, relative=False, reps=20):
+    """Kernel vs plain on the same inputs.  ``scaled``: tol x min(1,
+    max|plain|); ``relative``: tol x max|plain|."""
     torch.cuda.synchronize()
     out = kernel_fn()
     torch.cuda.synchronize()
     ref = plain_fn()
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        _fail(f"{name} [{label}]: {out.dtype}{tuple(out.shape)} != plain "
+              f"{ref.dtype}{tuple(ref.shape)}")
     err = max_err(out, ref)
     if not math.isfinite(err) or not bool(torch.isfinite(out).all()):
         _fail(f"{name} [{label}]: non-finite output")
     ref_max = float(ref.float().abs().max())
     if scaled:
         tol = tol * min(1.0, ref_max)
+    if relative:
+        tol = tol * ref_max
     row = {"max_abs_err": err, "tol": tol, "max_abs_ref": ref_max}
     if timed:
-        row["kernel_ms"] = time_ms(kernel_fn)
-        row["plain_ms"] = time_ms(plain_fn)
-        row["library_ms"] = time_ms(library_fn) if library_fn else None
+        row["kernel_ms"] = time_ms(kernel_fn, reps)
+        row["plain_ms"] = time_ms(plain_fn, reps)
+        row["library_ms"] = time_ms(library_fn, reps) if library_fn else None
         row["bound_ms"], row["bound_by"] = bound
     print(f"[check] {name:16s} {label:28s} " + " ".join(
         f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
@@ -435,6 +498,363 @@ def phase_students(eng, tokens):
             _fail(f"{kind} kernel vs plain path disagree")
 
 
+# ---------------------------------------------------------------------------
+# the zoo: Mixtral-8x22B at full width, depth cut to ZOO_LAYERS
+# ---------------------------------------------------------------------------
+def zoo_model():
+    """Full-width Mixtral-8x22B cut to ZOO_LAYERS layers, weights drawn
+    on the card from a seeded generator, and the prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config(ZOO_ARCH), n_layers=ZOO_LAYERS)
+    t0 = time.time()
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    torch.cuda.synchronize()
+    batch = next(lm_batches(cfg.vocab, ZOO_BATCH, ZOO_PROMPT, 1, seed=0))
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    n = sum(t.numel() for t in tree_leaves(params))
+    print(f"[zoo] {cfg.name} at full width, {cfg.n_layers} of 56 layers: "
+          f"{n / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"built in {time.time() - t0:.2f} s; prompts "
+          f"{tuple(tokens.shape)} from lm_batches(seed=0)", flush=True)
+    return cfg, params, tokens
+
+
+def capture_zoo_inputs(cfg, params, tokens):
+    """Run one prefill and one decode step and record the inputs each
+    kernel op gets in layer 0 (the first call of each kind; for moe_gmm
+    the up and down projections of the first MoE group)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    got = {}
+    real = {"moe_gmm": moe_mod.moe_gmm,
+            "flash_attention": attn_mod.flash_attention,
+            "decode_attention": attn_mod.decode_attention}
+    stage = {"now": "prefill", "gmm_calls": 0}
+
+    def rec_gmm(x, w):
+        stage["gmm_calls"] += 1
+        k = stage["gmm_calls"]
+        if k in (1, 3):
+            got.setdefault((stage["now"], "up" if k == 1 else "down"),
+                           (x, w))
+        return real["moe_gmm"](x, w)
+
+    def rec(name):
+        def f(*args, **kw):
+            got.setdefault(name, (args, kw))
+            return real[name](*args, **kw)
+        return f
+
+    try:
+        moe_mod.moe_gmm = rec_gmm
+        attn_mod.flash_attention = rec("flash_attention")
+        attn_mod.decode_attention = rec("decode_attention")
+        with torch.no_grad():
+            last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
+            stage.update(now="decode", gmm_calls=0)
+            tfm.decode_step(params, cache, last.argmax(-1)[:, None],
+                            tokens.shape[1], cfg)
+    finally:
+        moe_mod.moe_gmm = real["moe_gmm"]
+        attn_mod.flash_attention = real["flash_attention"]
+        attn_mod.decode_attention = real["decode_attention"]
+    torch.cuda.synchronize()
+    return got
+
+
+def phase_zoo_kernels(cfg, params, tokens):
+    got = capture_zoo_inputs(cfg, params, tokens)
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def gmm_row(label, x, w, timed=True, reps=10):
+        tol = ZOO_TOL["bf16" if x.dtype == torch.bfloat16 else "fp32"]
+        check("moe_gmm", label, lambda: gmm_ops.moe_gmm(x, w),
+              lambda: gmm_ref(x, w), tol, results,
+              lambda: torch.bmm(x, w), gmm_bound(x, w), timed,
+              relative=True, reps=reps)
+
+    # captured layer-0 inputs: prefill C=640 up/down, decode C=4 up/down
+    for stage in ("prefill", "decode"):
+        for proj in ("up", "down"):
+            x, w = got[(stage, proj)]
+            _, C, D = x.shape
+            gmm_row(f"path {stage} {proj} C={C} D={D} F={w.shape[2]}",
+                    x, w)
+    # O(1) random at the path shapes, fp32, ragged
+    for stage in ("prefill", "decode"):
+        x, w = got[(stage, "up")]
+        gmm_row(f"random O(1) {stage} C={x.shape[1]}", rnd(*x.shape),
+                rnd(*w.shape), timed=False)
+    x, w = got[("prefill", "up")]
+    gmm_row(f"fp32 prefill C={x.shape[1]}", x.float(), w.float(), reps=5)
+    xd, wd = got[("decode", "up")]
+    gmm_row(f"fp32 decode C={xd.shape[1]}", xd.float(), wd.float(),
+            timed=False)
+    for E, C, D, F_ in ((3, 130, 1000, 1031), (2, 5, 777, 1029)):
+        for dt in (torch.bfloat16, torch.float32):
+            gmm_row(f"ragged E{E} C{C} D{D} F{F_} "
+                    f"{str(dt).split('.')[-1]}", rnd(E, C, D, dtype=dt),
+                    rnd(E, D, F_, dtype=dt), timed=False)
+
+    (q, k, v), kw = got["flash_attention"]
+    check("flash_attention", f"path zoo prefill S={q.shape[1]} "
+          f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
+          lambda: fl_ops.flash_attention(q, k, v, **kw),
+          lambda: flash_plain(q, k, v, **kw), ZOO_TOL["bf16"], results,
+          lambda: flash_library(q, k, v, **kw), flash_bound(q, k, v, **kw),
+          True, relative=True, reps=10)
+    qr, kr, vr = rnd(*q.shape), rnd(*k.shape), rnd(*v.shape)
+    check("flash_attention", "random O(1) zoo prefill",
+          lambda: fl_ops.flash_attention(qr, kr, vr, **kw),
+          lambda: flash_plain(qr, kr, vr, **kw), ZOO_TOL["bf16"], results,
+          relative=True)
+    (q, k, v, pos), kw = got["decode_attention"]
+    check("decode_attention", f"path zoo decode W={k.shape[1]} "
+          f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
+          lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
+          lambda: decode_plain(q, k, v, pos), ZOO_TOL["bf16"], results,
+          lambda: decode_library(q, k, v, pos),
+          decode_bound(q, k, v, pos), True, relative=True)
+    qr, kr, vr = rnd(*q.shape), rnd(*k.shape), rnd(*v.shape)
+    W = k.shape[1]
+    posr = torch.where(torch.arange(W) < W - 300, torch.arange(W),
+                       torch.full((W,), -1)).to("cuda", torch.int32)
+    check("decode_attention", "random O(1) zoo decode, 300 empty slots",
+          lambda: dec_ops.decode_attention(qr, kr, vr, posr),
+          lambda: decode_plain(qr, kr, vr, posr), ZOO_TOL["bf16"], results,
+          relative=True)
+    return results
+
+
+def _zoo_expected(cfg, n_tokens, n_decode):
+    """Launches each zoo phase implies: the prefill runs 3 grouped
+    products per MoE group and one flash call per layer, each decode step
+    3 grouped products and one decode-attention call per layer."""
+    from repro_torch.models.moe import MOE_GROUP
+    L = cfg.n_layers
+    groups = n_tokens // MOE_GROUP if n_tokens % MOE_GROUP == 0 else 1
+    return {"prefill": {"moe_gmm": 3 * groups * L, "flash_attention": L,
+                        "decode_attention": 0},
+            "decode": {"moe_gmm": 3 * L * n_decode, "flash_attention": 0,
+                       "decode_attention": L * n_decode}}
+
+
+def _zero_zoo_counts():
+    for fn in ZOO_LAUNCHERS.values():
+        fn.launches = 0
+
+
+def phase_zoo_serve(cfg, params, tokens):
+    """The zoo's serving path: prefill + ZOO_DECODE greedy steps.  Every
+    kernel's count is set to zero just before each phase and read just
+    after it, so each phase's launches are its own."""
+    from repro_torch.models import transformer as tfm
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out_tokens = []
+    launches = {}
+    with torch.no_grad():
+        _zero_zoo_counts()
+        t0 = time.perf_counter()
+        last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches["prefill"] = {n: fn.launches
+                               for n, fn in ZOO_LAUNCHERS.items()}
+        _zero_zoo_counts()
+        tok = last.argmax(-1)
+        for step in range(ZOO_DECODE):
+            out_tokens.append(tok)
+            logits, cache = tfm.decode_step(params, cache, tok[:, None],
+                                            S + step, cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches["decode"] = {n: fn.launches
+                              for n, fn in ZOO_LAUNCHERS.items()}
+    expect = _zoo_expected(cfg, B * S, ZOO_DECODE)
+    m = {"prefill_ms": (t1 - t0) * 1e3,
+         "decode_ms_per_step": (t2 - t1) * 1e3 / ZOO_DECODE,
+         "decode_tokens_per_s": B * ZOO_DECODE / (t2 - t1),
+         "prefill_tokens_per_s": B * S / (t1 - t0),
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    gen = torch.stack(out_tokens, 1)
+    print("[zoo-serve] " + " ".join(f"{k}={v:.6g}" for k, v in m.items()))
+    print(f"[zoo-serve] launches {launches} expected {expect}; greedy "
+          f"tokens row 0: {gen[0].tolist()}", flush=True)
+    for n in ZOO_LAUNCHERS:
+        if launches["prefill"][n] + launches["decode"][n] <= 0:
+            _fail(f"{n} was never launched on the zoo serving path")
+        for phase in ("prefill", "decode"):
+            if launches[phase][n] != expect[phase][n]:
+                _fail(f"{n}: {launches[phase][n]} launches in the zoo "
+                      f"{phase} != {expect[phase][n]} implied by its "
+                      f"layers, groups and steps")
+    if not bool(torch.isfinite(logits).all()) or \
+            logits.shape != (B, cfg.vocab):
+        _fail(f"zoo decode logits {tuple(logits.shape)} not finite or not "
+              f"(B, vocab)")
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        _fail("zoo greedy tokens outside the vocabulary")
+    return launches, m
+
+
+def phase_zoo_profile(cfg, params, tokens, n_decode=4):
+    """Device time of one zoo prefill and of ``n_decode`` decode steps
+    under torch.profiler: the union of kernel intervals against the wall
+    clock (idle share) and device time by kernel group."""
+    from repro_torch.launch.profile_serve import _group, _union_us
+    from repro_torch.models import transformer as tfm
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    S = tokens.shape[1]
+    state = {}
+
+    def prefill():
+        state["last"], state["cache"] = tfm.prefill(
+            params, {"tokens": tokens}, cfg)
+
+    def decode():
+        tok = state["last"].argmax(-1)
+        cache = state["cache"]
+        for step in range(n_decode):
+            logits, cache = tfm.decode_step(params, cache, tok[:, None],
+                                            S + step, cfg)
+            tok = logits.argmax(-1)
+
+    for label, fn in (("prefill", prefill),
+                      (f"decode x{n_decode}", decode)):
+        torch.cuda.synchronize()
+        with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not dev:
+            _fail(f"zoo profile [{label}]: no device events recorded")
+        busy = _union_us((e.time_range.start, e.time_range.end) for e in dev)
+        groups = {}
+        for e in dev:
+            g = _group(e.name)
+            n, tot = groups.get(g, (0, 0.0))
+            groups[g] = (n + 1, tot + e.time_range.end - e.time_range.start)
+        print(f"[zoo-profile] {label}: wall_ms={wall_us / 1e3:.6g} "
+              f"device_busy_ms={busy / 1e3:.6g} idle_share="
+              f"{1 - busy / wall_us:.4f} by_group(launches, ms)=" + str({
+                  g: (n, round(t / 1e3, 4))
+                  for g, (n, t) in sorted(groups.items(),
+                                          key=lambda kv: -kv[1][1])}),
+              flush=True)
+
+
+def phase_zoo_checks(cfg, params, tokens):
+    """(a) prefill/decode consistency at full width; (b) card vs CPU at
+    the smoke config in fp32 from the same weights."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import transformer as tfm
+    # (a) a capacity of T per expert (factor E / top_k) drops no token
+    m = cfg.moe
+    cfg_a = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    S = 256
+    tok = tokens[:, :S]
+    with torch.no_grad():
+        full, _ = tfm.prefill(params, {"tokens": tok}, cfg_a)
+        _, cache = tfm.prefill(params, {"tokens": tok[:, :S - 1]}, cfg_a,
+                               cache_len=S)
+        dec, _ = tfm.decode_step(params, cache, tok[:, S - 1:], S - 1, cfg_a)
+    torch.cuda.synchronize()
+    tol = ZOO_LOGIT_TOL["consistency"]
+    err = max_err(dec, full)
+    bad = float(((dec - full).abs() - tol * (1 + full.abs())).max())
+    print(f"[zoo-check] (a) prefill(S={S}) vs prefill(S-1)+decode_step at "
+          f"full width: max|diff| {err:.4g}, max|logit| "
+          f"{float(full.abs().max()):.4g} (atol=rtol={tol}); argmax equal: "
+          f"{bool((dec.argmax(-1) == full.argmax(-1)).all())}", flush=True)
+    if not math.isfinite(err) or bad > 0:
+        _fail(f"zoo prefill/decode disagree: max|diff| {err}")
+    # (b) smoke config in fp32: kernels on the card vs twins on the CPU
+    cfg_b = dataclasses.replace(get_smoke_config(ZOO_ARCH), dtype="float32")
+    p_cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg_b)
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.from_numpy(next(lm_batches(cfg_b.vocab, 2, 64, 1,
+                                            seed=0))["tokens"])
+    tol = ZOO_LOGIT_TOL["card_vs_cpu"]
+    n0 = {n: fn.launches for n, fn in ZOO_LAUNCHERS.items()}
+    with torch.no_grad():
+        lc, cc = tfm.prefill(p_cpu, {"tokens": toks}, cfg_b)
+        lg, cg = tfm.prefill(p_gpu, {"tokens": toks.cuda()}, cfg_b)
+        errs = [max_err(lg.cpu(), lc)]
+        same = [bool((lg.argmax(-1).cpu() == lc.argmax(-1)).all())]
+        for step in range(4):
+            nxt = lc.argmax(-1)[:, None]
+            lc, cc = tfm.decode_step(p_cpu, cc, nxt, 64 + step, cfg_b)
+            lg, cg = tfm.decode_step(p_gpu, cg, nxt.cuda(), 64 + step, cfg_b)
+            errs.append(max_err(lg.cpu(), lc))
+            same.append(bool((lg.argmax(-1).cpu() == lc.argmax(-1)).all()))
+    torch.cuda.synchronize()
+    moved = {n: fn.launches - n0[n] for n, fn in ZOO_LAUNCHERS.items()}
+    print(f"[zoo-check] (b) {cfg_b.name} fp32, card vs CPU: max|diff| per "
+          f"step {[f'{e:.3g}' for e in errs]} (tol {tol}); greedy equal "
+          f"{same}; card launches {moved}", flush=True)
+    if not all(same) or max(errs) > tol or not all(map(math.isfinite, errs)):
+        _fail("zoo card and CPU disagree at the smoke config")
+    if min(moved.values()) <= 0:
+        _fail(f"the card run of (b) skipped a kernel: {moved}")
+
+
+def _record_row(rows, launches):
+    timed = [r for _, r in rows if "kernel_ms" in r][0]
+    return {"launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for _, r in rows),
+            "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"]}
+
+
+def kernel_record(results, launches, zoo_results, zoo_launches):
+    """One entry per kernel: the top-level numbers are those of the path
+    each kernel was first ported for (cascade; moe_gmm: zoo prefill),
+    ``launches`` the total over the cascade run and the zoo's prefill and
+    decode, ``paths`` each phase's own count and numbers."""
+    record = []
+    for name in REPLACES:
+        paths = {}
+        if name in LAUNCHERS:
+            rows = [(lab, r) for lab, r in results[name]
+                    if lab.startswith("path B=64")]
+            paths["cascade"] = _record_row(rows, launches[name])
+        if name in ZOO_LAUNCHERS:
+            zrows = [(lab, r) for lab, r in zoo_results[name]
+                     if lab.startswith("path")]
+            for phase in ("prefill", "decode"):
+                rows = [x for x in zrows if phase in x[0]]
+                if rows:
+                    paths[f"zoo_{phase}"] = _record_row(
+                        rows, zoo_launches[phase][name])
+        top = dict(next(iter(paths.values())))
+        top["launches"] = launches.get(name, 0) + sum(
+            zoo_launches[phase].get(name, 0)
+            for phase in ("prefill", "decode"))
+        record.append({"name": name, "route": "cuda",
+                       "source": SOURCE[name], "replaces": REPLACES[name],
+                       **top, "paths": paths})
+    return record
+
+
 def main():
     from repro_torch.data import hash_ids, make_stream
     phase_card()
@@ -445,18 +865,14 @@ def main():
     results = phase_kernels(tokens)
     eng, launches, _ = phase_serve()
     phase_students(eng, tokens)
-    record = []
-    for name in LAUNCHERS:
-        path_rows = [r for lab, r in results[name] if lab.startswith("path")]
-        timed = path_rows[0]
-        record.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in path_rows),
-            "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
-            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"]})
-    print(json.dumps({"kernels": record}))
+    del eng
+    cfg, params, prompts = zoo_model()
+    zoo_results = phase_zoo_kernels(cfg, params, prompts)
+    zoo_launches, _ = phase_zoo_serve(cfg, params, prompts)
+    phase_zoo_profile(cfg, params, prompts)
+    phase_zoo_checks(cfg, params, prompts)
+    print(json.dumps({"kernels": kernel_record(results, launches,
+                                               zoo_results, zoo_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

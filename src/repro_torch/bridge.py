@@ -2,10 +2,17 @@
 
 The reference's ``_Level.state_tree()`` (``params``, ``opt_state`` with
 ``count`` int32 / ``m`` / ``v``, ``dparams``, ``dopt_state``) exported as
-numpy installs into a port level with ``load_level_state``, so both
-packages can start from the same numbers — ``jax.random`` bits cannot be
-reproduced with ``torch.Generator``.  Structure and shapes must match the
-port level's own state exactly; a mismatch raises.
+numpy installs into a port level with ``load_level_state``, and the
+reference zoo's ``transformer.init_params`` tree becomes the port's with
+``load_zoo_params``, so both packages can start from the same numbers —
+``jax.random`` bits cannot be reproduced with ``torch.Generator``.
+Structure, shapes and dtypes must match the port's own exactly; a
+mismatch raises.
+
+A bfloat16 array exported from JAX has numpy dtype
+``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses; its bits go
+through int16 and are viewed as ``torch.bfloat16`` (bit-exact, and no
+``ml_dtypes`` import here).
 """
 from __future__ import annotations
 
@@ -15,16 +22,25 @@ import numpy as np
 import torch
 
 from repro_torch.core.cascade import STATE_ATTRS
+from repro_torch.models.transformer import init_params
+from repro_torch.tree import tree_map
+
+
+def _leaf_to_torch(arr) -> torch.Tensor:
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def to_torch(tree: Any, device) -> Any:
-    """numpy leaves -> torch tensors on ``device``, keeping dtype and the
-    dict / list / tuple structure."""
+    """numpy leaves -> torch tensors on ``device``, keeping dtype (bfloat16
+    included) and the dict / list / tuple structure."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(device)
+    return _leaf_to_torch(tree).to(device)
 
 
 def to_numpy(tree: Any) -> Any:
@@ -61,3 +77,13 @@ def load_level_state(level, tree: dict) -> None:
         cur = getattr(level, attr)
         _check_like(new, cur, attr)
         setattr(level, attr, new)
+
+
+def load_zoo_params(tree_np: dict, cfg, device) -> dict:
+    """The reference zoo's ``init_params(key, cfg)`` tree exported as numpy
+    -> the port's parameter tree on ``device``.  Every path, shape and
+    dtype is checked against the port's own ``init_params(None, cfg)``
+    (shapes only, on the meta device)."""
+    new = to_torch(tree_np, "cpu")
+    _check_like(new, init_params(None, cfg), "params")
+    return tree_map(lambda t: t.to(device), new)

@@ -1,4 +1,13 @@
-"""Model configuration dataclasses (subset of ``repro.configs``)."""
-from repro_torch.configs.base import ModelConfig, SSMConfig
+"""Model configurations (port of ``repro.configs``; only Mixtral-8x22B
+is registered so far)."""
+from repro_torch.configs.base import (
+    ATTN, CROSS, MAMBA,
+    AttnConfig, ModelConfig, MoEConfig, SSMConfig,
+    get_config, get_smoke_config, list_architectures, register,
+)
 
-__all__ = ["ModelConfig", "SSMConfig"]
+__all__ = [
+    "ATTN", "CROSS", "MAMBA",
+    "AttnConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+    "get_config", "get_smoke_config", "list_architectures", "register",
+]

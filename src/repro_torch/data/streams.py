@@ -15,10 +15,10 @@ this offline container, so we generate seeded token streams that expose the
 The expert LLM is simulated as ground truth + a per-dataset error rate
 matched to the paper's Table 1 LLM rows, biased toward long inputs.
 
-The port's copy of ``repro.data.streams`` (stream generation only; the
-LM-pretraining batches and arrival schedules are not ported yet).  The
-tests pin ``make_stream`` docs, labels and expert labels bit-for-bit
-against the reference.
+The port's copy of ``repro.data.streams`` (stream generation and the
+LM batches the zoo's prompts come from; the arrival schedules are not
+ported yet).  The tests pin ``make_stream`` docs, labels and expert
+labels, and ``lm_batches``, bit-for-bit against the reference.
 """
 from __future__ import annotations
 
@@ -253,3 +253,26 @@ def make_stream(name: str, seed: int = 0,
                     lengths=np.array([len(d) for d in docs], np.int32),
                     seed=seed)
     return stream.reorder(order)
+
+
+# ---------------------------------------------------------------------------
+# LM pretraining corpus (the zoo's prompts)
+# ---------------------------------------------------------------------------
+def lm_batches(vocab: int, batch: int, seq: int, steps: int, seed: int = 0):
+    """Synthetic LM batches: Zipf tokens with Markov bigram structure so the
+    loss has learnable signal."""
+    rng = np.random.default_rng(seed)
+    n_states = 64
+    trans = rng.dirichlet(np.ones(n_states) * 0.2, size=n_states)
+    emit_base = rng.integers(0, max(vocab - n_states * 8, 1), size=n_states)
+    for _ in range(steps):
+        toks = np.empty((batch, seq + 1), np.int32)
+        state = rng.integers(0, n_states, size=batch)
+        for t in range(seq + 1):
+            offs = rng.integers(0, 8, size=batch)
+            toks[:, t] = (emit_base[state] + offs) % vocab
+            nxt = np.empty_like(state)
+            for b in range(batch):
+                nxt[b] = rng.choice(n_states, p=trans[state[b]])
+            state = nxt
+        yield {"tokens": toks[:, :-1], "targets": toks[:, 1:]}

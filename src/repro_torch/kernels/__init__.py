@@ -4,17 +4,20 @@ ported from the TPU kernels of ``repro.kernels``:
   flash_attention/  — prefill attention, causal + sliding-window + GQA
   decode_attention/ — single-token GQA attention over a (ring) KV cache
   ssd_scan/         — Mamba2 chunked state-space-dual scan
+  moe_gmm/          — grouped expert matmul (E, C, D) x (E, D, F) of the
+                      MoE FFN
 
 Each package ships three files, as in the reference:
   kernel.py — the ctypes launcher of the CUDA source in ``csrc/`` (with
               its launch counter)
-  ops.py    — the public op with the reference's signature: a CUDA
-              tensor launches the kernel or raises, a CPU tensor runs the
-              plain twin
+  ops.py    — the public op with the reference's signature (less
+              ``moe_gmm``'s TPU tiling arguments): a CUDA tensor launches
+              the kernel or raises, a CPU tensor runs the plain twin
   ref.py    — the plain PyTorch twin, held against the JAX ``ref.py`` on
               the CPU and against the kernel on the card
 
-``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.  The TPU
-``moe_gmm`` kernel has no consumer on the cascade path and is not ported
-yet (ROADMAP).
+``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.  Every TPU
+kernel of the reference has its counterpart here: the first three serve
+the cascade's kernel ladder, and all but the SSD scan serve the zoo's
+Mixtral-8x22B (``models/transformer.py``).
 """

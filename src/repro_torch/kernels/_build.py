@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
+           "moe_gmm.cu")
 HEADERS = ("common.cuh",)
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",

@@ -1,0 +1,45 @@
+"""Launcher of the CUDA grouped-matmul kernel (``csrc/moe_gmm.cu``;
+replaces the TPU kernel ``repro/kernels/moe_gmm/kernel.py``
+``_gmm_kernel``).
+
+``moe_gmm_cuda`` checks its inputs, allocates the output, and launches on
+PyTorch's current stream; ``moe_gmm_cuda.launches`` counts its launches
+(and nothing else), so a run can show that its MoE layers went through
+the kernel."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def moe_gmm_cuda(x, w) -> torch.Tensor:
+    """x: (E, C, D); w: (E, D, F) CUDA tensors of one dtype (fp32 or
+    bf16), any strides, any C / D / F.  Returns a contiguous (E, C, F)
+    tensor of x's dtype (fp32 accumulation)."""
+    if not (x.is_cuda and w.is_cuda):
+        raise ValueError("moe_gmm_cuda takes CUDA tensors")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"moe_gmm_cuda takes fp32 or bf16 x/w of one dtype, "
+                        f"got {x.dtype}/{w.dtype}")
+    if x.ndim != 3 or w.ndim != 3 or w.shape[:2] != (x.shape[0], x.shape[2]):
+        raise ValueError(f"bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+    E, C, D = x.shape
+    F = w.shape[2]
+    o = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    if o.numel() == 0:
+        return o
+    ci = _build.c_int
+    fn = _build.entry("repro_moe_gmm_fwd", 3, 11)
+    err = fn(x.data_ptr(), w.data_ptr(), o.data_ptr(), _DTYPES[x.dtype],
+             ci(E), ci(C), ci(D), ci(F), *(ci(s) for s in x.stride()),
+             *(ci(s) for s in w.stride()),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("moe_gmm", err)
+    moe_gmm_cuda.launches += 1
+    return o
+
+
+moe_gmm_cuda.launches = 0

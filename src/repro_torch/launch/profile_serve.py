@@ -31,7 +31,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.serve import _ladder_config
 
 OURS = {"flash_fwd_kernel": "flash_attention",
-        "decode_kernel": "decode_attention", "ssd_kernel": "ssd_scan"}
+        "decode_kernel": "decode_attention", "ssd_kernel": "ssd_scan",
+        "gmm_kernel": "moe_gmm"}
 GEMM_MARKS = ("gemm", "cutlass", "sm90_xmma", "cublas")
 
 

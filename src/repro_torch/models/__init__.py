@@ -1,2 +1,3 @@
-"""Cascade students (port of ``repro.models``: the LR student and the
-kernel-path ``tinytf_flash`` / ``ssm`` levels)."""
+"""Models (port of ``repro.models``): the cascade students (the LR
+student and the kernel-path ``tinytf_flash`` / ``ssm`` levels) and the
+zoo's serving path (``transformer``, ``attention``, ``moe``, ``layers``)."""

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.configs.base import MAMBA, ModelConfig, SSMConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import flash_attention
@@ -199,8 +199,8 @@ def ssm_model_config(spec: SSMStudentSpec) -> ModelConfig:
     """The internal ``ModelConfig`` driving ``models.ssm`` for this
     student (one mamba block per layer, float32)."""
     return ModelConfig(
-        name="ssm-student", n_layers=spec.n_layers, d_model=spec.d_model,
-        vocab=spec.vocab,
+        name="ssm-student", family="ssm", n_layers=spec.n_layers,
+        d_model=spec.d_model, d_ff=0, vocab=spec.vocab, period=(MAMBA,),
         ssm=SSMConfig(d_state=spec.d_state, d_conv=spec.d_conv,
                       expand=spec.expand, head_dim=spec.head_dim,
                       chunk=spec.chunk),

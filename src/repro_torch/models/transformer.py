@@ -1,0 +1,347 @@
+"""Model assembly for the zoo's serving path (port of
+``repro.models.transformer``): period blocks, stacks over periods, and
+the LM API.
+
+Every architecture is a repeating ``period`` of blocks (see
+``configs.base``).  Parameters and KV caches are stacked over
+``n_periods`` on a leading axis, in the reference's tree
+(``blocks/b0/...``), and the reference's ``lax.scan`` over periods is a
+loop over that axis.  Attention runs on the port's flash-attention
+(prefill) and decode-attention (ring cache) kernels, MoE FFNs on its
+``moe_gmm`` kernel; everything else is plain PyTorch.
+
+Public API (all functional: inputs are not modified):
+  init_params(gen, cfg)                        -> params
+  forward(params, batch, cfg)                  -> (logits, aux)
+  prefill(params, batch, cfg, cache_len)       -> (last_logits, cache)
+  decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
+
+``CROSS`` and ``MAMBA`` blocks, ``encode``, ``train_loss`` and ``remat``
+raise ``NotImplementedError`` (ROADMAP Queue 1 item 15), and there is no
+mesh, so the reference's sharding constraints are dropped.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+import repro_torch.device  # noqa: F401  (IEEE fp32 products, no TF32)
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.models.attention import (prefill_attention,
+                                          ring_decode_attention, rope)
+from repro_torch.models.layers import (
+    apply_mlp, apply_norm, dense_init, embed, init_embed, init_lm_head,
+    init_mlp, init_norm, lm_logits, param_device, rms_norm_headwise)
+from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.tree import tree_map
+
+_WAITS = ("is not ported yet (ROADMAP Queue 1 item 15: CROSS / MAMBA "
+          "blocks, the encoder, train_loss and remat)")
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} {_WAITS}")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def _init_attn(gen, cfg: ModelConfig):
+    a = cfg.attn
+    d = cfg.d_model
+    dt = cfg.torch_dtype
+    p = {
+        "wq": dense_init(gen, d, a.n_heads * a.head_dim, dt),
+        "wk": dense_init(gen, d, a.n_kv_heads * a.head_dim, dt),
+        "wv": dense_init(gen, d, a.n_kv_heads * a.head_dim, dt),
+        "wo": dense_init(gen, a.n_heads * a.head_dim, d, dt),
+    }
+    if a.qk_norm:
+        p["q_scale"] = torch.ones((a.head_dim,), device=param_device(gen))
+        p["k_scale"] = torch.ones((a.head_dim,), device=param_device(gen))
+    return p
+
+
+def _ffn_kind(cfg: ModelConfig, period_idx: int) -> Optional[str]:
+    if cfg.moe is not None and period_idx in cfg.moe_period_idx:
+        return "moe"
+    if cfg.d_ff > 0:
+        return "mlp"
+    return None
+
+
+def _init_block(gen, cfg: ModelConfig, period_idx: int):
+    kind = cfg.period[period_idx]
+    dev = param_device(gen)
+    p = {"norm1": init_norm(cfg, device=dev)}
+    if kind == ATTN:
+        p["attn"] = _init_attn(gen, cfg)
+    else:
+        _not_ported(f"a {kind!r} block")
+    ffn = _ffn_kind(cfg, period_idx)
+    if ffn == "moe":
+        p["norm2"] = init_norm(cfg, device=dev)
+        p["moe"] = init_moe(gen, cfg)
+    elif ffn == "mlp":
+        p["norm2"] = init_norm(cfg, device=dev)
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
+
+
+def _init_period_stack(gen, cfg: ModelConfig, n_periods: int):
+    """Stacked params: {'b{i}': leaves with leading (n_periods,) dim}."""
+    blocks = {}
+    for i in range(len(cfg.period)):
+        per = [_init_block(gen, cfg, i) for _ in range(n_periods)]
+        blocks[f"b{i}"] = tree_map(lambda *xs: torch.stack(xs), *per)
+    return blocks
+
+
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig):
+    """Full zoo-model parameter tree (embed, block stack, head), drawn
+    from ``gen`` on its device; ``gen=None`` gives the tree's shapes and
+    dtypes on the ``meta`` device.  Same shapes, dtypes and stds as the
+    reference; not its ``jax.random`` numbers."""
+    params = {
+        "embed": init_embed(gen, cfg),
+        "final_norm": init_norm(cfg, device=param_device(gen)),
+        "blocks": _init_period_stack(gen, cfg, cfg.n_periods),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_lm_head(gen, cfg)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Sublayers
+# ---------------------------------------------------------------------------
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    a = cfg.attn
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, a.n_heads, a.head_dim)
+    k = (x @ p["wk"]).reshape(B, S, a.n_kv_heads, a.head_dim)
+    v = (x @ p["wv"]).reshape(B, S, a.n_kv_heads, a.head_dim)
+    if a.qk_norm:
+        q = rms_norm_headwise(q, p["q_scale"])
+        k = rms_norm_headwise(k, p["k_scale"])
+    q = rope(q, positions, a.rope_theta)
+    k = rope(k, positions, a.rope_theta)
+    return q, k, v
+
+
+def _attn_out(p, out, cfg: ModelConfig):
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def _self_attn_full(p, h, cfg: ModelConfig, causal=True, q_offset=0):
+    """Full-sequence causal self-attention (prefill / teacher-forced
+    forward).  Returns (out, (k, v)) so prefill can build caches."""
+    if not causal:
+        _not_ported("non-causal (encoder) self-attention")
+    S = h.shape[1]
+    positions = q_offset + torch.arange(S, device=h.device)
+    x = apply_norm(p["norm1"], h, cfg)
+    q, k, v = _project_qkv(p["attn"], x, cfg, positions)
+    out = prefill_attention(q, k, v, window=cfg.attn.window,
+                            q_offset=q_offset)
+    return _attn_out(p["attn"], out, cfg), (k, v)
+
+
+def _self_attn_decode(p, h, cfg: ModelConfig, cache, pos: int):
+    """One-token self-attention against the (ring-buffer) cache.
+
+    cache: {'k': (B, W, K, hd), 'v': ..., 'pos': (W,) int32}; the new
+    cache is a copy with slot ``pos % W`` written."""
+    x = apply_norm(p["norm1"], h, cfg)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
+    q, k, v = _project_qkv(p["attn"], x, cfg, positions)
+    W = cache["k"].shape[1]
+    slot = pos % W
+    ck, cv, cpos = (cache[n].clone() for n in ("k", "v", "pos"))
+    ck[:, slot] = k[:, 0]
+    cv[:, slot] = v[:, 0]
+    cpos[slot] = pos
+    out = ring_decode_attention(q, ck, cv, kv_positions=cpos,
+                                window=cfg.attn.window)
+    return _attn_out(p["attn"], out, cfg), {"k": ck, "v": cv, "pos": cpos}
+
+
+def _ffn(p, h, cfg: ModelConfig, period_idx: int):
+    """Returns (delta, aux_loss)."""
+    kind = _ffn_kind(cfg, period_idx)
+    if kind is None:
+        return torch.zeros_like(h), torch.zeros((), device=h.device)
+    x = apply_norm(p["norm2"], h, cfg)
+    if kind == "moe":
+        return moe_ffn(x, p["moe"], cfg)
+    return apply_mlp(p["mlp"], x, cfg), torch.zeros((), device=h.device)
+
+
+# ---------------------------------------------------------------------------
+# Period application (one step of the loop over periods)
+# ---------------------------------------------------------------------------
+def _apply_period_full(pp, h, cfg: ModelConfig, memory, mode: str,
+                       cache_len: int = 0):
+    """Apply one period in full-sequence mode.  Returns (h, aux, caches)."""
+    del memory      # only CROSS blocks read it
+    aux_total = torch.zeros((), device=h.device)
+    caches = {}
+    for i, kind in enumerate(cfg.period):
+        p = pp[f"b{i}"]
+        c = {}
+        if kind != ATTN:
+            _not_ported(f"a {kind!r} block")
+        out, (k, v) = _self_attn_full(p, h, cfg, causal=cfg.attn.causal)
+        h = h + out
+        if mode == "prefill":
+            c.update(_build_kv_cache(k, v, cfg, cache_len))
+        delta, aux = _ffn(p, h, cfg, i)
+        h = h + delta
+        aux_total = aux_total + aux
+        if mode == "prefill":
+            caches[f"b{i}"] = c
+    return h, aux_total, caches
+
+
+def _build_kv_cache(k, v, cfg: ModelConfig, cache_len: int):
+    """Turn prefill K/V (B, S, K, hd) into a ring cache of length cache_len.
+
+    All production shapes keep S a multiple of the window, so the ring
+    layout slot = pos % W reduces to a plain slice of the last W tokens.
+    """
+    S = k.shape[1]
+    W = cache_len
+    dev = k.device
+    if S >= W:
+        assert S % W == 0, (S, W)
+        ck, cv = k[:, S - W:], v[:, S - W:]
+        cpos = torch.arange(S - W, S, dtype=torch.int32, device=dev)
+    else:
+        pad = W - S
+        ck = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        cv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        cpos = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
+                          torch.full((pad,), -1, dtype=torch.int32,
+                                     device=dev)])
+    return {"k": ck, "v": cv, "pos": cpos}
+
+
+def _apply_period_decode(pp, h, cfg: ModelConfig, cache, pos: int):
+    """One period, one token.  Returns (h, new_cache)."""
+    new_cache = {}
+    for i, kind in enumerate(cfg.period):
+        p = pp[f"b{i}"]
+        if kind != ATTN:
+            _not_ported(f"a {kind!r} block")
+        out, nc = _self_attn_decode(p, h, cfg, cache[f"b{i}"], pos)
+        h = h + out
+        delta, _ = _ffn(p, h, cfg, i)
+        h = h + delta
+        new_cache[f"b{i}"] = nc
+    return h, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Stacks (loops over periods)
+# ---------------------------------------------------------------------------
+def _n_stacked(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _take(tree, i: int):
+    return tree_map(lambda t: t[i], tree)
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _stack_full(params_blocks, h, cfg: ModelConfig, memory, mode: str,
+                cache_len: int = 0, remat: bool = False):
+    if remat:
+        _not_ported("remat")
+    aux = torch.zeros((), device=h.device)
+    caches = []
+    for i in range(_n_stacked(params_blocks)):
+        h, aux_i, c = _apply_period_full(_take(params_blocks, i), h, cfg,
+                                         memory, mode, cache_len)
+        aux = aux + aux_i
+        caches.append(c)
+    return h, aux, _stack(caches)
+
+
+def _stack_decode(params_blocks, h, cfg: ModelConfig, cache, pos: int):
+    caches = []
+    for i in range(_n_stacked(params_blocks)):
+        h, nc = _apply_period_decode(_take(params_blocks, i), h, cfg,
+                                     _take(cache, i), pos)
+        caches.append(nc)
+    return h, _stack(caches)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+def encode(params, frames, cfg: ModelConfig):
+    """Encoder forward (enc-dec archs): not ported yet."""
+    _not_ported("encode")
+
+
+def _memory_from_batch(params, batch, cfg: ModelConfig):
+    if "frames" in batch or "image_embeds" in batch:
+        _not_ported("encoder / image memory")
+    return None
+
+
+def forward(params, batch, cfg: ModelConfig, remat: bool = False):
+    """Teacher-forced decoder forward.  Returns (logits, aux)."""
+    tokens = batch["tokens"]
+    memory = _memory_from_batch(params, batch, cfg)
+    h = embed(params["embed"], tokens, cfg)
+    h, aux, _ = _stack_full(params["blocks"], h, cfg, memory, mode="train",
+                            remat=remat)
+    h = apply_norm(params["final_norm"], h, cfg)
+    logits = lm_logits(params.get("lm_head", {}), params["embed"], h, cfg)
+    return logits, aux
+
+
+def train_loss(params, batch, cfg: ModelConfig, remat: bool = True,
+               loss_chunk: int = 0):
+    """Teacher-forced LM loss: not ported yet."""
+    _not_ported("train_loss")
+
+
+def prefill(params, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
+    """Process the prompt, build caches.  Returns (last_logits, cache).
+
+    cache_len defaults to prompt length (full attention) or the attention
+    window (SWA archs).
+    """
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    if cache_len is None:
+        cache_len = S if cfg.attn is None or cfg.attn.window is None \
+            else min(S, cfg.attn.window)
+    memory = _memory_from_batch(params, batch, cfg)
+    h = embed(params["embed"], tokens, cfg)
+    h, _, caches = _stack_full(params["blocks"], h, cfg, memory,
+                               mode="prefill", cache_len=cache_len)
+    h_last = apply_norm(params["final_norm"], h[:, -1:], cfg)
+    logits = lm_logits(params.get("lm_head", {}), params["embed"], h_last,
+                       cfg)
+    return logits[:, 0], caches
+
+
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
+    """One decode step.  tokens: (B, 1) int; pos: int (the absolute
+    position being written).  Returns (logits (B, V), new_cache)."""
+    pos = int(pos)
+    h = embed(params["embed"], tokens, cfg)
+    h, new_cache = _stack_decode(params["blocks"], h, cfg, cache, pos)
+    h = apply_norm(params["final_norm"], h, cfg)
+    logits = lm_logits(params.get("lm_head", {}), params["embed"], h, cfg)
+    return logits[:, 0], new_cache

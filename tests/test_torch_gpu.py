@@ -3,10 +3,13 @@
 Run on a GPU machine with
   python -m pytest -q -m gpu tests/test_torch_gpu.py
 Each kernel is held against its plain PyTorch twin on the same CUDA
-inputs (fp32 2e-5 for attention, 1e-3 for the SSD scan, bf16 2e-2), its
-launch counter must move by exactly one per call, and a CPU tensor must
-never reach it.  The CUDA engine must route a short stream like the CPU
-engine does.  Nothing here imports JAX (the GPU machine has none).
+inputs (fp32 2e-5 for attention, 1e-3 for the SSD scan, bf16 2e-2; the
+grouped matmul 1e-5 (fp32) and 1e-2 (bf16) of the twin's largest
+magnitude), its launch counter must move by exactly one per call, and a
+CPU tensor must never reach it.  The CUDA engine must route a short
+stream like the CPU engine does, and the zoo's smoke model must serve
+on the card as on the CPU.  Nothing here imports JAX (the GPU machine
+has none).
 """
 import numpy as np
 import pytest
@@ -21,6 +24,9 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
+from repro_torch.kernels.moe_gmm.kernel import moe_gmm_cuda  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import gmm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref  # noqa: E402
@@ -115,8 +121,85 @@ def test_ssd_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk):
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("E,C,D,F,dtype", [
+    (8, 4, 512, 1024, torch.bfloat16),     # decode tile (C <= 8)
+    (4, 64, 256, 512, torch.float32),      # tests/test_kernels.py shapes
+    (8, 32, 128, 128, torch.float32),
+    (2, 128, 512, 256, torch.float32),
+    (3, 130, 100, 257, torch.bfloat16),    # ragged C, D, F
+    (2, 5, 33, 9, torch.float32),
+    (1, 1, 1, 1, torch.float32),
+])
+def test_gmm_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    gen = torch.Generator().manual_seed(3)
+    x = _randn(gen, E, C, D, dtype=dtype)
+    w = _randn(gen, E, D, F, dtype=dtype)
+    n0 = moe_gmm_cuda.launches
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gmm_cuda.launches == n0 + 1
+    ref = gmm_ref(x, w)
+    assert out.dtype == ref.dtype and out.shape == (E, C, F)
+    tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * \
+        float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    # strided views read through their strides
+    xt = _randn(gen, E, D, C, dtype=dtype).transpose(1, 2)
+    wt = _randn(gen, E, F, D, dtype=dtype).transpose(1, 2)
+    ref = gmm_ref(xt, wt)
+    tol = (1e-2 if dtype == torch.bfloat16 else 1e-5) * \
+        float(ref.float().abs().max())
+    torch.testing.assert_close(moe_gmm(xt, wt).float(), ref.float(),
+                               atol=tol, rtol=0)
+
+
+def test_expert_ffn_kernel_matches_plain(cuda):
+    """The model's expert FFN (``models/moe.py`` ``_expert_ffn``) on the
+    card (three kernel launches) vs on the CPU (the twins)."""
+    from repro_torch.models.moe import _expert_ffn
+    gen = torch.Generator().manual_seed(4)
+    E, C, D, F = 4, 64, 128, 256
+    x = _randn(gen, E, C, D)
+    p = {"w_in": 0.05 * _randn(gen, E, D, F),
+         "w_gate": 0.05 * _randn(gen, E, D, F),
+         "w_out": 0.05 * _randn(gen, E, F, D)}
+    n0 = moe_gmm_cuda.launches
+    out = _expert_ffn(x, p, None)
+    torch.cuda.synchronize()
+    assert moe_gmm_cuda.launches == n0 + 3
+    ref = _expert_ffn(x.cpu(), {n: t.cpu() for n, t in p.items()}, None)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_zoo_smoke_model_serves_like_the_cpu(cuda):
+    """mixtral-8x22b-smoke in fp32: prefill and 3 greedy decode steps on
+    the card (kernels) and the CPU (twins) from the same weights."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x22b"),
+                              dtype="float32")
+    p_cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    n0 = moe_gmm_cuda.launches
+    with torch.no_grad():
+        lc, cc = tfm.prefill(p_cpu, {"tokens": toks}, cfg)
+        lg, cg = tfm.prefill(p_gpu, {"tokens": toks.cuda()}, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        for step in range(3):
+            nxt = lc.argmax(-1)[:, None]
+            lc, cc = tfm.decode_step(p_cpu, cc, nxt, 64 + step, cfg)
+            lg, cg = tfm.decode_step(p_gpu, cg, nxt.cuda(), 64 + step, cfg)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    assert moe_gmm_cuda.launches == n0 + 3 * cfg.n_layers * 4
+
+
 def test_cpu_tensors_never_reach_the_kernels(cuda):
-    counters = (flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda)
+    counters = (flash_attention_cuda, decode_attention_cuda, ssd_scan_cuda,
+                moe_gmm_cuda)
     before = [c.launches for c in counters]
     q = torch.randn((1, 16, 2, 8))
     flash_attention(q, q, q)
@@ -124,6 +207,7 @@ def test_cpu_tensors_never_reach_the_kernels(cuda):
     a = torch.randn((1, 16, 2)) * 0.1
     b = torch.randn((1, 16, 4))
     ssd_scan(q, -a.abs(), a.abs(), b, b, chunk=8)
+    moe_gmm(torch.randn((2, 4, 8)), torch.randn((2, 8, 16)))
     assert [c.launches for c in counters] == before
 
 

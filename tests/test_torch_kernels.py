@@ -5,10 +5,13 @@ PyTorch twin; the JAX op runs its Pallas kernel in interpret mode, as the
 JAX package's own tests run it.  Inputs are made with numpy from a seed
 and handed to both.  Tolerances: 2e-5 fp32 / 2e-2 bf16 for flash and
 decode attention, 2e-3 for the SSD scan against ``ssd_scan_ref`` (the
-tolerances the JAX package pins between its own op and ref).  Cases: the
-kernel ladder's CI shapes plus the edge cases the CUDA kernels are held
-to on the card (window, non-causal, GQA, bf16, head dim 120, garbage in
-empty ring slots, a (W,) pos).
+tolerances the JAX package pins between its own op and ref), 1e-4 for
+the fp32 grouped matmul (sums of up to 512 fp32 products in another
+order; the JAX package pins 1e-3) and one bf16 ulp (2**-7 relative) for
+bf16.  Cases: the kernel ladder's CI shapes, the grouped-matmul shapes
+of ``tests/test_kernels.py`` plus ragged ones, and the edge cases the
+CUDA kernels are held to on the card (window, non-causal, GQA, bf16,
+head dim 120, garbage in empty ring slots, a (W,) pos).
 """
 import numpy as np
 import pytest
@@ -23,12 +26,20 @@ from repro.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref as j_decode_ref)
 from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_ref as j_attn_ref  # noqa: E402
+from repro.kernels.moe_gmm import moe_expert_ffn as j_expert_ffn  # noqa: E402
+from repro.models.moe import _expert_ffn as j_model_expert_ffn  # noqa: E402
+from repro.kernels.moe_gmm import moe_gmm as j_gmm  # noqa: E402
+from repro.kernels.moe_gmm.ref import expert_ffn_ref as j_expert_ffn_ref  # noqa: E402
+from repro.kernels.moe_gmm.ref import gmm_ref as j_gmm_ref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_scan as j_ssd  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as j_ssd_ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import moe_gmm  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import gmm_ref  # noqa: E402
+from repro_torch.models.moe import _expert_ffn  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_scan_chunked_ref, ssd_scan_ref)
@@ -201,6 +212,85 @@ def test_ssd_rejects_ragged_sequence():
 
 
 # ---------------------------------------------------------------------------
+# grouped matmul (moe_gmm)
+# ---------------------------------------------------------------------------
+GMM_TOL = 1e-4
+GMM_SHAPES = [(4, 64, 256, 512), (8, 32, 128, 128), (2, 128, 512, 256)]
+
+
+@pytest.mark.parametrize("shape", GMM_SHAPES)
+def test_gmm_plain_matches_jax(shape):
+    """The shapes of ``tests/test_kernels.py``; the JAX op runs its Pallas
+    kernel in interpret mode (block sizes do not change its result)."""
+    E, C, D, F = shape
+    rng = np.random.default_rng(500 + GMM_SHAPES.index(shape))
+    x = _np(rng, E, C, D)
+    w = (0.05 * _np(rng, E, D, F)).astype(np.float32)
+    out = moe_gmm(_t(x), _t(w))
+    assert out.shape == (E, C, F) and out.dtype == torch.float32
+    j_op = j_gmm(_j(x), _j(w), block_c=min(C, 64), block_f=128,
+                 block_d=128)
+    for want in (j_op, j_gmm_ref(_j(x), _j(w))):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want),
+                                   atol=GMM_TOL, rtol=GMM_TOL)
+    assert torch.equal(out, gmm_ref(_t(x), _t(w)))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_expert_ffn_plain_matches_jax(bf16):
+    """The MoE expert FFN the model serves (``models/moe.py``
+    ``_expert_ffn``: three ``moe_gmm`` products, SiLU * h in the model
+    dtype) against the reference model's ``_expert_ffn``; in fp32 also
+    against the JAX op ``moe_expert_ffn`` (Pallas, interpret mode) and
+    ``expert_ffn_ref``, whose fp32 SiLU * h is the same there."""
+    E, C, D, F = 4, 64, 128, 256
+    rng = np.random.default_rng(510 + bf16)
+    x = _np(rng, E, C, D)
+    w_in, w_g = (0.05 * _np(rng, E, D, F) for _ in range(2))
+    w_o = 0.05 * _np(rng, E, F, D)
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    names = ("w_in", "w_gate", "w_out")
+    p_t = {n: _t(a, tdt) for n, a in zip(names, (w_in, w_g, w_o))}
+    p_j = {n: _j(a, jdt) for n, a in zip(names, (w_in, w_g, w_o))}
+    out = _expert_ffn(_t(x, tdt), p_t, None)
+    assert out.dtype == tdt and out.shape == (E, C, D)
+    wants = [j_model_expert_ffn(_j(x, jdt), p_j, None)]
+    if not bf16:
+        args_j = [_j(x)] + [p_j[n] for n in names]
+        wants += [j_expert_ffn(*args_j), j_expert_ffn_ref(*args_j)]
+    got = out.float().numpy()
+    for want in wants:
+        want = np.asarray(want, np.float32)
+        if bf16:     # one bf16 ulp of the output's largest magnitude
+            tol = 2.0 ** -7 * float(np.abs(want).max())
+            np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+        else:
+            np.testing.assert_allclose(got, want, atol=GMM_TOL,
+                                       rtol=GMM_TOL)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7, 9), (2, 1, 130, 129),
+                                   (1, 129, 33, 17), (2, 4, 0, 8)])
+def test_gmm_plain_ragged_and_strided(shape):
+    """Any C, D and F (the CUDA kernel masks its ragged edges; the TPU
+    kernel asserts divisibility), strided inputs, and an empty
+    contraction, against the port's own fp32 einsum."""
+    E, C, D, F = shape
+    rng = np.random.default_rng(sum(shape))
+    x, w = _t(_np(rng, E, C, D)), _t(_np(rng, E, D, F))
+    want = torch.einsum("ecd,edf->ecf", x.double(), w.double())
+    np.testing.assert_allclose(moe_gmm(x, w).numpy(), want.numpy(),
+                               atol=GMM_TOL, rtol=GMM_TOL)
+    xt = _t(_np(rng, E, D, C)).transpose(1, 2)         # (E, C, D) view
+    wt = _t(_np(rng, E, F, D)).transpose(1, 2)         # (E, D, F) view
+    np.testing.assert_allclose(
+        moe_gmm(xt, wt).numpy(),
+        torch.einsum("ecd,edf->ecf", xt.double(), wt.double()).numpy(),
+        atol=GMM_TOL, rtol=GMM_TOL)
+
+
+# ---------------------------------------------------------------------------
 # dispatch: a non-CPU tensor never takes the plain path
 # ---------------------------------------------------------------------------
 def test_meta_tensors_go_to_the_kernel_launcher_and_raise():
@@ -217,3 +307,10 @@ def test_meta_tensors_go_to_the_kernel_launcher_and_raise():
     b = torch.empty((1, 8, 2), device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_scan(q, a, a, b, b, chunk=8)
+    x = torch.empty((2, 4, 8), device="meta")
+    w = torch.empty((2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        moe_gmm(x, w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _expert_ffn(x, {"w_in": w, "w_gate": w,
+                        "w_out": w.transpose(1, 2)}, None)
