@@ -6,7 +6,8 @@ ladder end to end at full width, and checks the served students.
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+     print ptxas's registers, static shared memory and spills for each;
   3. each kernel against its plain version on the card — at the serving
      shapes (batch 64 and the smallest bucket, 8; inputs captured from
      the students' own forwards) and at the edge cases (flash: window,
@@ -15,11 +16,13 @@ Phases (any failure exits non-zero and prints no result line):
      inputs at the path shape, its tolerance scaled to the plain
      output's magnitude where that is below 1) — with the kernel's,
      the plain version's and, where one PyTorch call computes the same
-     function, that call's time, beside the analytic bound;
+     function, that call's time, beside the analytic bound.  Every flash
+     row here must take the scalar ("simt") variant;
   4. ``serve_stream_batched`` on the ``kernel`` ladder (lr ->
      tinytf_flash -> ssm at the default widths), imdb, batch 64, 2048
      items, simulated expert: every kernel's launch count over this run
-     must be > 0 and equal the layers x forwards the engine counted;
+     must be > 0 and equal the layers x forwards the engine counted, and
+     every (fp32) flash launch must have taken the scalar variant;
   5. the served levels' final params: kernel path vs plain path logits
      at batch 64 — same argmax on every row, logits within tolerance;
   6. zoo-kernels: Mixtral-8x22B at full width (d_model 6144, 48/8 heads
@@ -29,15 +32,25 @@ Phases (any failure exits non-zero and prints no result line):
      gets in layer 0 (prefill and the first decode step) are captured,
      and each kernel is held against its plain version on them and on
      O(1) random inputs at the same shapes — moe_gmm at C=640 (prefill,
-     both projections) and C=4 (decode), plus fp32 and ragged rows;
-     flash and decode attention at the zoo shapes — with tolerances
+     both projections) and C=4 (decode) on the tensor-core ("tc")
+     variant, fp32 rows and the ragged rows whose D or F row is not a
+     multiple of 16 bytes (D 777, F 1029 / 1031) on the scalar one, and
+     bf16 rows TMA can read on both tc tiles and their boundary (E3 C130
+     D1000 F1040, E2 C5 D1000 F1040, E2 C9 D512 F1024, and an odd F 1029
+     read through a slice of F 1040); flash at the zoo
+     shape and, on the tc variant, bf16 hd 128 at a ragged S = 1000, at
+     S = 2048 with a window of 1024, non-causal GQA 6 at S = 512, and hd
+     64 at S = 2048; decode attention at the zoo shape — with tolerances
      scaled by max|plain|, beside their times, the library call's
-     (``torch.bmm``, SDPA) and the bf16 bound;
+     (``torch.bmm``, SDPA) and the bf16 bound.  Every row asserts the
+     variant it took;
   7. zoo-serve: one prefill of the 2 x 2048 prompts and 16 greedy
      ``decode_step``s through ``repro_torch.models.transformer``: prefill
      ms, decode ms/step, tokens/s, peak device memory, and every zoo
      kernel's launches (counted from zero over this run, equal to what
-     the layers, MoE groups and steps imply); then one more prefill and
+     the layers, MoE groups and steps imply) and launches by variant
+     (every moe_gmm and flash launch must take "tc": 12 / 2 in the
+     prefill, 96 / 0 over the 16 decode steps); then one more prefill and
      4 decode steps under torch.profiler (device busy time, idle share,
      device time by kernel group).  Then (a) prefill/decode
      consistency at full width (S=256, a capacity that drops no token)
@@ -46,13 +59,16 @@ Phases (any failure exits non-zero and prints no result line):
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade and zoo serving
 runs, each counted from zero, and ``paths`` has each path's own count,
-shapes and times); the last line is ``{"ok": true, "device": {...}}``.
+times, ``variant`` (the one its timed row took; decode attention and the
+SSD scan have one scalar kernel, "simt") and ``launches_by_variant``);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +155,10 @@ LAUNCHERS = {"flash_attention": flash_attention_cuda,
 ZOO_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
                  "flash_attention": flash_attention_cuda,
                  "decode_attention": decode_attention_cuda}
+# the kernels with two variants ("tc": bf16 wgmma fed by TMA; "simt": the
+# scalar kernel), each counting its launches by variant
+VARIANT_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
+                     "flash_attention": flash_attention_cuda}
 
 
 # ---------------------------------------------------------------------------
@@ -275,11 +295,30 @@ def phase_card():
 
 
 def phase_build():
+    """Build the kernels and print ptxas's registers, static shared memory
+    and spills per kernel (the tensor-core kernels' shared memory is
+    dynamic: their ring of stages, set at launch)."""
     path, secs, log = _build.build()
     print(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s", flush=True)
+    # ptxas names each kernel mangled; the toolkit's cu++filt (where it
+    # ships) gives the readable names, without parameter types
+    mangled = re.findall(r"Compiling entry function '([^']+)'", log)
+    names = dict(zip(mangled, mangled))
+    filt = Path(_build.find_nvcc()).with_name("cu++filt")
+    if mangled and filt.is_file():
+        out = subprocess.run([str(filt), "-p", *mangled], capture_output=True,
+                             text=True, check=True, timeout=60).stdout
+        names = {m: n.replace("<unnamed>::", "")
+                 for m, n in zip(mangled, out.splitlines())}
+    kernel = None
     for ln in log.splitlines():
-        if ln.startswith("==") or "Used" in ln or "spill" in ln:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            kernel = names[m.group(1)]
+        elif ln.startswith("=="):
             print(f"[build] {ln.strip()}")
+        elif "Used" in ln or "spill" in ln:
+            print(f"[build]   {kernel}: {ln.split(':', 1)[-1].strip()}")
     _build.library()
 
 
@@ -313,13 +352,34 @@ def capture_path_inputs(batch, tf_spec, ssm_spec, tokens, gen):
     return got
 
 
+def _variant_counts():
+    return {n: dict(fn.launches_by_variant)
+            for n, fn in VARIANT_LAUNCHERS.items()}
+
+
+def _zero_variant_counts():
+    for fn in VARIANT_LAUNCHERS.values():
+        fn.launches_by_variant = {"tc": 0, "simt": 0}
+
+
 def check(name, label, kernel_fn, plain_fn, tol, results, library_fn=None,
-          bound=None, timed=False, scaled=False, relative=False, reps=20):
+          bound=None, timed=False, scaled=False, relative=False, reps=20,
+          variant=None):
     """Kernel vs plain on the same inputs.  ``scaled``: tol x min(1,
-    max|plain|); ``relative``: tol x max|plain|."""
+    max|plain|); ``relative``: tol x max|plain|.  For a kernel with two
+    variants the row records the one its call took and, when ``variant``
+    is given, fails unless it is that one."""
     torch.cuda.synchronize()
+    before = _variant_counts().get(name)
     out = kernel_fn()
     torch.cuda.synchronize()
+    took = None
+    if before is not None:
+        after = VARIANT_LAUNCHERS[name].launches_by_variant
+        took = "+".join(v for v in after if after[v] > before[v])
+    if variant is not None and took != variant:
+        _fail(f"{name} [{label}]: took variant {took!r}, expected "
+              f"{variant!r}")
     ref = plain_fn()
     if out.shape != ref.shape or out.dtype != ref.dtype:
         _fail(f"{name} [{label}]: {out.dtype}{tuple(out.shape)} != plain "
@@ -333,6 +393,8 @@ def check(name, label, kernel_fn, plain_fn, tol, results, library_fn=None,
     if relative:
         tol = tol * ref_max
     row = {"max_abs_err": err, "tol": tol, "max_abs_ref": ref_max}
+    if took is not None:
+        row["variant"] = took
     if timed:
         row["kernel_ms"] = time_ms(kernel_fn, reps)
         row["plain_ms"] = time_ms(plain_fn, reps)
@@ -360,7 +422,8 @@ def phase_kernels(tokens):
         check("flash_attention", f"path B={batch} causal fp32",
               lambda: fl_ops.flash_attention(q, k, v, **kw),
               lambda: flash_plain(q, k, v), TOL["flash_attention"], results,
-              lambda: flash_library(q, k, v), flash_bound(q, k, v), timed)
+              lambda: flash_library(q, k, v), flash_bound(q, k, v), timed,
+              variant="simt")
         (q, k, v, pos), kw = got["decode_attention"]
         check("decode_attention", f"path B={batch} pads fp32",
               lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
@@ -394,7 +457,8 @@ def phase_kernels(tokens):
         check("flash_attention", label,
               lambda: fl_ops.flash_attention(q, k, v, causal=causal,
                                              window=window),
-              lambda: flash_plain(q, k, v, causal, window), tol, results)
+              lambda: flash_plain(q, k, v, causal, window), tol, results,
+              variant="simt")
 
     # SSD on O(1) inputs at the path shape, where a wrong decay or state
     # update cannot hide under the small outputs of the served students
@@ -447,12 +511,15 @@ def phase_serve():
     from repro_torch.launch.serve import serve_stream_batched
     for fn in LAUNCHERS.values():
         fn.launches = 0
+    _zero_variant_counts()
     t0 = time.time()
     m = serve_stream_batched("imdb", 2048, 3e-7, batch=64, seed=0,
                              log_every=0, ladder="kernel", device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {n: fn.launches for n, fn in LAUNCHERS.items()}
+    by_variant = {n: c for n, c in _variant_counts().items()
+                  if n in LAUNCHERS}
     eng = m["engine"]
     lv = {lvl.spec.kind: lvl for lvl in eng.levels}
     tf, ssm = lv["tinytf_flash"], lv["ssm"]
@@ -465,7 +532,12 @@ def phase_serve():
           f"{[round(f, 4) for f in m['level_fractions']]}")
     print(f"[serve] forwards per level: "
           f"{ {lvl.spec.kind: lvl.forwards for lvl in eng.levels} } "
-          f"launches: {launches} expected: {expect}", flush=True)
+          f"launches: {launches} expected: {expect}; by variant: "
+          f"{by_variant}", flush=True)
+    if by_variant["flash_attention"] != {
+            "tc": 0, "simt": launches["flash_attention"]}:
+        _fail(f"the cascade's fp32 flash launches must all take the "
+              f"scalar variant: {by_variant['flash_attention']}")
     for n in LAUNCHERS:
         if launches[n] <= 0:
             _fail(f"{n} was never launched on the serving path")
@@ -475,7 +547,7 @@ def phase_serve():
     if not (0.0 <= m["accuracy"] <= 1.0) or m["expert_calls"] <= 0:
         _fail(f"implausible serving metrics {m['accuracy']}, "
               f"{m['expert_calls']}")
-    return eng, launches, m
+    return eng, launches, by_variant, m
 
 
 def phase_students(eng, tokens):
@@ -575,12 +647,12 @@ def phase_zoo_kernels(cfg, params, tokens):
     def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    def gmm_row(label, x, w, timed=True, reps=10):
+    def gmm_row(label, x, w, variant, timed=True, reps=10):
         tol = ZOO_TOL["bf16" if x.dtype == torch.bfloat16 else "fp32"]
         check("moe_gmm", label, lambda: gmm_ops.moe_gmm(x, w),
               lambda: gmm_ref(x, w), tol, results,
               lambda: torch.bmm(x, w), gmm_bound(x, w), timed,
-              relative=True, reps=reps)
+              relative=True, reps=reps, variant=variant)
 
     # captured layer-0 inputs: prefill C=640 up/down, decode C=4 up/down
     for stage in ("prefill", "decode"):
@@ -588,22 +660,33 @@ def phase_zoo_kernels(cfg, params, tokens):
             x, w = got[(stage, proj)]
             _, C, D = x.shape
             gmm_row(f"path {stage} {proj} C={C} D={D} F={w.shape[2]}",
-                    x, w)
+                    x, w, "tc")
     # O(1) random at the path shapes, fp32, ragged
     for stage in ("prefill", "decode"):
         x, w = got[(stage, "up")]
         gmm_row(f"random O(1) {stage} C={x.shape[1]}", rnd(*x.shape),
-                rnd(*w.shape), timed=False)
+                rnd(*w.shape), "tc", timed=False)
     x, w = got[("prefill", "up")]
-    gmm_row(f"fp32 prefill C={x.shape[1]}", x.float(), w.float(), reps=5)
+    gmm_row(f"fp32 prefill C={x.shape[1]}", x.float(), w.float(), "simt",
+            reps=5)
     xd, wd = got[("decode", "up")]
-    gmm_row(f"fp32 decode C={xd.shape[1]}", xd.float(), wd.float(),
+    gmm_row(f"fp32 decode C={xd.shape[1]}", xd.float(), wd.float(), "simt",
             timed=False)
+    # rows TMA cannot read (F or D rows not a multiple of 16 bytes) stay on
+    # the scalar kernel; ragged but readable ones take both tc tiles and
+    # their boundary (C = 9 is the prefill tile's first C)
     for E, C, D, F_ in ((3, 130, 1000, 1031), (2, 5, 777, 1029)):
         for dt in (torch.bfloat16, torch.float32):
             gmm_row(f"ragged E{E} C{C} D{D} F{F_} "
                     f"{str(dt).split('.')[-1]}", rnd(E, C, D, dtype=dt),
-                    rnd(E, D, F_, dtype=dt), timed=False)
+                    rnd(E, D, F_, dtype=dt), "simt", timed=False)
+    for E, C, D, F_ in ((3, 130, 1000, 1040), (2, 5, 1000, 1040),
+                        (2, 9, 512, 1024)):
+        gmm_row(f"ragged E{E} C{C} D{D} F{F_} bf16", rnd(E, C, D),
+                rnd(E, D, F_), "tc", timed=False)
+    # an odd F read through a slice of a wider w (rows of 2080 bytes)
+    gmm_row("ragged E3 C130 D1000 F1029 of F1040 bf16", rnd(3, 130, 1000),
+            rnd(3, 1000, 1040)[..., :1029], "tc", timed=False)
 
     (q, k, v), kw = got["flash_attention"]
     check("flash_attention", f"path zoo prefill S={q.shape[1]} "
@@ -611,12 +694,27 @@ def phase_zoo_kernels(cfg, params, tokens):
           lambda: fl_ops.flash_attention(q, k, v, **kw),
           lambda: flash_plain(q, k, v, **kw), ZOO_TOL["bf16"], results,
           lambda: flash_library(q, k, v, **kw), flash_bound(q, k, v, **kw),
-          True, relative=True, reps=10)
+          True, relative=True, reps=10, variant="tc")
     qr, kr, vr = rnd(*q.shape), rnd(*k.shape), rnd(*v.shape)
     check("flash_attention", "random O(1) zoo prefill",
           lambda: fl_ops.flash_attention(qr, kr, vr, **kw),
           lambda: flash_plain(qr, kr, vr, **kw), ZOO_TOL["bf16"], results,
-          relative=True)
+          relative=True, variant="tc")
+    # the tensor-core variant off the path's shape: a ragged S, a window
+    # that cuts inside the sequence, non-causal GQA 6, head dim 64
+    for label, (B, S, H, K, hd, causal, window) in {
+            "bf16 ragged S=1000 causal": (1, 1000, 48, 8, 128, True, None),
+            "bf16 S=2048 window 1024": (1, 2048, 8, 2, 128, True, 1024),
+            "bf16 non-causal GQA 6 S=512": (2, 512, 12, 2, 128, False,
+                                             None),
+            "bf16 hd 64 S=2048": (1, 2048, 16, 4, 64, True, None),
+    }.items():
+        qe, ke, ve = rnd(B, S, H, hd), rnd(B, S, K, hd), rnd(B, S, K, hd)
+        check("flash_attention", label,
+              lambda: fl_ops.flash_attention(qe, ke, ve, causal=causal,
+                                             window=window),
+              lambda: flash_plain(qe, ke, ve, causal, window),
+              ZOO_TOL["bf16"], results, relative=True, variant="tc")
     (q, k, v, pos), kw = got["decode_attention"]
     check("decode_attention", f"path zoo decode W={k.shape[1]} "
           f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
@@ -651,6 +749,7 @@ def _zoo_expected(cfg, n_tokens, n_decode):
 def _zero_zoo_counts():
     for fn in ZOO_LAUNCHERS.values():
         fn.launches = 0
+    _zero_variant_counts()
 
 
 def phase_zoo_serve(cfg, params, tokens):
@@ -662,7 +761,7 @@ def phase_zoo_serve(cfg, params, tokens):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out_tokens = []
-    launches = {}
+    launches, by_variant = {}, {}
     with torch.no_grad():
         _zero_zoo_counts()
         t0 = time.perf_counter()
@@ -671,6 +770,7 @@ def phase_zoo_serve(cfg, params, tokens):
         t1 = time.perf_counter()
         launches["prefill"] = {n: fn.launches
                                for n, fn in ZOO_LAUNCHERS.items()}
+        by_variant["prefill"] = _variant_counts()
         _zero_zoo_counts()
         tok = last.argmax(-1)
         for step in range(ZOO_DECODE):
@@ -682,6 +782,7 @@ def phase_zoo_serve(cfg, params, tokens):
         t2 = time.perf_counter()
         launches["decode"] = {n: fn.launches
                               for n, fn in ZOO_LAUNCHERS.items()}
+        by_variant["decode"] = _variant_counts()
     expect = _zoo_expected(cfg, B * S, ZOO_DECODE)
     m = {"prefill_ms": (t1 - t0) * 1e3,
          "decode_ms_per_step": (t2 - t1) * 1e3 / ZOO_DECODE,
@@ -692,6 +793,7 @@ def phase_zoo_serve(cfg, params, tokens):
     print("[zoo-serve] " + " ".join(f"{k}={v:.6g}" for k, v in m.items()))
     print(f"[zoo-serve] launches {launches} expected {expect}; greedy "
           f"tokens row 0: {gen[0].tolist()}", flush=True)
+    print(f"[zoo-serve] launches by variant {by_variant}", flush=True)
     for n in ZOO_LAUNCHERS:
         if launches["prefill"][n] + launches["decode"][n] <= 0:
             _fail(f"{n} was never launched on the zoo serving path")
@@ -700,13 +802,19 @@ def phase_zoo_serve(cfg, params, tokens):
                 _fail(f"{n}: {launches[phase][n]} launches in the zoo "
                       f"{phase} != {expect[phase][n]} implied by its "
                       f"layers, groups and steps")
+    for phase in ("prefill", "decode"):
+        for n in VARIANT_LAUNCHERS:
+            if by_variant[phase][n] != {"tc": expect[phase][n], "simt": 0}:
+                _fail(f"{n}: zoo {phase} launches by variant "
+                      f"{by_variant[phase][n]}; every one must take the "
+                      f"tensor-core variant")
     if not bool(torch.isfinite(logits).all()) or \
             logits.shape != (B, cfg.vocab):
         _fail(f"zoo decode logits {tuple(logits.shape)} not finite or not "
               f"(B, vocab)")
     if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
         _fail("zoo greedy tokens outside the vocabulary")
-    return launches, m
+    return launches, by_variant, m
 
 
 def phase_zoo_profile(cfg, params, tokens, n_decode=4):
@@ -816,35 +924,46 @@ def phase_zoo_checks(cfg, params, tokens):
         _fail(f"the card run of (b) skipped a kernel: {moved}")
 
 
-def _record_row(rows, launches):
+def _record_row(rows, launches, by_variant):
+    """A path's numbers; ``variant`` is the one its timed row took
+    (decode attention and the SSD scan have one scalar kernel: "simt")."""
     timed = [r for _, r in rows if "kernel_ms" in r][0]
     return {"launches": launches,
             "max_abs_err": max(r["max_abs_err"] for _, r in rows),
             "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"]}
+            "library_ms": timed["library_ms"],
+            "variant": timed.get("variant", "simt"),
+            "launches_by_variant": by_variant}
 
 
-def kernel_record(results, launches, zoo_results, zoo_launches):
+def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
+                  zoo_by_variant):
     """One entry per kernel: the top-level numbers are those of the path
     each kernel was first ported for (cascade; moe_gmm: zoo prefill),
     ``launches`` the total over the cascade run and the zoo's prefill and
-    decode, ``paths`` each phase's own count and numbers."""
+    decode, ``paths`` each phase's own count, split by variant, and
+    numbers."""
+    def split(counts, name, n):
+        return counts.get(name, {"tc": 0, "simt": n})
+
     record = []
     for name in REPLACES:
         paths = {}
         if name in LAUNCHERS:
             rows = [(lab, r) for lab, r in results[name]
                     if lab.startswith("path B=64")]
-            paths["cascade"] = _record_row(rows, launches[name])
+            paths["cascade"] = _record_row(
+                rows, launches[name], split(by_variant, name, launches[name]))
         if name in ZOO_LAUNCHERS:
             zrows = [(lab, r) for lab, r in zoo_results[name]
                      if lab.startswith("path")]
             for phase in ("prefill", "decode"):
                 rows = [x for x in zrows if phase in x[0]]
                 if rows:
+                    n = zoo_launches[phase][name]
                     paths[f"zoo_{phase}"] = _record_row(
-                        rows, zoo_launches[phase][name])
+                        rows, n, split(zoo_by_variant[phase], name, n))
         top = dict(next(iter(paths.values())))
         top["launches"] = launches.get(name, 0) + sum(
             zoo_launches[phase].get(name, 0)
@@ -863,16 +982,17 @@ def main():
     tokens = torch.from_numpy(np.stack(
         [hash_ids(d, 4096, 128) for d in stream.docs[:64]])).cuda()
     results = phase_kernels(tokens)
-    eng, launches, _ = phase_serve()
+    eng, launches, by_variant, _ = phase_serve()
     phase_students(eng, tokens)
     del eng
     cfg, params, prompts = zoo_model()
     zoo_results = phase_zoo_kernels(cfg, params, prompts)
-    zoo_launches, _ = phase_zoo_serve(cfg, params, prompts)
+    zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)
     phase_zoo_profile(cfg, params, prompts)
     phase_zoo_checks(cfg, params, prompts)
-    print(json.dumps({"kernels": kernel_record(results, launches,
-                                               zoo_results, zoo_launches)}))
+    print(json.dumps({"kernels": kernel_record(
+        results, launches, by_variant, zoo_results, zoo_launches,
+        zoo_by_variant)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,8 +16,12 @@ Each package ships three files, as in the reference:
   ref.py    — the plain PyTorch twin, held against the JAX ``ref.py`` on
               the CPU and against the kernel on the card
 
-``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.  Every TPU
-kernel of the reference has its counterpart here: the first three serve
-the cascade's kernel ladder, and all but the SSD scan serve the zoo's
-Mixtral-8x22B (``models/transformer.py``).
+``moe_gmm`` and ``flash_attention`` each have two variants, picked by
+their ``kernel.py`` ``select_variant`` from the operands: ``"tc"`` (bf16
+wgmma fed by TMA; Hopper building blocks in ``csrc/sm90.cuh``) and
+``"simt"`` (the scalar fp32 kernel: fp32, other head dims, rows TMA
+cannot read).  ``_build.py`` compiles ``csrc/*.cu`` with nvcc at first
+use.  Every TPU kernel of the reference has its counterpart here: the
+first three serve the cascade's kernel ladder, and all but the SSD scan
+serve the zoo's Mixtral-8x22B (``models/transformer.py``).
 """

@@ -26,7 +26,7 @@ from typing import List, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
            "moe_gmm.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "sm90.cuh")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                         "-Xptxas", "-v")
@@ -129,6 +129,16 @@ def check(name: str, err: int) -> None:
     """Raise if a kernel's launch reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def tma_readable(t) -> bool:
+    """Whether TMA can load tensor ``t`` (the tensor-core variants' operand
+    rule): innermost stride 1, every other stride a positive multiple of
+    16 bytes, a 16-byte-aligned base address."""
+    size = t.element_size()
+    return (t.stride(-1) == 1
+            and all(s > 0 and s * size % 16 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
 
 
 def c_int(value: int) -> int:

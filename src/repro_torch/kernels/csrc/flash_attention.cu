@@ -1,30 +1,53 @@
 // Causal / sliding-window GQA prefill attention with an online softmax.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (_flash_kernel, launched by flash_attention_bhsd).  Same arithmetic:
-// q is scaled before the dot, masked scores are -1e30, the running max,
-// sum and accumulator are fp32, and the sum is clamped at 1e-30 before the
-// final division.  kv tiles entirely above the causal diagonal or left of
-// the window are skipped.
+// (_flash_kernel, launched by flash_attention_bhsd).  Same function: masked
+// scores are -1e30, the running max, sum and accumulator are fp32, the sum
+// is clamped at 1e-30 before the final division, and kv tiles entirely
+// above the causal diagonal or left of the window are skipped.  The TPU
+// grid runs in order and carries (m, l, acc) in VMEM scratch from one kv
+// block to the next; here one thread block owns one (batch, head, query
+// tile) output tile and loops over the kv tiles itself.  q, k and v are
+// read in the model layout (B, S, heads, hd), so the wrapper does no
+// transposes.
 //
-// Design.  The TPU kernel runs its grid in order and carries (m, l, acc)
-// in VMEM scratch from one kv block to the next; here one thread block
-// owns one (batch, head, 64-query tile) output tile and loops over the kv
-// tiles itself.  256 threads: four threads per query row.  For scores
+// Two variants; the Python launcher picks one from the operands before the
+// launch (kernels/flash_attention/kernel.py select_variant):
+//
+// "tc" (variant 1): bf16 with head dim 64 or 128, operands TMA can read.
+// A block owns 128 query rows of one head: two consumer warpgroups of 64
+// rows and a producer warpgroup whose one working thread loads the q tile
+// once and 128-key K and V tiles into a two-stage ring (4-d tensor maps
+// over (hd, heads, S, B) pick the head by coordinate; 128-byte swizzle;
+// 160 KB of shared memory at hd 128).  S = Q K^T is wgmma from shared
+// memory, both operands K-major; the online softmax runs on the fp32
+// accumulator registers (exp2 with the scale folded in); P is rounded to
+// bf16 in registers and fed as the register A operand of O += P V, with V
+// the MN-major B operand.  Masks are computed only on tiles that cross the
+// diagonal, the window edge or the end of the keys (keys past Skv, zero
+// filled by TMA, are -inf: excluded outright).  Query tiles are issued
+// longest first so causal work balances over the SMs; consecutive blocks
+// are the heads of one kv group, so their K / V tiles come from L2.
+// Numerics against the TPU kernel: the fp32 scores are scaled (the TPU
+// scales q in fp32 before the dot), and p is rounded to bf16 before the PV
+// product (the TPU keeps p in fp32); l sums the fp32 p.  Bound on this
+// card: operations at the zoo's prefill (q (2,2048,48,128), causal:
+// 103 GFLOP, 0.10 ms at 989 TFLOP/s bf16).
+//
+// "simt" (variant 0): every other case (fp32 -- the cascade's path, whose
+// 2e-5 tolerance TF32 cannot meet --, other head dims, strides TMA cannot
+// read).  256 threads own 64 query rows, four threads a row.  For scores
 // each of the four takes every fourth key of the 64-key tile with a full
 // head-dim dot product; for the output each takes every fourth head dim,
 // reading the row's probabilities back from shared memory.  Rows are
-// padded by one float so neither pass has bank conflicts.  q, k and v are
-// read through their strides in the model layout (B, S, heads, hd), so
-// the wrapper does no transposes; fp32 or bf16 in, fp32 arithmetic on the
-// CUDA cores (no TF32), the input dtype out.
-//
-// Bound on this card.  At the serving shape (q/k/v (64,128,4,32) fp32,
-// causal) the function moves 16.8 MB (3.35 TB/s: 5 us) and does about
-// 0.27 GFLOP (67 TFLOP/s fp32: 4 us), so it sits near the ridge.  This
-// first version uses scalar fp32 FMAs from shared memory and is far from
-// either bound; tensor-core (wgmma) tiles are later work.
+// padded by one float so neither pass has bank conflicts.  q is scaled
+// before the dot as on the TPU; fp32 arithmetic on the CUDA cores (no
+// TF32).  At the cascade's shape (q/k/v (64,128,4,32) fp32, causal) the
+// function moves 16.8 MB (5 us at 3.35 TB/s) and does 0.27 GFLOP (4 us at
+// 67 TFLOP/s fp32): it sits near the ridge, and scalar FMAs from shared
+// memory keep this variant far from either bound.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -159,21 +182,259 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// "tc": bf16 wgmma fed by TMA
+// ---------------------------------------------------------------------------
+constexpr int TC_BM = 128, TC_BN = 128, TC_STAGES = 2, TC_THREADS = 384;
+constexpr int TC_BOX_BYTES = 128 * 128;  // 128 rows x 64 bf16 (one box)
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+constexpr size_t tc_smem() {
+  // q tile, then K and V tiles per stage; barriers; 1024 B of alignment
+  return size_t(1 + 2 * TC_STAGES) * (HD / 64) * TC_BOX_BYTES + 1024 +
+         (1 + 2 * TC_STAGES) * sizeof(uint64_t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
+                int group, int causal, int window, float scale_log2) {
+  constexpr int BOXES = HD / 64;                  // 64-wide head-dim boxes
+  constexpr int TILE = BOXES * TC_BOX_BYTES;      // one q / K / V tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint8_t* qs = smem;
+  uint8_t* kv = smem + TILE;  // stage s: K at kv + 2 s TILE, V after it
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + (1 + 2 * TC_STAGES) *
+                                               TILE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + TC_STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // longest causal tiles first
+  const int q0 = qt * TC_BM, kh = h / group;
+  const int n_kv = (Skv + TC_BN - 1) / TC_BN;
+  const int hi = causal ? min(n_kv, qt + 1) : n_kv;
+  const int lo = (window > 0 && q0 - window + 1 > 0)
+                     ? (q0 - window + 1) / TC_BN : 0;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qbar, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer warpgroup
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x == 2 * 128) {
+      sm90::prefetch_tensormap(&tq);
+      sm90::prefetch_tensormap(&tk);
+      sm90::prefetch_tensormap(&tv);
+      sm90::mbar_arrive_expect_tx(qbar, TILE);
+#pragma unroll
+      for (int j = 0; j < BOXES; ++j)
+        sm90::tma_load_4d(qs + j * TC_BOX_BYTES, &tq, qbar, 64 * j, h, q0, b);
+      for (int kt = lo; kt < hi; ++kt) {
+        const int i = kt - lo, s = i % TC_STAGES;
+        sm90::mbar_wait(&empty[s], ((i / TC_STAGES) & 1) ^ 1);
+        uint8_t* ks = kv + 2 * s * TILE;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * TILE);
+#pragma unroll
+        for (int j = 0; j < BOXES; ++j) {
+          sm90::tma_load_4d(ks + j * TC_BOX_BYTES, &tk, &full[s], 64 * j, kh,
+                            kt * TC_BN, b);
+          sm90::tma_load_4d(ks + TILE + j * TC_BOX_BYTES, &tv, &full[s],
+                            64 * j, kh, kt * TC_BN, b);
+        }
+      }
+    }
+  } else {  // consumer warpgroups: query rows q0 + wg * 64 .. + 63
+    sm90::reg_alloc<232>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int row_base = q0 + wg * 64;  // first row of this warpgroup
+    // this thread's two rows (accumulator halves r = 0, 1)
+    const int qrow = row_base + warp * 16 + lane / 4;
+    float oacc[HD / 2], sacc[TC_BN / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < TC_BN / 2; ++i) sacc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    sm90::mbar_wait(qbar, 0);
+    for (int kt = lo; kt < hi; ++kt) {
+      const int i = kt - lo, s = i % TC_STAGES;
+      const uint8_t* ks = kv + 2 * s * TILE;
+      const uint8_t* vs = ks + TILE;
+      sm90::mbar_wait(&full[s], (i / TC_STAGES) & 1);
+      // S = Q K^T (fp32), both operands K-major
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) {
+        const int off = (k / 4) * TC_BOX_BYTES + (k % 4) * 32;
+        sm90::wgmma_m64n128k16_ss<0, 0>(
+            sacc, sm90::desc_sw128(qs + off + wg * 64 * 128, 16, 1024),
+            sm90::desc_sw128(ks + off, 16, 1024), k > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sacc);
+
+      const int k0 = kt * TC_BN;
+      const bool need_mask =
+          k0 + TC_BN > Skv || (causal && k0 + TC_BN - 1 > row_base) ||
+          (window > 0 && k0 <= row_base + 63 - window);
+#pragma unroll
+      for (int j = 0; j < TC_BN / 2; ++j) sacc[j] *= scale_log2;
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < TC_BN / 2; ++j) {
+          const int row = qrow + 8 * ((j / 2) % 2);
+          const int col = k0 + 8 * (j / 4) + 2 * (lane % 4) + j % 2;
+          if (col >= Skv)
+            sacc[j] = -INFINITY;
+          else if ((causal && col > row) || (window > 0 && col <= row - window))
+            sacc[j] = REPRO_NEG_INF;
+        }
+      }
+      // online softmax on the two rows (each spread over a lane quad)
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < TC_BN / 2; ++j)
+          if ((j / 2) % 2 == r) mx = fmaxf(mx, sacc[j]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < TC_BN / 2; ++j) {
+        const int r = (j / 2) % 2;
+        sacc[j] = exp2f(sacc[j] - m[r]);
+        psum[r] += sacc[j];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) oacc[j] *= corr[(j / 2) % 2];
+      // P (bf16) as the register A operand: the accumulator of keys
+      // 16 t .. 16 t + 15 is exactly the A fragment of k-step t
+      uint32_t pa[TC_BN / 16][4];
+#pragma unroll
+      for (int t = 0; t < TC_BN / 16; ++t)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pa[t][q] = sm90::pack_bf16(sacc[8 * t + 2 * q], sacc[8 * t + 2 * q + 1]);
+      // O += P V, V the MN-major B operand (hd contiguous)
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < TC_BN / 16; ++t) {
+        const uint64_t dv = sm90::desc_sw128(vs + 2048 * t, TC_BOX_BYTES, 1024);
+        if constexpr (HD == 128)
+          sm90::wgmma_m64n128k16_rs<1>(oacc, pa[t], dv, 1);
+        else
+          sm90::wgmma_m64n64k16_rs<1>(oacc, pa[t], dv, 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(oacc);
+      if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
+    }
+    // l: the quad's partial sums; then O / max(l, 1e-30)
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      inv[r] = 1.f / fmaxf(lr, 1e-30f);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      if (row >= Sq) continue;
+      __nv_bfloat16* orow =
+          o + (((long long)blockIdx.y * Sq + row) * H + h) * HD;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(oacc[4 * c + 2 * r] * inv[r],
+                                  oacc[4 * c + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
+              int Sq, int Skv, int H, int K, const int* st, int causal,
+              int window, float sm_scale, cudaStream_t stream) {
+  // (B, S, heads, hd) as 4-d maps (hd, heads, S, B), strides in bytes
+  const uint32_t box[4] = {64, 1, 128, 1};
+  const uint64_t qd[4] = {HD, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
+  const uint64_t kd[4] = {HD, (uint64_t)K, (uint64_t)Skv, (uint64_t)B};
+  const uint64_t qs[3] = {(uint64_t)st[2] * 2, (uint64_t)st[1] * 2,
+                          (uint64_t)st[0] * 2};
+  const uint64_t ks[3] = {(uint64_t)st[6] * 2, (uint64_t)st[5] * 2,
+                          (uint64_t)st[4] * 2};
+  const uint64_t vs[3] = {(uint64_t)st[10] * 2, (uint64_t)st[9] * 2,
+                          (uint64_t)st[8] * 2};
+  CUtensorMap tq, tk, tv;
+  if (!sm90::make_map_bf16(&tq, q, 4, qd, qs, box) ||
+      !sm90::make_map_bf16(&tk, k, 4, kd, ks, box) ||
+      !sm90::make_map_bf16(&tv, v, 4, kd, vs, box))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = tc_smem<HD>();
+  cudaError_t err = set_smem(flash_tc_kernel<HD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(H, B, (Sq + TC_BM - 1) / TC_BM);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  flash_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, H / K, causal,
+      window, sm_scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B,Sq,H,hd), k/v (B,Skv,K,hd) read through element strides
 // (b, s, head, d) x {q, k, v}; o contiguous (B,Sq,H,hd) of the same dtype.
-// dtype: 0 = fp32, 1 = bf16.  window <= 0 means no window.
+// dtype: 0 = fp32, 1 = bf16.  window <= 0 means no window.  variant:
+// 0 = simt, 1 = tc (bf16, hd 64 or 128, TMA-readable operands; the
+// launcher checks).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int H, int K, int hd, int qsb, int qss, int qsh, int qsd,
     int ksb, int kss, int ksh, int ksd, int vsb, int vss, int vsh, int vsd,
-    int causal, int window, float sm_scale, void* stream) {
+    int causal, int window, int variant, float sm_scale, void* stream) {
   if (hd < 1 || hd > MAX_HD || K < 1 || H % K != 0)
     return (int)cudaErrorInvalidValue;
   const int st[12] = {qsb, qss, qsh, qsd, ksb, kss, ksh, ksd,
                       vsb, vss, vsh, vsd};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    if (dtype != 1 || qsd != 1 || ksd != 1 || vsd != 1)
+      return (int)cudaErrorInvalidValue;
+    if (hd == 128)
+      return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window,
+                            sm_scale, s);
+    if (hd == 64)
+      return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window,
+                           sm_scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k, v, o, B, Sq, Skv, H, K, hd, st, causal, window,
                          sm_scale, s);

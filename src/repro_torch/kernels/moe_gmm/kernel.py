@@ -2,10 +2,12 @@
 replaces the TPU kernel ``repro/kernels/moe_gmm/kernel.py``
 ``_gmm_kernel``).
 
-``moe_gmm_cuda`` checks its inputs, allocates the output, and launches on
+``moe_gmm_cuda`` checks its inputs, picks the kernel's variant from the
+operands (``select_variant``), allocates the output, and launches on
 PyTorch's current stream; ``moe_gmm_cuda.launches`` counts its launches
 (and nothing else), so a run can show that its MoE layers went through
-the kernel."""
+the kernel, and ``moe_gmm_cuda.launches_by_variant`` splits that count
+by variant."""
 from __future__ import annotations
 
 import torch
@@ -13,6 +15,21 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {"simt": 0, "tc": 1}
+
+
+def select_variant(x, w) -> str:
+    """``"tc"`` (bf16 wgmma fed by TMA) or ``"simt"`` (fp32 FMAs on the
+    CUDA cores), from the operands' dtype, shapes, strides and base
+    alignment alone: bf16 that TMA can read takes the tensor cores; fp32
+    (whose wgmma would be TF32, outside the fp32 tolerance), bf16 with a
+    row TMA cannot read (e.g. D = 777) and empty shapes take ``simt``."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return "simt"
+    if x.ndim != 3 or w.ndim != 3 or min(*x.shape, w.shape[2]) < 1:
+        return "simt"
+    readable = _build.tma_readable(x) and _build.tma_readable(w)
+    return "tc" if readable else "simt"
 
 
 def moe_gmm_cuda(x, w) -> torch.Tensor:
@@ -31,15 +48,18 @@ def moe_gmm_cuda(x, w) -> torch.Tensor:
     o = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if o.numel() == 0:
         return o
+    variant = select_variant(x, w)
     ci = _build.c_int
-    fn = _build.entry("repro_moe_gmm_fwd", 3, 11)
+    fn = _build.entry("repro_moe_gmm_fwd", 3, 12)
     err = fn(x.data_ptr(), w.data_ptr(), o.data_ptr(), _DTYPES[x.dtype],
              ci(E), ci(C), ci(D), ci(F), *(ci(s) for s in x.stride()),
-             *(ci(s) for s in w.stride()),
+             *(ci(s) for s in w.stride()), _VARIANTS[variant],
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("moe_gmm", err)
     moe_gmm_cuda.launches += 1
+    moe_gmm_cuda.launches_by_variant[variant] += 1
     return o
 
 
 moe_gmm_cuda.launches = 0
+moe_gmm_cuda.launches_by_variant = {"tc": 0, "simt": 0}

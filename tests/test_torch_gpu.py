@@ -5,8 +5,11 @@ Run on a GPU machine with
 Each kernel is held against its plain PyTorch twin on the same CUDA
 inputs (fp32 2e-5 for attention, 1e-3 for the SSD scan, bf16 2e-2; the
 grouped matmul 1e-5 (fp32) and 1e-2 (bf16) of the twin's largest
-magnitude), its launch counter must move by exactly one per call, and a
-CPU tensor must never reach it.  The CUDA engine must route a short
+magnitude, as is bf16 flash attention on its tensor-core variant), its
+launch counter must move by exactly one per call, and a CPU tensor must
+never reach it.  For ``moe_gmm`` and flash attention each case also
+asserts which variant (``"tc"`` tensor cores, ``"simt"`` CUDA cores)
+the launch took.  The CUDA engine must route a short
 stream like the CPU engine does, and the zoo's smoke model must serve
 on the card as on the CPU.  Nothing here imports JAX (the GPU machine
 has none).
@@ -151,6 +154,134 @@ def test_gmm_kernel_matches_plain(cuda, E, C, D, F, dtype):
         float(ref.float().abs().max())
     torch.testing.assert_close(moe_gmm(xt, wt).float(), ref.float(),
                                atol=tol, rtol=0)
+
+
+def _variant_delta(launcher, before):
+    """The variants launched since ``before`` (a copy of the counts)."""
+    return {v: n - before[v]
+            for v, n in launcher.launches_by_variant.items()}
+
+
+@pytest.mark.parametrize("E,C,D,F,variant", [
+    (2, 640, 1024, 2048, "tc"),       # zoo-like prefill tile
+    (3, 130, 1000, 1040, "tc"),       # ragged, TMA-readable
+    (2, 5, 1000, 1040, "tc"),         # ragged decode tile
+    (2, 9, 512, 1024, "tc"),          # first C on the prefill tile
+    (8, 1, 6144, 1024, "tc"),         # decode C = 1, 4, 8
+    (8, 4, 2048, 1024, "tc"),
+    (2, 8, 16384, 768, "tc"),         # decode, a long D in one block
+    (3, 130, 1000, 1031, "simt"),     # F row not a multiple of 16 bytes
+    (2, 5, 777, 1029, "simt"),
+])
+def test_gmm_variants_match_plain(cuda, E, C, D, F, variant):
+    """bf16 on both variants of ``moe_gmm``: the tc tiles (prefill C > 8,
+    decode C <= 8) and the rows TMA cannot read, each at 1e-2 of the
+    twin's largest magnitude."""
+    from repro_torch.kernels.moe_gmm.kernel import select_variant
+    gen = torch.Generator().manual_seed(E * C + D + F)
+    x = _randn(gen, E, C, D, dtype=torch.bfloat16)
+    w = _randn(gen, E, D, F, dtype=torch.bfloat16)
+    assert select_variant(x, w) == variant
+    before = dict(moe_gmm_cuda.launches_by_variant)
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert _variant_delta(moe_gmm_cuda, before) == {
+        "tc": int(variant == "tc"), "simt": int(variant == "simt")}
+    ref = gmm_ref(x, w)
+    tol = 1e-2 * float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("C", [130, 5])
+def test_gmm_odd_f_slice_takes_tc(cuda, C):
+    """w = a slice of F 1029 out of F 1040: rows of 2080 bytes that TMA
+    reads, and an odd F whose last column (and odd rows, whose pairs are
+    not 4-byte aligned) the tc epilogue writes one element at a time —
+    on both tiles, at 1e-2 of the twin's largest magnitude."""
+    from repro_torch.kernels.moe_gmm.kernel import select_variant
+    gen = torch.Generator().manual_seed(C)
+    x = _randn(gen, 3, C, 1000, dtype=torch.bfloat16)
+    w = _randn(gen, 3, 1000, 1040, dtype=torch.bfloat16)[..., :1029]
+    assert select_variant(x, w) == "tc"
+    before = dict(moe_gmm_cuda.launches_by_variant)
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert _variant_delta(moe_gmm_cuda, before) == {"tc": 1, "simt": 0}
+    ref = gmm_ref(x, w)
+    tol = 1e-2 * float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+def test_gmm_transposed_x_takes_simt(cuda):
+    """A transposed x (D not contiguous) cannot be read by TMA: the scalar
+    variant serves it, and right."""
+    from repro_torch.kernels.moe_gmm.kernel import select_variant
+    gen = torch.Generator().manual_seed(11)
+    x = _randn(gen, 2, 1024, 64, dtype=torch.bfloat16).transpose(1, 2)
+    w = _randn(gen, 2, 1024, 512, dtype=torch.bfloat16)
+    assert select_variant(x, w) == "simt"
+    before = dict(moe_gmm_cuda.launches_by_variant)
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert _variant_delta(moe_gmm_cuda, before) == {"tc": 0, "simt": 1}
+    ref = gmm_ref(x, w)
+    tol = 1e-2 * float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window", [
+    (2, 1024, 8, 2, 128, True, None),     # zoo-like, GQA 4
+    (1, 1000, 4, 2, 128, True, None),     # ragged S
+    (1, 2048, 2, 1, 128, True, 1024),     # window inside S
+    (2, 512, 12, 2, 128, False, None),    # non-causal, GQA 6
+    (1, 2048, 4, 4, 64, True, None),      # hd 64
+    (2, 300, 6, 1, 64, True, 100),        # hd 64, ragged, window
+])
+def test_flash_tc_variant_matches_plain(cuda, B, S, H, K, hd, causal,
+                                        window):
+    """bf16 flash attention on the tensor cores at 1e-2 of the twin's
+    largest magnitude (p is rounded to bf16 before the PV product)."""
+    from repro_torch.kernels.flash_attention.kernel import select_variant
+    gen = torch.Generator().manual_seed(S + H + hd)
+    q = _randn(gen, B, S, H, hd, dtype=torch.bfloat16)
+    k = _randn(gen, B, S, K, hd, dtype=torch.bfloat16)
+    v = _randn(gen, B, S, K, hd, dtype=torch.bfloat16)
+    assert select_variant(q, k, v) == "tc"
+    before = dict(flash_attention_cuda.launches_by_variant)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _variant_delta(flash_attention_cuda, before) == {"tc": 1,
+                                                           "simt": 0}
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal,
+                        window=window).transpose(1, 2)
+    tol = 1e-2 * float(ref.float().abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["fp32", "hd 120", "strided q"])
+def test_flash_simt_variant_cases(cuda, case):
+    """fp32, a head dim other than 64 / 128 and a q whose head-dim
+    stride is not 1 take the scalar variant, and agree with the twin."""
+    from repro_torch.kernels.flash_attention.kernel import select_variant
+    gen = torch.Generator().manual_seed(12)
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    hd = 120 if case == "hd 120" else 64
+    q = _randn(gen, 2, 256, 4, hd, dtype=dtype)
+    if case == "strided q":
+        q = _randn(gen, 2, 256, hd, 4, dtype=dtype).transpose(2, 3)
+    k = _randn(gen, 2, 256, 2, hd, dtype=dtype)
+    v = _randn(gen, 2, 256, 2, hd, dtype=dtype)
+    assert select_variant(q, k, v) == "simt"
+    before = dict(flash_attention_cuda.launches_by_variant)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _variant_delta(flash_attention_cuda, before) == {"tc": 0,
+                                                           "simt": 1}
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2)).transpose(1, 2)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
 def test_expert_ffn_kernel_matches_plain(cuda):

@@ -291,6 +291,125 @@ def test_gmm_plain_ragged_and_strided(shape):
 
 
 # ---------------------------------------------------------------------------
+# variant choice: tensor cores ("tc") or CUDA cores ("simt"), from dtype,
+# shapes, strides and base alignment alone (no card needed)
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+
+
+def _unaligned(*shape, dtype=BF16):
+    """A CPU tensor whose base address is 2 bytes past a 16-byte one."""
+    n = int(np.prod(shape))
+    base = torch.empty(n + 8, dtype=dtype)
+    off = (-base.data_ptr() // base.element_size()) % 8 + 1
+    t = base[off:off + n].view(shape)
+    assert t.data_ptr() % 16 == 2
+    return t
+
+
+GMM_VARIANT_CASES = {
+    # name: (x, w) builders, expected variant
+    "zoo prefill up (meta)": (lambda: (
+        torch.empty((8, 640, 6144), dtype=BF16, device="meta"),
+        torch.empty((8, 6144, 16384), dtype=BF16, device="meta")), "tc"),
+    "zoo prefill down (meta)": (lambda: (
+        torch.empty((8, 640, 16384), dtype=BF16, device="meta"),
+        torch.empty((8, 16384, 6144), dtype=BF16, device="meta")), "tc"),
+    "zoo decode up (meta)": (lambda: (
+        torch.empty((8, 4, 6144), dtype=BF16, device="meta"),
+        torch.empty((8, 6144, 16384), dtype=BF16, device="meta")), "tc"),
+    "ragged readable (cpu)": (lambda: (
+        torch.empty((3, 130, 1000), dtype=BF16),
+        torch.empty((3, 1000, 1040), dtype=BF16)), "tc"),
+    "decode C=5 (cpu)": (lambda: (
+        torch.empty((2, 5, 1000), dtype=BF16),
+        torch.empty((2, 1000, 1040), dtype=BF16)), "tc"),
+    "fp32 (meta)": (lambda: (
+        torch.empty((8, 640, 6144), device="meta"),
+        torch.empty((8, 6144, 16384), device="meta")), "simt"),
+    "fp32 (cpu)": (lambda: (torch.empty((2, 16, 64)),
+                            torch.empty((2, 64, 64))), "simt"),
+    "D 777 (cpu)": (lambda: (torch.empty((2, 5, 777), dtype=BF16),
+                             torch.empty((2, 777, 1024), dtype=BF16)),
+                    "simt"),
+    "F 1029 (meta)": (lambda: (
+        torch.empty((3, 130, 1000), dtype=BF16, device="meta"),
+        torch.empty((3, 1000, 1029), dtype=BF16, device="meta")), "simt"),
+    # an odd F or D in a slice of a wider tensor: the rows stay 16-byte
+    # multiples, so TMA reads them (and the epilogue stores odd F singly)
+    "F 1029 slice of F 1040 (cpu)": (lambda: (
+        torch.empty((3, 130, 1000), dtype=BF16),
+        torch.empty((3, 1000, 1040), dtype=BF16)[..., :1029]), "tc"),
+    "F 1029 slice of F 1040 (meta)": (lambda: (
+        torch.empty((2, 5, 1000), dtype=BF16, device="meta"),
+        torch.empty((2, 1000, 1040), dtype=BF16, device="meta")[..., :1029]),
+        "tc"),
+    "D 1001 slice of D 1008 (cpu)": (lambda: (
+        torch.empty((2, 5, 1008), dtype=BF16)[..., :1001],
+        torch.empty((2, 1008, 1024), dtype=BF16)[:, :1001]), "tc"),
+    "transposed x (cpu)": (lambda: (
+        torch.empty((2, 64, 16), dtype=BF16).transpose(1, 2),
+        torch.empty((2, 64, 64), dtype=BF16)), "simt"),
+    "unaligned base (cpu)": (lambda: (_unaligned(2, 16, 64),
+                                      torch.empty((2, 64, 64), dtype=BF16)),
+                             "simt"),
+    "empty D (cpu)": (lambda: (torch.empty((2, 4, 0), dtype=BF16),
+                               torch.empty((2, 0, 8), dtype=BF16)), "simt"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GMM_VARIANT_CASES))
+def test_gmm_select_variant(case):
+    from repro_torch.kernels.moe_gmm.kernel import select_variant
+    make, want = GMM_VARIANT_CASES[case]
+    assert select_variant(*make()) == want
+
+
+FLASH_VARIANT_CASES = {
+    # name: (q, k, v) builders, expected variant
+    "zoo prefill (meta)": (lambda: (
+        torch.empty((2, 2048, 48, 128), dtype=BF16, device="meta"),
+        torch.empty((2, 2048, 8, 128), dtype=BF16, device="meta"),
+        torch.empty((2, 2048, 8, 128), dtype=BF16, device="meta")), "tc"),
+    "hd 64 (cpu)": (lambda: tuple(torch.empty((1, 64, 2, 64), dtype=BF16)
+                                  for _ in range(3)), "tc"),
+    "cascade fp32 (meta)": (lambda: tuple(
+        torch.empty((64, 128, 4, 32), device="meta") for _ in range(3)),
+        "simt"),
+    "fp32 hd 128 (cpu)": (lambda: tuple(torch.empty((1, 16, 2, 128))
+                                        for _ in range(3)), "simt"),
+    "hd 120 (cpu)": (lambda: tuple(torch.empty((1, 16, 2, 120), dtype=BF16)
+                                   for _ in range(3)), "simt"),
+    "hd 32 bf16 (meta)": (lambda: tuple(
+        torch.empty((4, 128, 4, 32), dtype=BF16, device="meta")
+        for _ in range(3)), "simt"),
+    "head-dim stride (cpu)": (lambda: (
+        torch.empty((1, 16, 64, 2), dtype=BF16).transpose(2, 3),
+        torch.empty((1, 16, 2, 64), dtype=BF16),
+        torch.empty((1, 16, 2, 64), dtype=BF16)), "simt"),
+    "unaligned base (cpu)": (lambda: (
+        _unaligned(1, 16, 2, 64), torch.empty((1, 16, 2, 64), dtype=BF16),
+        torch.empty((1, 16, 2, 64), dtype=BF16)), "simt"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_VARIANT_CASES))
+def test_flash_select_variant(case):
+    from repro_torch.kernels.flash_attention.kernel import select_variant
+    make, want = FLASH_VARIANT_CASES[case]
+    assert select_variant(*make()) == want
+
+
+def test_build_hash_covers_every_csrc_file():
+    """Every file under ``kernels/csrc`` is a listed source or header, so
+    the content hash that names the built library covers it (an edit to
+    an unlisted header would load a stale library)."""
+    from repro_torch.kernels import _build
+    on_disk = {p.name for p in _build.CSRC.iterdir() if p.is_file()}
+    assert on_disk == set(_build.SOURCES + _build.HEADERS)
+
+
+# ---------------------------------------------------------------------------
 # dispatch: a non-CPU tensor never takes the plain path
 # ---------------------------------------------------------------------------
 def test_meta_tensors_go_to_the_kernel_launcher_and_raise():
