@@ -9,15 +9,18 @@ Phases (any failure exits non-zero and prints no result line):
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and
      print ptxas's registers, static shared memory and spills for each;
   3. each kernel against its plain version on the card — at the serving
-     shapes (batch 64 and the smallest bucket, 8; inputs captured from
-     the students' own forwards) and at the edge cases (flash: window,
-     non-causal, GQA, bf16, head dim 120, ragged length; decode: garbage
-     in empty ring slots, a (W,) pos, GQA, bf16; SSD: O(1) random
-     inputs at the path shape, its tolerance scaled to the plain
-     output's magnitude where that is below 1) — with the kernel's,
-     the plain version's and, where one PyTorch call computes the same
-     function, that call's time, beside the analytic bound.  Every flash
-     row here must take the scalar ("simt") variant;
+     shapes (batch 64 and the smallest bucket, 8, and for the SSD scan
+     also 16; inputs captured from the students' own forwards) and at
+     the edge cases (flash: window, non-causal, GQA, bf16, head dim 120,
+     ragged length; decode: garbage in empty ring slots, a (W,) pos,
+     GQA, bf16; SSD: O(1) random inputs at the path shape at buckets 64,
+     32, 16 and 8, its tolerance scaled to the plain output's magnitude
+     where that is below 1) — with the kernel's, the plain version's
+     and, where one PyTorch call computes the same function, that call's
+     time, beside the analytic bound.  Every flash row here must take the
+     scalar ("simt") variant; every decode row the variant
+     ``decode_attention.kernel.select_variant`` names ("single" on the
+     cascade's 128 slots, "split" on the zoo's 2048);
   4. ``serve_stream_batched`` on the ``kernel`` ladder (lr ->
      tinytf_flash -> ssm at the default widths), imdb, batch 64, 2048
      items, simulated expert: every kernel's launch count over this run
@@ -40,7 +43,8 @@ Phases (any failure exits non-zero and prints no result line):
      read through a slice of F 1040); flash at the zoo
      shape and, on the tc variant, bf16 hd 128 at a ragged S = 1000, at
      S = 2048 with a window of 1024, non-causal GQA 6 at S = 512, and hd
-     64 at S = 2048; decode attention at the zoo shape — with tolerances
+     64 at S = 2048; decode attention at the zoo shape, also with 300
+     empty slots and with every slot empty ("split") — with tolerances
      scaled by max|plain|, beside their times, the library call's
      (``torch.bmm``, SDPA) and the bf16 bound.  Every row asserts the
      variant it took;
@@ -50,7 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
      kernel's launches (counted from zero over this run, equal to what
      the layers, MoE groups and steps imply) and launches by variant
      (every moe_gmm and flash launch must take "tc": 12 / 2 in the
-     prefill, 96 / 0 over the 16 decode steps); then one more prefill and
+     prefill, 96 / 0 over the 16 decode steps; every decode-attention
+     launch "split"); then one more prefill and
      4 decode steps under torch.profiler (device busy time, idle share,
      device time by kernel group).  Then (a) prefill/decode
      consistency at full width (S=256, a capacity that drops no token)
@@ -58,9 +63,10 @@ Phases (any failure exits non-zero and prints no result line):
      fp32, from the same weights.
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade and zoo serving
-runs, each counted from zero, and ``paths`` has each path's own count,
-times, ``variant`` (the one its timed row took; decode attention and the
-SSD scan have one scalar kernel, "simt") and ``launches_by_variant``);
+runs, each counted from zero, ``launches_by_variant`` its split by
+variant (decode attention: "single" / "split"), and ``paths`` has each
+path's own count, times, ``variant`` (the one its timed row took; the
+SSD scan has one scalar kernel, "simt") and ``launches_by_variant``);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -134,7 +140,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    decode_attention_cuda)
+    decode_attention_cuda, select_variant as decode_variant)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref)
 from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
@@ -155,10 +161,14 @@ LAUNCHERS = {"flash_attention": flash_attention_cuda,
 ZOO_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
                  "flash_attention": flash_attention_cuda,
                  "decode_attention": decode_attention_cuda}
-# the kernels with two variants ("tc": bf16 wgmma fed by TMA; "simt": the
-# scalar kernel), each counting its launches by variant
+# the kernels with variants, each counting its launches by variant:
+# moe_gmm and flash "tc" (bf16 wgmma fed by TMA) and "simt" (the scalar
+# kernel); decode attention "single" (one block per (b, kv head), one
+# launch) and "split" (the cache split across blocks, then a combine)
 VARIANT_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
-                     "flash_attention": flash_attention_cuda}
+                     "flash_attention": flash_attention_cuda,
+                     "decode_attention": decode_attention_cuda}
+TC_LAUNCHERS = ("moe_gmm", "flash_attention")
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +369,7 @@ def _variant_counts():
 
 def _zero_variant_counts():
     for fn in VARIANT_LAUNCHERS.values():
-        fn.launches_by_variant = {"tc": 0, "simt": 0}
+        fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
 
 def check(name, label, kernel_fn, plain_fn, tol, results, library_fn=None,
@@ -414,28 +424,32 @@ def phase_kernels(tokens):
                                                     TinyTFFlashSpec)
     results = {}
     gen = torch.Generator().manual_seed(1234)
-    for batch in (64, 8):
+    # the engine pads each level's lanes to buckets 8/16/32/64: batch 64
+    # and the smallest bucket for every kernel, and bucket 16 for the SSD
+    # scan; the readout's 128 slots are one split at every bucket
+    for batch in (64, 8, 16):
         got = capture_path_inputs(batch, TinyTFFlashSpec(), SSMStudentSpec(),
                                   tokens, gen)
-        timed = batch == 64
-        (q, k, v), kw = got["flash_attention"]
-        check("flash_attention", f"path B={batch} causal fp32",
-              lambda: fl_ops.flash_attention(q, k, v, **kw),
-              lambda: flash_plain(q, k, v), TOL["flash_attention"], results,
-              lambda: flash_library(q, k, v), flash_bound(q, k, v), timed,
-              variant="simt")
-        (q, k, v, pos), kw = got["decode_attention"]
-        check("decode_attention", f"path B={batch} pads fp32",
-              lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
-              lambda: decode_plain(q, k, v, pos), TOL["decode_attention"],
-              results, lambda: decode_library(q, k, v, pos),
-              decode_bound(q, k, v, pos), timed)
         (x, adt, dt, B, C), kw = got["ssd_scan"]
         check("ssd_scan", f"path B={batch} chunk {kw['chunk']}",
               lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, **kw),
               lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, kw["chunk"]),
               TOL["ssd_scan"], results, None,
-              ssd_bound(x, adt, dt, B, C, kw["chunk"]), timed, scaled=True)
+              ssd_bound(x, adt, dt, B, C, kw["chunk"]), True, scaled=True)
+        if batch == 16:
+            continue
+        (q, k, v), kw = got["flash_attention"]
+        check("flash_attention", f"path B={batch} causal fp32",
+              lambda: fl_ops.flash_attention(q, k, v, **kw),
+              lambda: flash_plain(q, k, v), TOL["flash_attention"], results,
+              lambda: flash_library(q, k, v), flash_bound(q, k, v),
+              batch == 64, variant="simt")
+        (q, k, v, pos), kw = got["decode_attention"]
+        check("decode_attention", f"path B={batch} pads fp32",
+              lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
+              lambda: decode_plain(q, k, v, pos), TOL["decode_attention"],
+              results, lambda: decode_library(q, k, v, pos),
+              decode_bound(q, k, v, pos), True, variant="single")
 
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen).to("cuda", dtype)
@@ -461,18 +475,20 @@ def phase_kernels(tokens):
               variant="simt")
 
     # SSD on O(1) inputs at the path shape, where a wrong decay or state
-    # update cannot hide under the small outputs of the served students
+    # update cannot hide under the small outputs of the served students;
+    # timed at every bucket of the engine
     (x, _, _, Bp, _), kw = got["ssd_scan"]
     _, S, H, hp = x.shape
     N, chunk = Bp.shape[-1], kw["chunk"]
-    for Bsz in (64, 8):
+    for Bsz in (64, 32, 16, 8):
         xr, Br, Cr = rnd(Bsz, S, H, hp), rnd(Bsz, S, N), rnd(Bsz, S, N)
         dtr = F.softplus(rnd(Bsz, S, H) - 2.0)
         adtr = -torch.arange(1, H + 1, device="cuda").float() * dtr
         check("ssd_scan", f"random O(1) B={Bsz}",
               lambda: ssd_ops.ssd_scan(xr, adtr, dtr, Br, Cr, chunk=chunk),
               lambda: ssd_scan_chunked_ref(xr, adtr, dtr, Br, Cr, chunk),
-              TOL["ssd_scan"], results, scaled=True)
+              TOL["ssd_scan"], results, None,
+              ssd_bound(xr, adtr, dtr, Br, Cr, chunk), True, scaled=True)
 
     # decode edge cases
     B, W, H, hd = 8, 128, 4, 32
@@ -485,25 +501,27 @@ def phase_kernels(tokens):
     inval = (pos < 0)[:, :, None, None].expand_as(kg)
     kg[inval] = 1e4 * rnd(B, W, H, hd)[inval]
     vg[inval] = 1e4 * rnd(B, W, H, hd)[inval]
+    dv = decode_variant(B, H, W)
     check("decode_attention", "garbage in empty slots",
           lambda: dec_ops.decode_attention(q, kg, vg, pos),
           lambda: dec_ops.decode_attention(q, k, v, pos),
-          TOL["decode_attention"], results)
+          TOL["decode_attention"], results, variant=dv)
     pos1 = torch.where(ar < 77, ar, torch.full_like(ar, -1))
     pos1 = pos1.to("cuda", torch.int32)
     check("decode_attention", "(W,) pos",
           lambda: dec_ops.decode_attention(q, k, v, pos1),
           lambda: decode_plain(q, k, v, pos1), TOL["decode_attention"],
-          results)
+          results, variant=dv)
     qg, kk, vv = rnd(B, 1, 8, hd), rnd(B, W, 2, hd), rnd(B, W, 2, hd)
     check("decode_attention", "GQA H8/K2",
           lambda: dec_ops.decode_attention(qg, kk, vv, pos),
           lambda: decode_plain(qg, kk, vv, pos), TOL["decode_attention"],
-          results)
+          results, variant=decode_variant(B, 2, W))
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     check("decode_attention", "bf16",
           lambda: dec_ops.decode_attention(qb, kb, vb, pos),
-          lambda: decode_plain(qb, kb, vb, pos), TOL["bf16"], results)
+          lambda: decode_plain(qb, kb, vb, pos), TOL["bf16"], results,
+          variant=dv)
     return results
 
 
@@ -721,7 +739,7 @@ def phase_zoo_kernels(cfg, params, tokens):
           lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
           lambda: decode_plain(q, k, v, pos), ZOO_TOL["bf16"], results,
           lambda: decode_library(q, k, v, pos),
-          decode_bound(q, k, v, pos), True, relative=True)
+          decode_bound(q, k, v, pos), True, relative=True, variant="split")
     qr, kr, vr = rnd(*q.shape), rnd(*k.shape), rnd(*v.shape)
     W = k.shape[1]
     posr = torch.where(torch.arange(W) < W - 300, torch.arange(W),
@@ -729,7 +747,14 @@ def phase_zoo_kernels(cfg, params, tokens):
     check("decode_attention", "random O(1) zoo decode, 300 empty slots",
           lambda: dec_ops.decode_attention(qr, kr, vr, posr),
           lambda: decode_plain(qr, kr, vr, posr), ZOO_TOL["bf16"], results,
-          relative=True)
+          relative=True, variant="split")
+    # no valid slot: every split averages its values, the combine weighs
+    # them alike, as the reference's softmax over -1e30 does
+    pos0 = torch.full((W,), -1, device="cuda", dtype=torch.int32)
+    check("decode_attention", "random O(1) zoo decode, every slot empty",
+          lambda: dec_ops.decode_attention(qr, kr, vr, pos0),
+          lambda: decode_plain(qr, kr, vr, pos0), ZOO_TOL["bf16"], results,
+          relative=True, variant="split")
     return results
 
 
@@ -803,11 +828,16 @@ def phase_zoo_serve(cfg, params, tokens):
                       f"{phase} != {expect[phase][n]} implied by its "
                       f"layers, groups and steps")
     for phase in ("prefill", "decode"):
-        for n in VARIANT_LAUNCHERS:
+        for n in TC_LAUNCHERS:
             if by_variant[phase][n] != {"tc": expect[phase][n], "simt": 0}:
                 _fail(f"{n}: zoo {phase} launches by variant "
                       f"{by_variant[phase][n]}; every one must take the "
                       f"tensor-core variant")
+    # the zoo's ring (B=2, 8 kv heads, W=2048) is split across blocks
+    want = {"single": 0, "split": expect["decode"]["decode_attention"]}
+    if by_variant["decode"]["decode_attention"] != want:
+        _fail(f"decode_attention: zoo decode launches by variant "
+              f"{by_variant['decode']['decode_attention']} != {want}")
     if not bool(torch.isfinite(logits).all()) or \
             logits.shape != (B, cfg.vocab):
         _fail(f"zoo decode logits {tuple(logits.shape)} not finite or not "
@@ -925,8 +955,8 @@ def phase_zoo_checks(cfg, params, tokens):
 
 
 def _record_row(rows, launches, by_variant):
-    """A path's numbers; ``variant`` is the one its timed row took
-    (decode attention and the SSD scan have one scalar kernel: "simt")."""
+    """A path's numbers; ``variant`` is the one its timed row took (the
+    SSD scan has one scalar kernel: "simt")."""
     timed = [r for _, r in rows if "kernel_ms" in r][0]
     return {"launches": launches,
             "max_abs_err": max(r["max_abs_err"] for _, r in rows),
@@ -940,10 +970,12 @@ def _record_row(rows, launches, by_variant):
 def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
                   zoo_by_variant):
     """One entry per kernel: the top-level numbers are those of the path
-    each kernel was first ported for (cascade; moe_gmm: zoo prefill),
-    ``launches`` the total over the cascade run and the zoo's prefill and
-    decode, ``paths`` each phase's own count, split by variant, and
-    numbers."""
+    each kernel was first ported for (cascade at batch 64; moe_gmm: zoo
+    prefill), ``launches`` and ``launches_by_variant`` the totals over the
+    cascade run and the zoo's prefill and decode, ``paths`` each phase's
+    own count, split by variant, and numbers.  ``cascade_b8`` /
+    ``cascade_b16`` hold the timed rows at the engine's smaller buckets
+    (their launch counts are the cascade run's, over all buckets)."""
     def split(counts, name, n):
         return counts.get(name, {"tc": 0, "simt": n})
 
@@ -951,10 +983,15 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
     for name in REPLACES:
         paths = {}
         if name in LAUNCHERS:
-            rows = [(lab, r) for lab, r in results[name]
-                    if lab.startswith("path B=64")]
-            paths["cascade"] = _record_row(
-                rows, launches[name], split(by_variant, name, launches[name]))
+            for path, prefix in (("cascade", "path B=64"),
+                                 ("cascade_b8", "path B=8"),
+                                 ("cascade_b16", "path B=16")):
+                rows = [(lab, r) for lab, r in results[name]
+                        if lab.startswith(prefix)]
+                if any("kernel_ms" in r for _, r in rows):
+                    paths[path] = _record_row(
+                        rows, launches[name],
+                        split(by_variant, name, launches[name]))
         if name in ZOO_LAUNCHERS:
             zrows = [(lab, r) for lab, r in zoo_results[name]
                      if lab.startswith("path")]
@@ -965,9 +1002,12 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
                     paths[f"zoo_{phase}"] = _record_row(
                         rows, n, split(zoo_by_variant[phase], name, n))
         top = dict(next(iter(paths.values())))
-        top["launches"] = launches.get(name, 0) + sum(
-            zoo_launches[phase].get(name, 0)
-            for phase in ("prefill", "decode"))
+        runs = [paths[p] for p in ("cascade", "zoo_prefill", "zoo_decode")
+                if p in paths]
+        top["launches"] = sum(r["launches"] for r in runs)
+        top["launches_by_variant"] = {
+            v: sum(r["launches_by_variant"].get(v, 0) for r in runs)
+            for v in runs[0]["launches_by_variant"]}
         record.append({"name": name, "route": "cuda",
                        "source": SOURCE[name], "replaces": REPLACES[name],
                        **top, "paths": paths})

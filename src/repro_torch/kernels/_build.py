@@ -141,6 +141,17 @@ def tma_readable(t) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
+def rows16(t) -> bool:
+    """Whether a kernel can read tensor ``t`` 16 bytes a thread along its
+    last dim: that dim contiguous and a multiple of 16 bytes long, every
+    other stride a multiple of 16 bytes (zero, a broadcast, included), a
+    16-byte-aligned base."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.shape[-1] * size % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
 def c_int(value: int) -> int:
     """Validate an int passed as a C ``int`` (shapes, element strides)."""
     if not -2 ** 31 <= int(value) < 2 ** 31:

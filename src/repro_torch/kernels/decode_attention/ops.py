@@ -6,7 +6,8 @@ hand-written kernel (or raises); a CPU tensor runs the plain twin
 ``ref.decode_attention_ref``.  A (W,) ``pos`` is broadcast to (B, W) —
 as a zero-stride view on the CUDA path, which the kernel reads through
 its strides.  ``block_kv`` is accepted for the reference signature; the
-CUDA tile is the kernel's own.
+CUDA tiles and the split of the cache across blocks are the kernel's own
+(``kernel.num_splits``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ def decode_attention(q, k, v, pos, *, block_kv: int = 512) -> torch.Tensor:
     """q: (B, 1, H, hd) one new token; k, v: (B, W, K, hd) ring cache;
     pos: (W,) or (B, W) slot positions (-1 empty).  Returns (B, 1, H, hd).
     """
-    del block_kv               # TPU VMEM tiling; the CUDA tile is fixed
+    del block_kv               # TPU VMEM tiling; the CUDA tiles are fixed
     B, _, H, hd = q.shape
     K = k.shape[2]
     if pos.ndim == 1:

@@ -13,9 +13,16 @@ from repro_torch.kernels import _build
 MAX_SMEM_BYTES = 232_448   # Hopper's per-block dynamic shared memory
 
 
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
 def smem_bytes(hp: int, N: int, L: int) -> int:
-    """Shared memory one block of the scan needs (mirrors the C side)."""
-    return 4 * (L * hp + 2 * L * (N + 1) + L * L + hp * (N + 1) + 3 * L)
+    """Shared memory one block of the scan needs (mirrors the C side):
+    x, B^T, C^T, the (L x L) scores, h^T and four L vectors, each
+    dimension padded to a multiple of 4."""
+    L4, P4, N4 = _pad4(L), _pad4(hp), _pad4(N)
+    return 4 * (L4 * P4 + 2 * N4 * L4 + L4 * L4 + N4 * P4 + 4 * L4)
 
 
 def ssd_scan_cuda(x, adt, dt, B, C, *, chunk: int) -> torch.Tensor:
@@ -41,12 +48,14 @@ def ssd_scan_cuda(x, adt, dt, B, C, *, chunk: int) -> torch.Tensor:
     if y.numel() == 0:
         return y
     ci = _build.c_int
-    fn = _build.entry("repro_ssd_scan_fwd", 6, 22)
+    fn = _build.entry("repro_ssd_scan_fwd", 6, 24)
     err = fn(x.data_ptr(), adt.data_ptr(), dt.data_ptr(), B.data_ptr(),
              C.data_ptr(), y.data_ptr(), ci(Bsz), ci(S), ci(H), ci(hp),
              ci(N), ci(chunk), *(ci(s) for s in x.stride()),
              *(ci(s) for s in adt.stride()), *(ci(s) for s in dt.stride()),
              *(ci(s) for s in B.stride()), *(ci(s) for s in C.stride()),
+             int(_build.rows16(x)),
+             int(_build.rows16(B) and _build.rows16(C)),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd_scan", err)
     ssd_scan_cuda.launches += 1

@@ -1,0 +1,176 @@
+"""Time the port's decode-attention and SSD-scan kernels at the shapes the
+main path gives them, on random inputs made from a seed on the card.
+
+  python src/repro_torch/launch/time_kernels.py [--root DIR] [--label X]
+
+``--root`` imports ``repro_torch`` from another checkout (its ``src/``),
+which builds its own kernels, so that two versions are timed by the same
+code on the same inputs; run it as a file, not with ``-m``, so the root
+can be chosen before the import.  To compare two commits in one call,
+unpack the other one into a directory that ``.gitignore`` lists and run
+the two in turns (A, B, B, A).  One JSON line per row: the kernel, the
+path, the shape, the variant where the version reports one, ``ms`` (the
+mean of ``--reps`` calls back to back between CUDA events after a
+warm-up: the host's work per call is included where it is the longer),
+``graph_ms`` (the same calls captured in a CUDA graph and replayed: the
+device's time per call without the host's) and ``profile_by_kernel``
+(device time per call of each kernel a call launches, from a
+``torch.profiler`` trace).  Where the version's decode launcher takes
+``n_split``, rows at forced split counts show the split's trade-off.
+Exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import sys
+from pathlib import Path
+
+
+def _time_ms(torch, fn, reps: int, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _graph_ms(torch, fn, reps: int, replays: int = 5) -> float:
+    """Per-call time of ``reps`` calls captured in one CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def _profile_ms(torch, fn, reps: int):
+    """Device time per call of each kernel, from a profiler trace."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0][-40:]
+            dur = (e.time_range.end - e.time_range.start) / 1e3 / reps
+            by_name[name] = by_name.get(name, 0.0) + dur
+    return by_name
+
+
+def _row(torch, fn, reps):
+    return {"ms": _time_ms(torch, fn, reps),
+            "graph_ms": _graph_ms(torch, fn, reps),
+            "profile_by_kernel": _profile_ms(torch, fn, reps)}
+
+
+def _variant(launcher, before):
+    counts = getattr(launcher, "launches_by_variant", None)
+    if counts is None:
+        return None
+    return "+".join(v for v, n in counts.items() if n > before.get(v, 0))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve()
+                                          .parents[3]))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--reps", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve() / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        print("time_kernels needs a CUDA device", file=sys.stderr)
+        return 3
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows = []
+    # decode attention: the zoo's step (full ring) and the cascade's
+    # pooled readout (valid prefixes, pads at -1) at buckets 64 and 8
+    W = 2048
+    dec = [("zoo decode", rnd(2, 1, 48, 128, dtype=torch.bfloat16),
+            rnd(2, W, 8, 128, dtype=torch.bfloat16),
+            rnd(2, W, 8, 128, dtype=torch.bfloat16),
+            torch.arange(W, device="cuda", dtype=torch.int32))]
+    for B in (64, 8):
+        lens = torch.randint(1, 129, (B, 1), generator=gen, device="cuda")
+        ar = torch.arange(128, device="cuda")
+        pos = torch.where(ar[None] < lens, ar[None], -1).to(torch.int32)
+        dec.append((f"cascade B={B}", rnd(1, 1, 4, 32).expand(B, 1, 4, 32),
+                    rnd(B, 128, 4, 32), rnd(B, 128, 4, 32), pos))
+    for path, q, k, v, pos in dec:
+        before = dict(getattr(decode_attention_cuda, "launches_by_variant",
+                              {}))
+        dec_ops.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        rows.append({"kernel": "decode_attention", "path": path,
+                     "shape": [list(q.shape), list(k.shape)],
+                     "variant": _variant(decode_attention_cuda, before),
+                     **_row(torch, lambda: dec_ops.decode_attention(
+                         q, k, v, pos), args.reps)})
+    # the split's trade-off: the zoo's step and the cascade's bucket 8 at
+    # forced split counts (versions whose launcher takes ``n_split``)
+    if "n_split" in inspect.signature(decode_attention_cuda).parameters:
+        for (path, q, k, v, pos), counts in ((dec[0], (8, 16, 32)),
+                                             (dec[2], (1, 2))):
+            pos = pos if pos.ndim == 2 else pos[None].expand(k.shape[0], -1)
+            for n in counts:
+                rows.append({
+                    "kernel": "decode_attention", "path": path,
+                    "shape": [list(q.shape), list(k.shape)],
+                    "variant": f"{n} splits", **_row(
+                        torch, lambda: decode_attention_cuda(
+                            q, k, v, pos, n_split=n), args.reps)})
+    # SSD scan at the ssm level's dims, every bucket
+    S, H, hp, N, chunk = 128, 6, 64, 32, 64
+    for B in (64, 32, 16, 8):
+        x, Bm, Cm = rnd(B, S, H, hp), rnd(B, S, N), rnd(B, S, N)
+        dt = torch.nn.functional.softplus(rnd(B, S, H) - 2.0)
+        adt = -torch.arange(1, H + 1, device="cuda").float() * dt
+        rows.append({"kernel": "ssd_scan", "path": f"cascade B={B}",
+                     "shape": list(x.shape), "variant": None,
+                     **_row(torch, lambda: ssd_ops.ssd_scan(
+                         x, adt, dt, Bm, Cm, chunk=chunk), args.reps)})
+    for row in rows:
+        print(json.dumps({"label": args.label, **row}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -73,45 +73,104 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, K, hd, causal, window,
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("B,W,H,K,hd,dtype", [
-    (64, 128, 4, 4, 32, torch.float32),
-    (2, 32, 2, 2, 16, torch.float32),
-    (4, 200, 8, 2, 64, torch.float32),
-    (4, 128, 4, 4, 32, torch.bfloat16),
+def _decode_pos(kind, gen, B, K, W):
+    """Slot positions: "lens" random valid prefixes (B, W); "ring" the
+    zoo's (W,) ring with its last 300 slots empty; "empty" no valid slot;
+    "split empty" every slot valid but those of one whole split."""
+    from repro_torch.kernels.decode_attention.kernel import (num_splits,
+                                                              split_bounds)
+    ar = torch.arange(W)
+    if kind == "lens":
+        lens = torch.randint(1, W + 1, (B,), generator=gen)
+        pos = torch.where(ar[None] < lens[:, None], ar[None], -1)
+    elif kind == "ring":
+        pos = torch.where(ar < W - 300, ar, -1)
+    elif kind == "empty":
+        pos = torch.full((B, W), -1)
+    else:
+        bounds = split_bounds(W, num_splits(B, K, W))
+        lo, hi = bounds[len(bounds) // 2]
+        pos = torch.where((ar >= lo) & (ar < hi), -1, ar)[None].expand(B, W)
+    return pos.to("cuda", torch.int32)
+
+
+@pytest.mark.parametrize("B,W,H,K,hd,dtype,pos_kind", [
+    (64, 128, 4, 4, 32, torch.float32, "lens"),    # cascade, batch 64
+    (2, 32, 2, 2, 16, torch.float32, "lens"),
+    (4, 200, 8, 2, 64, torch.float32, "lens"),
+    (4, 128, 4, 4, 32, torch.bfloat16, "lens"),
+    (8, 128, 4, 4, 32, torch.float32, "lens"),     # cascade bucket 8
+    (2, 2048, 48, 8, 128, torch.bfloat16, "ring"),  # zoo decode
+    (2, 2048, 48, 8, 128, torch.bfloat16, "empty"),
+    (8, 128, 4, 4, 32, torch.float32, "empty"),
+    (2, 2048, 48, 8, 128, torch.bfloat16, "split empty"),
+    (2, 1024, 8, 2, 64, torch.float32, "split empty"),  # 8 splits
+    (2, 1000, 8, 2, 64, torch.bfloat16, "lens"),  # 7 splits, ragged last
+    (2, 300, 32, 2, 64, torch.float32, "lens"),   # G 16: scores from smem
+    (2, 300, 4, 2, 256, torch.float32, "lens"),   # hd 256: two load rounds
+    (3, 130, 6, 3, 120, torch.bfloat16, "lens"),  # 240-byte rows: scalar
 ])
-def test_decode_kernel_matches_plain(cuda, B, W, H, K, hd, dtype):
+def test_decode_kernel_matches_plain(cuda, B, W, H, K, hd, dtype, pos_kind):
+    from repro_torch.kernels.decode_attention.kernel import select_variant
     gen = torch.Generator().manual_seed(1)
     q = _randn(gen, B, 1, H, hd, dtype=dtype)
     k = _randn(gen, B, W, K, hd, dtype=dtype)
     v = _randn(gen, B, W, K, hd, dtype=dtype)
-    lens = torch.randint(1, W + 1, (B,), generator=gen)
-    ar = torch.arange(W)
-    pos = torch.where(ar[None] < lens[:, None], ar[None], -1)
-    pos = pos.to("cuda", torch.int32)
+    pos = _decode_pos(pos_kind, gen, B, K, W)
+    variant = select_variant(B, K, W)
     n0 = decode_attention_cuda.launches
+    v0 = dict(decode_attention_cuda.launches_by_variant)
     out = decode_attention(q, k, v, pos)
     torch.cuda.synchronize()
     assert decode_attention_cuda.launches == n0 + 1
+    moved = {n: c - v0[n]
+             for n, c in decode_attention_cuda.launches_by_variant.items()}
+    assert moved == {n: int(n == variant) for n in moved}
+    pos_b = pos if pos.ndim == 2 else pos[None].expand(B, W)
     ref = decode_attention_ref(q[:, 0].reshape(B, K, H // K, hd), k, v,
-                               pos).reshape(B, 1, H, hd)
+                               pos_b).reshape(B, 1, H, hd)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if pos_kind == "empty":    # every slot counts: nothing is inert
+        return
     # empty slots are inert whatever they hold
     kg, vg = k.clone(), v.clone()
-    inval = (pos < 0)[:, :, None, None].expand_as(kg)
+    inval = (pos_b < 0)[:, :, None, None].expand_as(kg)
     kg[inval], vg[inval] = 1e4, -1e4
     torch.testing.assert_close(decode_attention(q, kg, vg, pos), out,
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("Bsz,S,H,hp,N,chunk", [
-    (64, 128, 6, 64, 32, 64),      # serving shape
-    (2, 32, 2, 16, 8, 16),         # CI shape
-    (3, 96, 2, 32, 16, 32),
+@pytest.mark.parametrize("n_split", [2, 3, 16])
+def test_decode_forced_splits_match_plain(cuda, n_split):
+    """The split path at the cascade's shape (fp32, G 1, hd 32), which
+    the chooser serves unsplit; 3 splits leave a ragged last one."""
+    gen = torch.Generator().manual_seed(4)
+    B, W, H, hd = 8, 128, 4, 32
+    q = _randn(gen, B, 1, H, hd)
+    k, v = _randn(gen, B, W, H, hd), _randn(gen, B, W, H, hd)
+    pos = _decode_pos("lens", gen, B, H, W)
+    v0 = decode_attention_cuda.launches_by_variant["split"]
+    out = decode_attention_cuda(q, k, v, pos, n_split=n_split)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches_by_variant["split"] == v0 + 1
+    ref = decode_attention_ref(q[:, 0].reshape(B, H, 1, hd), k, v,
+                               pos).reshape(B, 1, H, hd)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("Bsz,S,H,hp,N,chunk,strided", [
+    (64, 128, 6, 64, 32, 64, False),   # serving shape
+    (8, 128, 6, 64, 32, 64, False),    # serving dims, bucket 8
+    (2, 32, 2, 16, 8, 16, False),      # CI shape
+    (3, 96, 2, 32, 16, 32, False),
+    (8, 128, 6, 64, 32, 64, True),     # x read through a stride
+    (2, 30, 3, 10, 6, 15, False),      # no dimension a multiple of 4
 ])
-def test_ssd_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk):
+def test_ssd_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk, strided):
     gen = torch.Generator().manual_seed(2)
-    x = _randn(gen, Bsz, S, H, hp)
+    x = _randn(gen, Bsz, S, H, 2 * hp if strided else hp)
+    x = x[..., ::2] if strided else x
     dt = torch.nn.functional.softplus(_randn(gen, Bsz, S, H) - 2.0)
     adt = -torch.arange(1, H + 1, device="cuda").float() * dt
     B = _randn(gen, Bsz, S, N)

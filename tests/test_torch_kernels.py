@@ -171,6 +171,80 @@ def test_decode_plain_matches_jax_gqa(bf16):
     assert torch.equal(direct.reshape(B, 1, H, hd), out)
 
 
+# the split of the cache across blocks (the CUDA kernel's "split" variant)
+SPLIT_CASES = {
+    # name: (B, K, W, splits)
+    "zoo decode": (2, 8, 2048, 16),
+    "cascade batch 64": (64, 4, 128, 1),
+    "cascade bucket 8": (8, 4, 128, 1),
+    "W below a split": (1, 1, 40, 1),
+    "W not a multiple": (1, 1, 1000, 7),
+    "ragged last split": (1, 2, 3000, 23),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_decode_num_splits(case):
+    from repro_torch.kernels.decode_attention.kernel import (
+        MIN_SPLIT_SLOTS, num_splits, select_variant, split_bounds)
+    B, K, W, want = SPLIT_CASES[case]
+    n = num_splits(B, K, W)
+    assert n == want
+    assert select_variant(B, K, W) == ("split" if n > 1 else "single")
+    bounds = split_bounds(W, n)
+    assert len(bounds) == n
+    assert bounds[0][0] == 0 and bounds[-1][1] == W
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(hi > lo for lo, hi in bounds)
+    if n > 1:     # every split but the ragged last is long enough
+        assert all(hi - lo >= MIN_SPLIT_SLOTS for lo, hi in bounds[:-1])
+        assert n * B * K <= 2 * 132
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 16])
+@pytest.mark.parametrize("pos_kind", ["lens", "split empty", "none valid"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_decode_split_ref_matches_jax(n_split, pos_kind, bf16):
+    """The split-and-combine arithmetic against the JAX op (interpret
+    mode) and ref, W = 200 so that 3 and 16 splits leave a ragged last
+    split: a split whose every slot is empty must weigh 0, a cache with no
+    valid slot must average its values."""
+    from repro_torch.kernels.decode_attention.kernel import split_bounds
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_split_ref)
+    B, W, H, K, hd = 2, 200, 4, 2, 16
+    rng = np.random.default_rng(500 + 10 * n_split + len(pos_kind) + bf16)
+    q, k, v = _np(rng, B, 1, H, hd), _np(rng, B, W, K, hd), \
+        _np(rng, B, W, K, hd)
+    ar = np.arange(W)
+    if pos_kind == "lens":
+        lens = rng.integers(1, W + 1, (B, 1))
+        pos = np.where(ar[None] < lens, ar[None], -1)
+    elif pos_kind == "split empty":
+        bounds = split_bounds(W, max(n_split, 2))
+        lo, hi = bounds[len(bounds) // 2]
+        pos = np.broadcast_to(np.where((ar >= lo) & (ar < hi), -1, ar),
+                              (B, W))
+    else:
+        pos = np.full((B, W), -1)
+    pos = np.ascontiguousarray(pos, dtype=np.int32)
+    assert len(split_bounds(W, n_split)) == n_split
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    tol = BF16_TOL if bf16 else FP32_TOL
+    qg = _t(q, tdt)[:, 0].reshape(B, K, H // K, hd)
+    out = decode_attention_split_ref(qg, _t(k, tdt), _t(v, tdt),
+                                     torch.from_numpy(pos), n_split)
+    assert out.shape == (B, K, H // K, hd) and out.dtype == tdt
+    j_op = j_decode(_j(q, jdt), _j(k, jdt), _j(v, jdt), jnp.asarray(pos))
+    j_ref = j_decode_ref(_j(q, jdt)[:, 0].reshape(B, K, H // K, hd),
+                         _j(k, jdt), _j(v, jdt), jnp.asarray(pos))
+    got = out.float().numpy()
+    for want in (np.asarray(j_op, np.float32).reshape(got.shape),
+                 np.asarray(j_ref, np.float32)):
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
 # ---------------------------------------------------------------------------
 # SSD scan
 # ---------------------------------------------------------------------------
