@@ -17,15 +17,18 @@ Phases (any failure exits non-zero and prints no result line):
      32, 16 and 8, its tolerance scaled to the plain output's magnitude
      where that is below 1) — with the kernel's, the plain version's
      and, where one PyTorch call computes the same function, that call's
-     time, beside the analytic bound.  Every flash row here must take the
-     scalar ("simt") variant; every decode row the variant
-     ``decode_attention.kernel.select_variant`` names ("single" on the
-     cascade's 128 slots, "split" on the zoo's 2048);
+     time, beside the analytic bound.  Every fp32 flash row here must
+     take the register-tiled ("tiled") variant, the bf16 hd 32 and hd 120
+     rows the scalar ("simt") one, and one row at the path shape forces
+     "simt" so that each variant stays checked; every decode row takes
+     the variant ``decode_attention.kernel.select_variant`` names
+     ("single" on the cascade's 128 slots, "split" on the zoo's 2048);
   4. ``serve_stream_batched`` on the ``kernel`` ladder (lr ->
      tinytf_flash -> ssm at the default widths), imdb, batch 64, 2048
      items, simulated expert: every kernel's launch count over this run
      must be > 0 and equal the layers x forwards the engine counted, and
-     every (fp32) flash launch must have taken the scalar variant;
+     every (fp32) flash launch must have taken the "tiled" variant; the
+     flash calls are also counted by padded batch (the engine's bucket);
   5. the served levels' final params: kernel path vs plain path logits
      at batch 64 — same argmax on every row, logits within tolerance;
   6. zoo-kernels: Mixtral-8x22B at full width (d_model 6144, 48/8 heads
@@ -66,7 +69,10 @@ kernels; ``launches`` is the total over the cascade and zoo serving
 runs, each counted from zero, ``launches_by_variant`` its split by
 variant (decode attention: "single" / "split"), and ``paths`` has each
 path's own count, times, ``variant`` (the one its timed row took; the
-SSD scan has one scalar kernel, "simt") and ``launches_by_variant``);
+SSD scan has one scalar kernel, "simt") and ``launches_by_variant``;
+flash attention's ``variants`` names its three, and its
+``cascade_forced_simt`` path times "simt" at the path shape, off every
+served path, so its ``launches`` is null);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -163,8 +169,9 @@ ZOO_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
                  "decode_attention": decode_attention_cuda}
 # the kernels with variants, each counting its launches by variant:
 # moe_gmm and flash "tc" (bf16 wgmma fed by TMA) and "simt" (the scalar
-# kernel); decode attention "single" (one block per (b, kv head), one
-# launch) and "split" (the cache split across blocks, then a combine)
+# kernel), flash also "tiled" (fp32 register tiles); decode attention
+# "single" (one block per (b, kv head), one launch) and "split" (the
+# cache split across blocks, then a combine)
 VARIANT_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
                      "flash_attention": flash_attention_cuda,
                      "decode_attention": decode_attention_cuda}
@@ -442,8 +449,18 @@ def phase_kernels(tokens):
         check("flash_attention", f"path B={batch} causal fp32",
               lambda: fl_ops.flash_attention(q, k, v, **kw),
               lambda: flash_plain(q, k, v), TOL["flash_attention"], results,
-              lambda: flash_library(q, k, v), flash_bound(q, k, v),
-              batch == 64, variant="simt")
+              lambda: flash_library(q, k, v), flash_bound(q, k, v), True,
+              variant="tiled")
+        if batch == 64:
+            # the scalar kernel at the path shape, so that it stays held
+            # to the plain version (and timed beside "tiled")
+            check("flash_attention", "forced simt B=64 causal fp32",
+                  lambda: flash_attention_cuda(
+                      q, k, v, sm_scale=q.shape[-1] ** -0.5,
+                      variant="simt"),
+                  lambda: flash_plain(q, k, v), TOL["flash_attention"],
+                  results, lambda: flash_library(q, k, v),
+                  flash_bound(q, k, v), True, variant="simt")
         (q, k, v, pos), kw = got["decode_attention"]
         check("decode_attention", f"path B={batch} pads fp32",
               lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
@@ -454,14 +471,20 @@ def phase_kernels(tokens):
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen).to("cuda", dtype)
 
-    # flash edge cases
-    for label, (B, S, H, K, hd, causal, window, dtype) in {
-            "window 48": (4, 128, 4, 4, 32, True, 48, torch.float32),
-            "non-causal": (4, 128, 4, 4, 32, False, None, torch.float32),
-            "GQA H8/K2": (4, 128, 8, 2, 32, True, None, torch.float32),
-            "bf16": (4, 128, 4, 4, 32, True, None, torch.bfloat16),
-            "hd 120": (2, 128, 4, 2, 120, True, None, torch.float32),
-            "ragged S=100": (2, 100, 4, 4, 32, True, None, torch.float32),
+    # flash edge cases: fp32 with hd 32 takes "tiled", bf16 hd 32 and hd
+    # 120 take "simt"
+    for label, (B, S, H, K, hd, causal, window, dtype, fv) in {
+            "window 48": (4, 128, 4, 4, 32, True, 48, torch.float32,
+                          "tiled"),
+            "non-causal": (4, 128, 4, 4, 32, False, None, torch.float32,
+                           "tiled"),
+            "GQA H8/K2": (4, 128, 8, 2, 32, True, None, torch.float32,
+                          "tiled"),
+            "bf16": (4, 128, 4, 4, 32, True, None, torch.bfloat16, "simt"),
+            "hd 120": (2, 128, 4, 2, 120, True, None, torch.float32,
+                       "simt"),
+            "ragged S=100": (2, 100, 4, 4, 32, True, None, torch.float32,
+                             "tiled"),
     }.items():
         q, k, v = rnd(B, S, H, hd, dtype=dtype), rnd(B, S, K, hd,
                                                        dtype=dtype), \
@@ -472,7 +495,7 @@ def phase_kernels(tokens):
               lambda: fl_ops.flash_attention(q, k, v, causal=causal,
                                              window=window),
               lambda: flash_plain(q, k, v, causal, window), tol, results,
-              variant="simt")
+              variant=fv)
 
     # SSD on O(1) inputs at the path shape, where a wrong decay or state
     # update cannot hide under the small outputs of the served students;
@@ -544,6 +567,9 @@ def phase_serve():
     expect = {"flash_attention": tf.sspec.n_layers * tf.forwards,
               "decode_attention": tf.forwards,
               "ssd_scan": ssm.sspec.n_layers * ssm.forwards}
+    # flash calls by padded batch (the engine's bucket), from its counts
+    flash_batches = {b: tf.sspec.n_layers * n
+                     for b, n in sorted(tf.forwards_by_batch.items())}
     print(f"[serve] items_per_sec={m['items_per_sec']:.1f} "
           f"wall_s={wall:.2f} accuracy={m['accuracy']:.4f} "
           f"expert_calls={m['expert_calls']} level_fractions="
@@ -551,11 +577,12 @@ def phase_serve():
     print(f"[serve] forwards per level: "
           f"{ {lvl.spec.kind: lvl.forwards for lvl in eng.levels} } "
           f"launches: {launches} expected: {expect}; by variant: "
-          f"{by_variant}", flush=True)
+          f"{by_variant}; flash calls by batch: {flash_batches}",
+          flush=True)
     if by_variant["flash_attention"] != {
-            "tc": 0, "simt": launches["flash_attention"]}:
+            "tc": 0, "simt": 0, "tiled": launches["flash_attention"]}:
         _fail(f"the cascade's fp32 flash launches must all take the "
-              f"scalar variant: {by_variant['flash_attention']}")
+              f"register-tiled variant: {by_variant['flash_attention']}")
     for n in LAUNCHERS:
         if launches[n] <= 0:
             _fail(f"{n} was never launched on the serving path")
@@ -829,7 +856,9 @@ def phase_zoo_serve(cfg, params, tokens):
                       f"layers, groups and steps")
     for phase in ("prefill", "decode"):
         for n in TC_LAUNCHERS:
-            if by_variant[phase][n] != {"tc": expect[phase][n], "simt": 0}:
+            want = {**dict.fromkeys(by_variant[phase][n], 0),
+                    "tc": expect[phase][n]}
+            if by_variant[phase][n] != want:
                 _fail(f"{n}: zoo {phase} launches by variant "
                       f"{by_variant[phase][n]}; every one must take the "
                       f"tensor-core variant")
@@ -975,7 +1004,9 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
     cascade run and the zoo's prefill and decode, ``paths`` each phase's
     own count, split by variant, and numbers.  ``cascade_b8`` /
     ``cascade_b16`` hold the timed rows at the engine's smaller buckets
-    (their launch counts are the cascade run's, over all buckets)."""
+    (their launch counts are the cascade run's, over all buckets);
+    ``cascade_forced_simt`` the scalar flash kernel forced at the path
+    shape, which no served path takes (``launches`` null)."""
     def split(counts, name, n):
         return counts.get(name, {"tc": 0, "simt": n})
 
@@ -985,13 +1016,15 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
         if name in LAUNCHERS:
             for path, prefix in (("cascade", "path B=64"),
                                  ("cascade_b8", "path B=8"),
-                                 ("cascade_b16", "path B=16")):
+                                 ("cascade_b16", "path B=16"),
+                                 ("cascade_forced_simt", "forced simt")):
                 rows = [(lab, r) for lab, r in results[name]
                         if lab.startswith(prefix)]
                 if any("kernel_ms" in r for _, r in rows):
+                    # a forced variant's row is on no served path
+                    n = None if path.endswith("simt") else launches[name]
                     paths[path] = _record_row(
-                        rows, launches[name],
-                        split(by_variant, name, launches[name]))
+                        rows, n, split(by_variant, name, launches[name]))
         if name in ZOO_LAUNCHERS:
             zrows = [(lab, r) for lab, r in zoo_results[name]
                      if lab.startswith("path")]
@@ -1008,6 +1041,9 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
         top["launches_by_variant"] = {
             v: sum(r["launches_by_variant"].get(v, 0) for r in runs)
             for v in runs[0]["launches_by_variant"]}
+        if name in VARIANT_LAUNCHERS:
+            top["variants"] = list(VARIANT_LAUNCHERS[name]
+                                   .launches_by_variant)
         record.append({"name": name, "route": "cuda",
                        "source": SOURCE[name], "replaces": REPLACES[name],
                        **top, "paths": paths})

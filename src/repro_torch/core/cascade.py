@@ -218,8 +218,9 @@ class _Level:
         self.cache_ptr = 0
         # kernel-path forwards run by this level (route passes and gate
         # calibration forwards) — what the kernels' launch counters are
-        # checked against
+        # checked against — and the same split by padded batch
         self.forwards = 0
+        self.forwards_by_batch = {}
         # initial state for reset(); updates build new tensors and never
         # write in place, so keeping the references is enough
         self._init_state = (self.params, self.opt_state,
@@ -235,6 +236,7 @@ class _Level:
         self.cache_n = 0
         self.cache_ptr = 0
         self.forwards = 0
+        self.forwards_by_batch = {}
 
     def state_tree(self) -> dict:
         """The level's learned state (STATE_ATTRS order)."""
@@ -247,6 +249,8 @@ class _Level:
         returns device tensors (probs (B, C), dprob (B,)).  At a (1, ...)
         batch this is the reference's ``predict_and_defer``."""
         self.forwards += 1
+        B = xb.shape[0]
+        self.forwards_by_batch[B] = self.forwards_by_batch.get(B, 0) + 1
         probs = self._predict_batch(params, xb)
         return probs, deferral_prob(dparams, probs)
 

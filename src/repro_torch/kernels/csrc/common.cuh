@@ -43,6 +43,27 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 16-byte global -> shared copy that bypasses L1 (cp.async.cg; both
+// addresses 16-byte aligned).  With ``valid`` false nothing is read and
+// the 16 bytes are zero-filled (``gmem`` must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory
 // (Hopper allows up to 227 KB per block), then launch-check.
 template <typename Kernel>

@@ -11,8 +11,8 @@
 // read in the model layout (B, S, heads, hd), so the wrapper does no
 // transposes.
 //
-// Two variants; the Python launcher picks one from the operands before the
-// launch (kernels/flash_attention/kernel.py select_variant):
+// Three variants; the Python launcher picks one from the operands before
+// the launch (kernels/flash_attention/kernel.py select_variant):
 //
 // "tc" (variant 1): bf16 with head dim 64 or 128, operands TMA can read.
 // A block owns 128 query rows of one head: two consumer warpgroups of 64
@@ -34,18 +34,32 @@
 // card: operations at the zoo's prefill (q (2,2048,48,128), causal:
 // 103 GFLOP, 0.10 ms at 989 TFLOP/s bf16).
 //
-// "simt" (variant 0): every other case (fp32 -- the cascade's path, whose
-// 2e-5 tolerance TF32 cannot meet --, other head dims, strides TMA cannot
-// read).  256 threads own 64 query rows, four threads a row.  For scores
-// each of the four takes every fourth key of the 64-key tile with a full
-// head-dim dot product; for the output each takes every fourth head dim,
-// reading the row's probabilities back from shared memory.  Rows are
-// padded by one float so neither pass has bank conflicts.  q is scaled
-// before the dot as on the TPU; fp32 arithmetic on the CUDA cores (no
-// TF32).  At the cascade's shape (q/k/v (64,128,4,32) fp32, causal) the
-// function moves 16.8 MB (5 us at 3.35 TB/s) and does 0.27 GFLOP (4 us at
-// 67 TFLOP/s fp32): it sits near the ridge, and scalar FMAs from shared
-// memory keep this variant far from either bound.
+// "tiled" (variant 2): fp32 with head dim 16, 32, 64 or 128, operands
+// cp.async can read 16 bytes at a time -- the cascade's path, whose 2e-5
+// tolerance TF32 cannot meet, so IEEE fp32 FMAs on the CUDA cores.  A
+// block owns 32 query rows of one head, 4 threads a row, so that even
+// the engine's bucket 8 (128 blocks on 132 SMs) nearly fills the card.  q
+// is scaled in fp32 and staged once; 64-key K and V tiles go into a
+// two-stage shared-memory ring by 16-byte cp.async copies, the next tile
+// loading while the current one computes.  Each thread computes a 4 x 4
+// (rows x keys) tile of S = q K^T from float4 loads along hd (8 loads per
+// 64 FMAs), reduces each row's max by shuffles within its half-warp,
+// writes P to shared memory and accumulates O += P V on a 4 x hd/16
+// register tile, P and V again read as float4s.  Masks, skips and the
+// -1e30 / -inf / 1e-30 rules are the tc variant's.  At the cascade's
+// shape (q/k/v (64,128,4,32), causal) the function moves 16.8 MB (5 us
+// at 3.35 TB/s) and does 0.27 GFLOP (4 us at 67 TFLOP/s fp32): it sits
+// near the ridge.
+//
+// "simt" (variant 0): every other case (other head dims, bf16 that TMA
+// cannot read, strides or bases cp.async cannot take).  256 threads own
+// 64 query rows, four threads a row.  For scores each of the four takes
+// every fourth key of the 64-key tile with a full head-dim dot product;
+// for the output each takes every fourth head dim, reading the row's
+// probabilities back from shared memory.  Rows are padded by one float so
+// neither pass has bank conflicts.  q is scaled before the dot as on the
+// TPU; fp32 arithmetic on the CUDA cores (no TF32).  Every FMA reads two
+// scalars from shared memory, which bounds this variant.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -180,6 +194,301 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], causal, window, sm_scale);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// "tiled": fp32 register tiles on the CUDA cores
+// ---------------------------------------------------------------------------
+constexpr int TL_BQ = 32;      // query rows per block
+constexpr int TL_THREADS = TL_BQ * 4;
+constexpr int TL_BKV = 64;     // keys per kv tile
+constexpr int TL_STAGES = 2;   // K/V ring depth
+
+// Shared-memory rows are padded by 4 floats: float4 accesses stay 16-byte
+// aligned, and the 16 key groups of a half-warp (rows kg + 16 j, row
+// strides = 4 banks mod 32 at hd 32 / 64 / 128, 20 at hd 16) hit
+// distinct banks.
+template <int HD>
+struct TiledShape {
+  static constexpr int LD = HD + 4;            // q / K / V row, floats
+  static constexpr int PLD = TL_BKV + 4;       // P row, floats
+  // P.V: the 16 threads of a row group split the head dims, VW floats a
+  // load, NV loads a key row, the loads of neighbouring threads adjacent
+  static constexpr int VW = HD >= 64 ? 4 : HD / 16;
+  static constexpr int NV = HD / (16 * VW);
+  static constexpr int DPT = VW * NV;          // head dims a thread owns
+};
+
+template <int HD>
+constexpr size_t tiled_smem() {
+  using T = TiledShape<HD>;
+  return size_t(TL_BQ * T::LD + 2 * TL_STAGES * TL_BKV * T::LD +
+                TL_BQ * T::PLD) *
+         sizeof(float);
+}
+
+template <int VW>
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x; dst[1] = t.y;
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* src) {
+  if constexpr (VW == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2],
+                                                  src[3]);
+  else if constexpr (VW == 2)
+    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+  else
+    dst[0] = src[0];
+}
+
+__device__ __forceinline__ float f4(const float4& t, int i) {
+  return i == 0 ? t.x : i == 1 ? t.y : i == 2 ? t.z : t.w;
+}
+
+// TL_BQ query rows of one (batch, head) a block, 4 TL_BQ threads: thread
+// t owns rows 4 (t / 16) .. + 3 and, of each 64-key tile, keys t % 16 +
+// 16 j (j < 4); the 16 threads of a row group sit in one half-warp, so
+// row maxima and sums are shuffles and P is exchanged under __syncwarp.
+template <int HD>
+__global__ void __launch_bounds__(TL_THREADS, 4)
+flash_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   int Sq, int Skv, int H, int group, int qsb, int qss,
+                   int qsh, int ksb, int kss, int ksh, int vsb, int vss,
+                   int vsh, int causal, int window, float sm_scale) {
+  using T = TiledShape<HD>;
+  constexpr int THREADS = TL_THREADS, LD = T::LD, PLD = T::PLD;
+  constexpr int CH = HD / 4;  // float4s a row
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);   // TL_BQ x LD, pre-scaled
+  float* kvs = qs + TL_BQ * LD;  // stage s: K at kvs + 2 s BKV LD, then V
+  float* ps = kvs + 2 * TL_STAGES * TL_BKV * LD;  // TL_BQ x PLD
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TL_BQ;  // longest tiles first
+  const int kh = h / group;
+  const int tid = threadIdx.x, kg = tid & 15, r0 = (tid >> 4) * 4;
+  const int n_kv = (Skv + TL_BKV - 1) / TL_BKV;
+  // kv tiles entirely above the diagonal or left of the window are skipped
+  const int hi = causal ? min(n_kv, (q0 + TL_BQ - 1) / TL_BKV + 1) : n_kv;
+  const int lo = (window > 0 && q0 - window + 1 > 0)
+                     ? (q0 - window + 1) / TL_BKV : 0;
+
+  const float* kb = k + (long long)b * ksb + (long long)kh * ksh;
+  const float* vb = v + (long long)b * vsb + (long long)kh * vsh;
+  auto load_tile = [&](int kt, int s) {
+    float* ks = kvs + 2 * s * TL_BKV * LD;
+    float* vs = ks + TL_BKV * LD;
+    const int k0 = kt * TL_BKV;
+    for (int i = tid; i < TL_BKV * CH; i += THREADS) {
+      const int row = i / CH, c = i % CH, kj = k0 + row;
+      const bool ok = kj < Skv;                     // past Skv: zeros
+      const long long kr = ok ? kj : 0;
+      cp_async16(ks + row * LD + 4 * c, kb + kr * kss + 4 * c, ok);
+      cp_async16(vs + row * LD + 4 * c, vb + kr * vss + 4 * c, ok);
+    }
+    cp_async_commit();
+  };
+  if (lo < hi) load_tile(lo, 0);
+
+  // q, scaled in fp32 before the dot as on the TPU; rows past Sq are 0
+  const float* qb = q + (long long)b * qsb + (long long)h * qsh;
+  for (int i = tid; i < TL_BQ * CH; i += THREADS) {
+    const int row = i / CH, c = i % CH, qi = q0 + row;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qi < Sq) {
+      t = *reinterpret_cast<const float4*>(qb + (long long)qi * qss + 4 * c);
+      t.x *= sm_scale; t.y *= sm_scale; t.z *= sm_scale; t.w *= sm_scale;
+    }
+    *reinterpret_cast<float4*>(qs + row * LD + 4 * c) = t;
+  }
+
+  float acc[4][T::DPT], m[4], l[4];  // l: this thread's keys' share
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < T::DPT; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int s = (kt - lo) & 1;
+    cp_async_wait<0>();
+    // tile kt (and q) visible to every thread; every thread is past the
+    // previous tile, so its stage may be refilled
+    __syncthreads();
+    if (kt + 1 < hi) load_tile(kt + 1, s ^ 1);
+    const float* ks = kvs + 2 * s * TL_BKV * LD;
+    const float* vs = ks + TL_BKV * LD;
+
+    // S = q K^T on a 4 x 4 register tile: 8 float4 loads per 64 FMAs
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (r0 + i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (kg + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float a = sc[i][j];
+          a = fmaf(qv[i].x, kv[j].x, a);
+          a = fmaf(qv[i].y, kv[j].y, a);
+          a = fmaf(qv[i].z, kv[j].z, a);
+          sc[i][j] = fmaf(qv[i].w, kv[j].w, a);
+        }
+    }
+
+    // masks only on tiles that cross the diagonal, the window or the end:
+    // keys past Skv are -inf (excluded outright), masked keys the TPU's
+    // finite -1e30
+    const int k0 = kt * TL_BKV;
+    if (k0 + TL_BKV > Skv || (causal && k0 + TL_BKV - 1 > q0) ||
+        (window > 0 && k0 <= q0 + TL_BQ - 1 - window)) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = q0 + r0 + i, col = k0 + kg + 16 * j;
+          if (col >= Skv)
+            sc[i][j] = -INFINITY;
+          else if ((causal && col > row) || (window > 0 && col <= row - window))
+            sc[i][j] = REPRO_NEG_INF;
+        }
+    }
+
+    // online softmax: each row's max over its 16 threads, one half-warp
+    float corr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = expf(sc[i][j] - m_new);
+        psum += sc[i][j];
+      }
+      l[i] = l[i] * corr[i] + psum;
+#pragma unroll
+      for (int e = 0; e < T::DPT; ++e) acc[i][e] *= corr[i];
+    }
+    // P to shared memory; a row group's rows are read only by its own
+    // half-warp (the barrier above ordered the previous tile's reads)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[(r0 + i) * PLD + kg + 16 * j] = sc[i][j];
+    __syncwarp();
+
+    // O += P V on a 4 x DPT register tile
+#pragma unroll 4
+    for (int j = 0; j < TL_BKV; j += 4) {
+      float4 p4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p4[i] = *reinterpret_cast<const float4*>(ps + (r0 + i) * PLD + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float vv[T::DPT];
+#pragma unroll
+        for (int c = 0; c < T::NV; ++c)
+          load_vec<T::VW>(vv + c * T::VW,
+                          vs + (j + jj) * LD + (16 * c + kg) * T::VW);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = f4(p4[i], jj);
+#pragma unroll
+          for (int e = 0; e < T::DPT; ++e)
+            acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+        }
+      }
+    }
+  }
+
+  // l: sum the row group's shares; then O / max(l, 1e-30)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int row = q0 + r0 + i;
+    if (row >= Sq) continue;
+    const float lf = fmaxf(li, 1e-30f);
+    float out[T::DPT];
+#pragma unroll
+    for (int e = 0; e < T::DPT; ++e) out[e] = acc[i][e] / lf;
+    float* orow = o + (((long long)b * Sq + row) * H + h) * HD;
+#pragma unroll
+    for (int c = 0; c < T::NV; ++c)
+      store_vec<T::VW>(orow + (16 * c + kg) * T::VW, out + c * T::VW);
+  }
+}
+
+template <int HD>
+int launch_tiled(const void* q, const void* k, const void* v, void* o,
+                 int B, int Sq, int Skv, int H, int K, const int* st,
+                 int causal, int window, float sm_scale,
+                 cudaStream_t stream) {
+  constexpr size_t smem = tiled_smem<HD>();
+  cudaError_t err = set_smem(flash_tiled_kernel<HD>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + TL_BQ - 1) / TL_BQ, H, B);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  flash_tiled_kernel<HD><<<grid, TL_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H,
+      H / K, st[0], st[1], st[2], st[4], st[5], st[6], st[8], st[9], st[10],
+      causal, window, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_tiled_hd(const void* q, const void* k, const void* v, void* o,
+                    int B, int Sq, int Skv, int H, int K, int hd,
+                    const int* st, int causal, int window, float sm_scale,
+                    cudaStream_t stream) {
+  switch (hd) {
+    case 16:
+      return launch_tiled<16>(q, k, v, o, B, Sq, Skv, H, K, st, causal,
+                              window, sm_scale, stream);
+    case 32:
+      return launch_tiled<32>(q, k, v, o, B, Sq, Skv, H, K, st, causal,
+                              window, sm_scale, stream);
+    case 64:
+      return launch_tiled<64>(q, k, v, o, B, Sq, Skv, H, K, st, causal,
+                              window, sm_scale, stream);
+    case 128:
+      return launch_tiled<128>(q, k, v, o, B, Sq, Skv, H, K, st, causal,
+                              window, sm_scale, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -411,13 +720,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 // q (B,Sq,H,hd), k/v (B,Skv,K,hd) read through element strides
 // (b, s, head, d) x {q, k, v}; o contiguous (B,Sq,H,hd) of the same dtype.
 // dtype: 0 = fp32, 1 = bf16.  window <= 0 means no window.  variant:
-// 0 = simt, 1 = tc (bf16, hd 64 or 128, TMA-readable operands; the
-// launcher checks).
+// 0 = simt, 1 = tc (bf16, hd 64 or 128, TMA-readable operands), 2 = tiled
+// (fp32, hd 16 / 32 / 64 / 128, head dims contiguous, other strides
+// multiples of 4 elements, 16-byte-aligned bases); the launcher checks,
+// and so does this function.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int H, int K, int hd, int qsb, int qss, int qsh, int qsd,
     int ksb, int kss, int ksh, int ksd, int vsb, int vss, int vsh, int vsd,
-    int causal, int window, int variant, float sm_scale, void* stream) {
+    int causal, int window, int variant, float sm_scale,
+    void* stream) {
   if (hd < 1 || hd > MAX_HD || K < 1 || H % K != 0)
     return (int)cudaErrorInvalidValue;
   const int st[12] = {qsb, qss, qsh, qsd, ksb, kss, ksh, ksd,
@@ -433,6 +745,17 @@ extern "C" int repro_flash_attention_fwd(
       return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window,
                            sm_scale, s);
     return (int)cudaErrorInvalidValue;
+  }
+  if (variant == 2) {
+    bool ok = dtype == 0 && qsd == 1 && ksd == 1 && vsd == 1;
+    for (int i = 0; i < 12; ++i) ok = ok && (i % 4 == 3 || st[i] % 4 == 0);
+    const uintptr_t bases =
+        reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+    ok = ok && bases % 16 == 0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+    return launch_tiled_hd(q, k, v, o, B, Sq, Skv, H, K, hd, st, causal,
+                           window, sm_scale, s);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)

@@ -1,9 +1,13 @@
 """Public flash-attention op (port of ``repro.kernels.flash_attention.ops``).
 
 Same signature as the reference op, so the tests call both with the same
-arguments.  A CUDA tensor launches the hand-written kernel (or raises); a
-CPU tensor runs the plain PyTorch twin ``ref.attention_ref`` — that is how
-the CPU tests run.  There is no fall-back from one to the other.  The
+arguments.  A CUDA tensor launches the hand-written kernel (or raises) in
+one of its three variants, which the launcher picks from the operands
+(``kernel.select_variant``): ``"tc"`` (bf16 wgmma fed by TMA: the zoo),
+``"tiled"`` (fp32 register tiles fed by cp.async: the cascade) or
+``"simt"`` (scalar fp32 FMAs: every other case).  A CPU tensor runs the
+plain PyTorch twin ``ref.attention_ref`` — that is how the CPU tests
+run.  There is no fall-back from one to the other.  The
 model layout (B, S, heads, hd) is read by the kernel through strides, so
 there are no transposes and no TPU pad-to-128 on the CUDA path.
 ``block_q`` / ``block_kv`` are accepted for the reference signature; the

@@ -33,6 +33,7 @@ from repro_torch.launch.serve import _ladder_config
 # kernel-name marks of the port's CUDA kernels, both variants
 OURS = {"flash_fwd_kernel": "flash_attention",
         "flash_tc_kernel": "flash_attention",
+        "flash_tiled_kernel": "flash_attention",
         "decode_kernel": "decode_attention",
         "decode_combine": "decode_attention", "ssd_kernel": "ssd_scan",
         "gmm_kernel": "moe_gmm", "gmm_tc_": "moe_gmm"}

@@ -1,5 +1,6 @@
-"""Time the port's decode-attention and SSD-scan kernels at the shapes the
-main path gives them, on random inputs made from a seed on the card.
+"""Time the port's kernels, and the one PyTorch call that computes the
+same function, at the shapes the main paths give them, on random inputs
+made from a seed on the card.
 
   python src/repro_torch/launch/time_kernels.py [--root DIR] [--label X]
 
@@ -9,14 +10,20 @@ code on the same inputs; run it as a file, not with ``-m``, so the root
 can be chosen before the import.  To compare two commits in one call,
 unpack the other one into a directory that ``.gitignore`` lists and run
 the two in turns (A, B, B, A).  One JSON line per row: the kernel, the
-path, the shape, the variant where the version reports one, ``ms`` (the
-mean of ``--reps`` calls back to back between CUDA events after a
-warm-up: the host's work per call is included where it is the longer),
-``graph_ms`` (the same calls captured in a CUDA graph and replayed: the
-device's time per call without the host's) and ``profile_by_kernel``
-(device time per call of each kernel a call launches, from a
-``torch.profiler`` trace).  Where the version's decode launcher takes
-``n_split``, rows at forced split counts show the split's trade-off.
+path, the shape, the variant where the version reports one (``library``
+names the PyTorch call of a twin row instead), ``ms`` (the mean of
+``--reps`` calls back to back between CUDA events after a warm-up: the
+host's work per call is included where it is the longer), ``graph_ms``
+(the same calls captured in a CUDA graph and replayed: the device's time
+per call without the host's) and ``profile_by_kernel`` (device time per
+call of each kernel a call launches, from a ``torch.profiler`` trace).
+Rows: flash attention at the cascade's buckets 64 / 32 / 16 / 8 (fp32)
+and the zoo's prefill (bf16), decode attention, the SSD scan, and
+``moe_gmm`` at the zoo's prefill and decode (bf16, and the fp32 prefill
+row), each kernel row but the SSD scan's with its library twin
+(``F.scaled_dot_product_attention`` or ``torch.bmm``).  Where the
+version's launchers take them, rows at a forced flash ``variant`` and
+decode ``n_split`` show each choice's trade-off.
 Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -97,6 +104,10 @@ def _variant(launcher, before):
     return "+".join(v for v, n in counts.items() if n > before.get(v, 0))
 
 
+def _takes(fn, name: str) -> bool:
+    return name in inspect.signature(fn).parameters
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve()
@@ -110,9 +121,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("time_kernels needs a CUDA device", file=sys.stderr)
         return 3
+    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_cuda
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -121,12 +138,67 @@ def main(argv=None) -> int:
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     rows = []
+
+    def emit(kernel, path, shape, fn, launcher=None, variant=None,
+             library=None, reps=args.reps):
+        """Time ``fn``; the variant is the one its call took (read from
+        ``launcher``'s counts) unless given."""
+        if launcher is not None and variant is None:
+            before = dict(getattr(launcher, "launches_by_variant", {}))
+            fn()
+            torch.cuda.synchronize()
+            variant = _variant(launcher, before)
+        row = {"kernel": kernel, "path": path, "shape": shape,
+               "variant": variant}
+        if library:
+            row["library"] = library
+        rows.append({**row, **_row(torch, fn, reps)})
+
+    # flash attention: the cascade's tinytf_flash layer at every bucket
+    # (fp32, causal) and the zoo's prefill (bf16, GQA 6, window 4096 >= S)
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=q.shape[2] != k.shape[2])
+
+    flash = []
+    for B in (64, 32, 16, 8):
+        flash.append((f"cascade B={B}", rnd(B, 128, 4, 32),
+                      rnd(B, 128, 4, 32), rnd(B, 128, 4, 32), None))
+    bf = torch.bfloat16
+    flash.append(("zoo prefill", rnd(2, 2048, 48, 128, dtype=bf),
+                  rnd(2, 2048, 8, 128, dtype=bf),
+                  rnd(2, 2048, 8, 128, dtype=bf), 4096))
+    forced = _takes(flash_attention_cuda, "variant")
+    for path, q, k, v, window in flash:
+        shape = [list(q.shape), list(k.shape)]
+        emit("flash_attention", path, shape,
+             lambda: fl_ops.flash_attention(q, k, v, window=window),
+             flash_attention_cuda)
+        emit("flash_attention", path, shape, lambda: sdpa(q, k, v),
+             library="F.scaled_dot_product_attention")
+        if not path.startswith("cascade"):
+            continue
+        # the scalar kernel beside the chosen one
+        if forced:
+            scale = q.shape[-1] ** -0.5
+            emit("flash_attention", path, shape,
+                 lambda: flash_attention_cuda(q, k, v, sm_scale=scale,
+                                              variant="simt"),
+                 variant="forced simt")
+
     # decode attention: the zoo's step (full ring) and the cascade's
     # pooled readout (valid prefixes, pads at -1) at buckets 64 and 8
+    def sdpa_masked(q, k, v, pos):
+        pos = pos if pos.ndim == 2 else pos[None].expand(k.shape[0], -1)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=(pos >= 0)[:, None, None, :],
+            enable_gqa=q.shape[2] != k.shape[2])
+
     W = 2048
-    dec = [("zoo decode", rnd(2, 1, 48, 128, dtype=torch.bfloat16),
-            rnd(2, W, 8, 128, dtype=torch.bfloat16),
-            rnd(2, W, 8, 128, dtype=torch.bfloat16),
+    dec = [("zoo decode", rnd(2, 1, 48, 128, dtype=bf),
+            rnd(2, W, 8, 128, dtype=bf), rnd(2, W, 8, 128, dtype=bf),
             torch.arange(W, device="cuda", dtype=torch.int32))]
     for B in (64, 8):
         lens = torch.randint(1, 129, (B, 1), generator=gen, device="cuda")
@@ -135,38 +207,48 @@ def main(argv=None) -> int:
         dec.append((f"cascade B={B}", rnd(1, 1, 4, 32).expand(B, 1, 4, 32),
                     rnd(B, 128, 4, 32), rnd(B, 128, 4, 32), pos))
     for path, q, k, v, pos in dec:
-        before = dict(getattr(decode_attention_cuda, "launches_by_variant",
-                              {}))
-        dec_ops.decode_attention(q, k, v, pos)
-        torch.cuda.synchronize()
-        rows.append({"kernel": "decode_attention", "path": path,
-                     "shape": [list(q.shape), list(k.shape)],
-                     "variant": _variant(decode_attention_cuda, before),
-                     **_row(torch, lambda: dec_ops.decode_attention(
-                         q, k, v, pos), args.reps)})
+        shape = [list(q.shape), list(k.shape)]
+        emit("decode_attention", path, shape,
+             lambda: dec_ops.decode_attention(q, k, v, pos),
+             decode_attention_cuda)
+        emit("decode_attention", path, shape,
+             lambda: sdpa_masked(q, k, v, pos),
+             library="F.scaled_dot_product_attention")
     # the split's trade-off: the zoo's step and the cascade's bucket 8 at
     # forced split counts (versions whose launcher takes ``n_split``)
-    if "n_split" in inspect.signature(decode_attention_cuda).parameters:
+    if _takes(decode_attention_cuda, "n_split"):
         for (path, q, k, v, pos), counts in ((dec[0], (8, 16, 32)),
                                              (dec[2], (1, 2))):
             pos = pos if pos.ndim == 2 else pos[None].expand(k.shape[0], -1)
             for n in counts:
-                rows.append({
-                    "kernel": "decode_attention", "path": path,
-                    "shape": [list(q.shape), list(k.shape)],
-                    "variant": f"{n} splits", **_row(
-                        torch, lambda: decode_attention_cuda(
-                            q, k, v, pos, n_split=n), args.reps)})
+                emit("decode_attention", path,
+                     [list(q.shape), list(k.shape)],
+                     lambda: decode_attention_cuda(q, k, v, pos, n_split=n),
+                     variant=f"{n} splits")
     # SSD scan at the ssm level's dims, every bucket
     S, H, hp, N, chunk = 128, 6, 64, 32, 64
     for B in (64, 32, 16, 8):
         x, Bm, Cm = rnd(B, S, H, hp), rnd(B, S, N), rnd(B, S, N)
         dt = torch.nn.functional.softplus(rnd(B, S, H) - 2.0)
         adt = -torch.arange(1, H + 1, device="cuda").float() * dt
-        rows.append({"kernel": "ssd_scan", "path": f"cascade B={B}",
-                     "shape": list(x.shape), "variant": None,
-                     **_row(torch, lambda: ssd_ops.ssd_scan(
-                         x, adt, dt, Bm, Cm, chunk=chunk), args.reps)})
+        emit("ssd_scan", f"cascade B={B}", list(x.shape),
+             lambda: ssd_ops.ssd_scan(x, adt, dt, Bm, Cm, chunk=chunk))
+    # moe_gmm at the zoo's expert FFN (8 experts, d_model 6144, d_ff
+    # 16384): prefill capacity 640 and decode capacity 4, the up and down
+    # projections, and the prefill's up projection in fp32
+    E, D, Fd = 8, 6144, 16384
+    w_up, w_down = rnd(E, D, Fd, dtype=bf), rnd(E, Fd, D, dtype=bf)
+    gmm = [(f"zoo {stage} {proj}", rnd(E, C, w.shape[1], dtype=bf), w)
+           for stage, C in (("prefill", 640), ("decode", 4))
+           for proj, w in (("up", w_up), ("down", w_down))]
+    gmm.append(("fp32 prefill up", gmm[0][1].float(), w_up.float()))
+    for path, x, w in gmm:
+        reps = 5 if x.dtype == torch.float32 else 10
+        shape = [list(x.shape), list(w.shape)]
+        emit("moe_gmm", path, shape, lambda: gmm_ops.moe_gmm(x, w),
+             moe_gmm_cuda, reps=reps)
+        emit("moe_gmm", path, shape, lambda: torch.bmm(x, w),
+             library="torch.bmm", reps=reps)
     for row in rows:
         print(json.dumps({"label": args.label, **row}), flush=True)
     return 0

@@ -212,6 +212,21 @@ def test_cli_engine_matches_engine_run():
     assert all(lvl.forwards > 0 for lvl in eng.levels)
 
 
+@pytest.mark.parametrize("batch,buckets", [(1, {1}), (16, {8, 16})])
+def test_forwards_by_batch_splits_forwards_by_bucket(batch, buckets):
+    """Each level's forwards, split by the padded batch its route passes
+    ran at: the engine's buckets (powers of two from 8, capped at the
+    lane count), summing to ``forwards``."""
+    m = serve.serve_stream_batched("imdb", 32, 3e-7, batch=batch,
+                                   log_every=0, ladder="kernel-ci",
+                                   device="cpu")
+    for lvl in m["engine"].levels:
+        assert sum(lvl.forwards_by_batch.values()) == lvl.forwards > 0
+        assert set(lvl.forwards_by_batch) <= buckets
+        lvl.reset()
+        assert lvl.forwards_by_batch == {} and lvl.forwards == 0
+
+
 def test_default_device_is_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is honoured")

@@ -9,7 +9,8 @@ magnitude, as is bf16 flash attention on its tensor-core variant), its
 launch counter must move by exactly one per call, and a CPU tensor must
 never reach it.  For ``moe_gmm`` and flash attention each case also
 asserts which variant (``"tc"`` tensor cores, ``"simt"`` CUDA cores)
-the launch took.  The CUDA engine must route a short
+the launch took (flash: also ``"tiled"``, fp32 register tiles, forced
+against ``"simt"`` on one input).  The CUDA engine must route a short
 stream like the CPU engine does, and the zoo's smoke model must serve
 on the card as on the CPU.  Nothing here imports JAX (the GPU machine
 has none).
@@ -309,8 +310,8 @@ def test_flash_tc_variant_matches_plain(cuda, B, S, H, K, hd, causal,
     before = dict(flash_attention_cuda.launches_by_variant)
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert _variant_delta(flash_attention_cuda, before) == {"tc": 1,
-                                                           "simt": 0}
+    assert _variant_delta(flash_attention_cuda, before) == {
+        "tc": 1, "simt": 0, "tiled": 0}
     ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal,
                         window=window).transpose(1, 2)
@@ -320,7 +321,8 @@ def test_flash_tc_variant_matches_plain(cuda, B, S, H, K, hd, causal,
 
 @pytest.mark.parametrize("case", ["fp32", "hd 120", "strided q"])
 def test_flash_simt_variant_cases(cuda, case):
-    """fp32, a head dim other than 64 / 128 and a q whose head-dim
+    """fp32 whose rows cp.async cannot copy (a row stride of 65
+    elements), a head dim other than 64 / 128 and a q whose head-dim
     stride is not 1 take the scalar variant, and agree with the twin."""
     from repro_torch.kernels.flash_attention.kernel import select_variant
     gen = torch.Generator().manual_seed(12)
@@ -329,18 +331,72 @@ def test_flash_simt_variant_cases(cuda, case):
     q = _randn(gen, 2, 256, 4, hd, dtype=dtype)
     if case == "strided q":
         q = _randn(gen, 2, 256, hd, 4, dtype=dtype).transpose(2, 3)
+    if case == "fp32":
+        q = _randn(gen, 2, 256, 4, hd + 1, dtype=dtype)[..., :hd]
     k = _randn(gen, 2, 256, 2, hd, dtype=dtype)
     v = _randn(gen, 2, 256, 2, hd, dtype=dtype)
     assert select_variant(q, k, v) == "simt"
     before = dict(flash_attention_cuda.launches_by_variant)
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert _variant_delta(flash_attention_cuda, before) == {"tc": 0,
-                                                           "simt": 1}
+    assert _variant_delta(flash_attention_cuda, before) == {
+        "tc": 0, "simt": 1, "tiled": 0}
     ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2)).transpose(1, 2)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window", [
+    (64, 128, 4, 4, 32, True, None),    # the cascade's buckets
+    (32, 128, 4, 4, 32, True, None),
+    (16, 128, 4, 4, 32, True, None),
+    (8, 128, 4, 4, 32, True, None),
+    (3, 32, 2, 2, 16, True, None),      # TINY_TF_CI
+    (2, 100, 4, 4, 32, True, None),     # ragged S
+    (4, 128, 4, 4, 32, True, 48),       # windows inside a tile
+    (4, 128, 4, 4, 32, True, 16),
+    (4, 128, 4, 4, 32, False, None),    # non-causal
+    (4, 128, 8, 2, 32, True, None),     # GQA 4
+    (2, 200, 4, 2, 64, True, 72),       # hd 64, ragged, window
+    (2, 130, 4, 4, 128, False, None),   # hd 128, ragged
+])
+def test_flash_tiled_variant_matches_plain(cuda, B, S, H, K, hd, causal,
+                                           window):
+    """fp32 on the register-tiled variant at 2e-5 of the twin (IEEE fp32
+    FMAs: only the order of summation differs)."""
+    from repro_torch.kernels.flash_attention.kernel import select_variant
+    gen = torch.Generator().manual_seed(B * S + H + hd)
+    q = _randn(gen, B, S, H, hd)
+    k = _randn(gen, B, S, K, hd)
+    v = _randn(gen, B, S, K, hd)
+    assert select_variant(q, k, v) == "tiled"
+    before = dict(flash_attention_cuda.launches_by_variant)
+    n0 = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == n0 + 1
+    assert _variant_delta(flash_attention_cuda, before) == {
+        "tc": 0, "simt": 0, "tiled": 1}
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal,
+                        window=window).transpose(1, 2)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B", [64, 32, 16, 8])
+def test_flash_forced_tiled_matches_forced_simt(cuda, B):
+    """One input at each of the cascade's buckets through both fp32
+    variants, each forced: they agree within 2e-5."""
+    gen = torch.Generator().manual_seed(B)
+    q, k, v = (_randn(gen, B, 128, 4, 32) for _ in range(3))
+    before = dict(flash_attention_cuda.launches_by_variant)
+    a = flash_attention_cuda(q, k, v, variant="tiled")
+    b = flash_attention_cuda(q, k, v, variant="simt")
+    torch.cuda.synchronize()
+    assert _variant_delta(flash_attention_cuda, before) == {
+        "tc": 0, "simt": 1, "tiled": 1}
+    torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
 
 
 def test_expert_ffn_kernel_matches_plain(cuda):

@@ -372,12 +372,13 @@ BF16 = torch.bfloat16
 
 
 def _unaligned(*shape, dtype=BF16):
-    """A CPU tensor whose base address is 2 bytes past a 16-byte one."""
+    """A CPU tensor whose base address is one element (2 bytes in bf16,
+    4 in fp32) past a 16-byte one."""
     n = int(np.prod(shape))
     base = torch.empty(n + 8, dtype=dtype)
     off = (-base.data_ptr() // base.element_size()) % 8 + 1
     t = base[off:off + n].view(shape)
-    assert t.data_ptr() % 16 == 2
+    assert t.data_ptr() % 16 == t.element_size()
     return t
 
 
@@ -449,9 +450,29 @@ FLASH_VARIANT_CASES = {
                                   for _ in range(3)), "tc"),
     "cascade fp32 (meta)": (lambda: tuple(
         torch.empty((64, 128, 4, 32), device="meta") for _ in range(3)),
-        "simt"),
+        "tiled"),
     "fp32 hd 128 (cpu)": (lambda: tuple(torch.empty((1, 16, 2, 128))
+                                        for _ in range(3)), "tiled"),
+    "fp32 hd 16 (cpu)": (lambda: tuple(torch.empty((3, 32, 2, 16))
+                                       for _ in range(3)), "tiled"),
+    "fp32 hd 64 GQA (cpu)": (lambda: (
+        torch.empty((2, 64, 8, 64)), torch.empty((2, 64, 2, 64)),
+        torch.empty((2, 64, 2, 64))), "tiled"),
+    # the cascade's q/k/v: (x @ W).reshape(B, L, H, hd) views
+    "cascade fp32 projection views (cpu)": (lambda: tuple(
+        (torch.empty((8, 128, 128)) @ torch.empty((128, 128)))
+        .reshape(8, 128, 4, 32) for _ in range(3)), "tiled"),
+    "fp32 hd 120 (cpu)": (lambda: tuple(torch.empty((1, 16, 2, 120))
                                         for _ in range(3)), "simt"),
+    "fp32 head-dim stride (cpu)": (lambda: (
+        torch.empty((1, 16, 32, 2)).transpose(2, 3),
+        torch.empty((1, 16, 2, 32)), torch.empty((1, 16, 2, 32))), "simt"),
+    "fp32 row stride 33 (cpu)": (lambda: (
+        torch.empty((1, 16, 2, 33))[..., :32], torch.empty((1, 16, 2, 32)),
+        torch.empty((1, 16, 2, 32))), "simt"),
+    "fp32 unaligned base (cpu)": (lambda: (
+        _unaligned(1, 16, 2, 32, dtype=torch.float32),
+        torch.empty((1, 16, 2, 32)), torch.empty((1, 16, 2, 32))), "simt"),
     "hd 120 (cpu)": (lambda: tuple(torch.empty((1, 16, 2, 120), dtype=BF16)
                                    for _ in range(3)), "simt"),
     "hd 32 bf16 (meta)": (lambda: tuple(
@@ -472,6 +493,40 @@ def test_flash_select_variant(case):
     from repro_torch.kernels.flash_attention.kernel import select_variant
     make, want = FLASH_VARIANT_CASES[case]
     assert select_variant(*make()) == want
+
+
+@pytest.mark.parametrize("case", [
+    "tiled on hd 120", "tiled on bf16", "tiled on row stride 65",
+    "tiled on unaligned base", "tc on fp32", "tc on bf16 hd 32", "cuda"])
+def test_flash_forced_choice_never_falls_back(case):
+    """A forced variant the operands do not allow, or one the kernel does
+    not have, raises; it never falls back to another variant."""
+    from repro_torch.kernels.flash_attention.kernel import launch_choice
+    hd = {"tiled on hd 120": 120, "tc on bf16 hd 32": 32}.get(case, 64)
+    dtype = BF16 if case in ("tiled on bf16", "tc on bf16 hd 32") \
+        else torch.float32
+    q = torch.empty((2, 64, 4, hd), dtype=dtype, device="meta")
+    if case == "tiled on row stride 65":
+        q = torch.empty((2, 64, 4, 65))[..., :64]
+    if case == "tiled on unaligned base":
+        q = _unaligned(2, 64, 4, 64, dtype=torch.float32)
+    k = v = torch.empty((2, 64, 4, hd), dtype=dtype, device=q.device)
+    variant = {"tc on fp32": "tc", "tc on bf16 hd 32": "tc",
+               "cuda": "cuda"}.get(case, "tiled")
+    with pytest.raises(ValueError):
+        launch_choice(q, k, v, variant)
+
+
+@pytest.mark.parametrize("B,hd,variant,want", [
+    (8, 32, None, "tiled"), (64, 32, None, "tiled"),
+    (8, 32, "simt", "simt"), (8, 32, "tiled", "tiled"),
+    (3, 16, None, "tiled"), (3, 16, "simt", "simt")])
+def test_flash_launch_choice(B, hd, variant, want):
+    """The cascade's q/k/v at buckets 8 and 64 and ``TINY_TF_CI``'s: the
+    selected variant, and forced variants the operands allow."""
+    from repro_torch.kernels.flash_attention.kernel import launch_choice
+    q = torch.empty((B, 128, 4, hd), device="meta")
+    assert launch_choice(q, q, q, variant) == want
 
 
 def test_build_hash_covers_every_csrc_file():
