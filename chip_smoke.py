@@ -31,6 +31,19 @@ Phases (any failure exits non-zero and prints no result line):
      flash calls are also counted by padded batch (the engine's bucket);
   5. the served levels' final params: kernel path vs plain path logits
      at batch 64 — same argmax on every row, logits within tolerance;
+  5b. default-serve: the paper's own ladder, ``default_cascade_config``
+     (lr -> tinytf at ``TinyTFSpec()``: d_model 128, 4 heads, 2 layers,
+     d_ff 256, L 128, vocab 4096) on imdb, 2048 items, batch 64: (1)
+     ``serve_stream_batched(ladder="default", expert_kind="model")``,
+     which trains the d_model-256, 4-layer expert on the card first —
+     the expert's training seconds and its accuracy on the stream,
+     items/s, accuracy, expert calls, level fractions; every kernel's
+     count, set to 0 before, must still be 0 after (the dense students
+     run no kernel of the port); (2) Table 1's configuration (mu 2e-7,
+     simulated expert) under ``hard_budget=106`` (imdb N = 1300 of
+     25 000 scaled to 2048): at most 106 calls and the budget reached;
+     (3) 48 items at batch 8 on the card and on the CPU from the same
+     seed: identical routing, else the first tick and lane that differ;
   6. zoo-kernels: Mixtral-8x22B at full width (d_model 6144, 48/8 heads
      of 128, 8 experts of d_ff 16384, bf16), depth cut to 2 layers,
      weights from a seeded CUDA generator; prompts from
@@ -105,6 +118,10 @@ LOGIT_TOL = {"tinytf_flash": 1e-4, "ssm": 2e-3}
 # fp32 on the card vs the CPU
 ZOO_TOL = {"bf16": 1e-2, "fp32": 1e-5}
 ZOO_LOGIT_TOL = {"consistency": 6e-2, "card_vs_cpu": 1e-4}
+# default-serve: the stream length, and Table 1's imdb budget (N = 1300
+# of 25 000 items, benchmarks/table1.py) scaled to it
+DEFAULT_ITEMS = 2048
+TABLE1_BUDGET = 106
 ZOO_ARCH = "mixtral-8x22b"
 ZOO_LAYERS = 2
 ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE = 2, 2048, 16
@@ -555,7 +572,8 @@ def phase_serve():
     _zero_variant_counts()
     t0 = time.time()
     m = serve_stream_batched("imdb", 2048, 3e-7, batch=64, seed=0,
-                             log_every=0, ladder="kernel", device="cuda")
+                             log_every=0, ladder="kernel",
+                             expert_kind="simulated", device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {n: fn.launches for n, fn in LAUNCHERS.items()}
@@ -613,6 +631,119 @@ def phase_students(eng, tokens):
               f"{same}", flush=True)
         if not same or err > LOGIT_TOL[kind] or not math.isfinite(err):
             _fail(f"{kind} kernel vs plain path disagree")
+
+
+# ---------------------------------------------------------------------------
+# default-serve: the paper's own cascade, lr -> tinytf, at full width
+# ---------------------------------------------------------------------------
+def _routing_records(eng):
+    """Per-tick (level, expert called, prediction) rows of an engine's
+    history, one array of S lanes each."""
+    h = eng.history
+    return [{"level": np.asarray(lv), "called": np.asarray(c),
+             "pred": np.asarray(p)}
+            for lv, c, p in zip(h["level"], h["expert_called"], h["pred"])]
+
+
+def _first_divergence(a, b):
+    """The first (tick, lane, field) at which two routing records part,
+    or None (ticks count from 1)."""
+    if len(a) != len(b):
+        return (min(len(a), len(b)) + 1, None, "tick count")
+    for t, (ra, rb) in enumerate(zip(a, b), 1):
+        for name in ("level", "called", "pred"):
+            diff = np.flatnonzero(ra[name] != rb[name])
+            if diff.size:
+                return (t, int(diff[0]), name)
+    return None
+
+
+def phase_default_serve():
+    """The paper's default ladder (``default_cascade_config``: lr ->
+    tinytf at ``TinyTFSpec()`` widths) on imdb: (1) served with the model
+    expert trained on the card first; (2) the Table 1 configuration under
+    its hard budget; (3) card against CPU routing on a short stream.  No
+    kernel of the port lies on this path: every count must stay 0."""
+    from repro_torch.core import (BatchedCascadeEngine, SimulatedExpert,
+                                  default_cascade_config)
+    from repro_torch.data import make_stream
+    from repro_torch.launch.serve import serve_stream_batched
+    launchers = {**LAUNCHERS, **ZOO_LAUNCHERS}
+    for fn in launchers.values():
+        fn.launches = 0
+    t0 = time.time()
+    m = serve_stream_batched("imdb", DEFAULT_ITEMS, 3e-7, batch=64, seed=0,
+                             log_every=0, ladder="default",
+                             expert_kind="model", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {n: fn.launches for n, fn in launchers.items()}
+    eng = m["engine"]
+    stream = make_stream("imdb", seed=0, n_samples=DEFAULT_ITEMS)
+    expert_acc = float(np.mean(eng.expert.label_batch(
+        range(len(stream)), stream.docs) == stream.labels))
+    fr = [round(f, 4) for f in m["level_fractions"]]
+    print(f"[default-serve] model expert (d_model 256, 4 layers) trained "
+          f"on the card in {m['expert_train_s']:.2f} s; its accuracy on "
+          f"the stream {expert_acc:.4f}", flush=True)
+    print(f"[default-serve] items_per_sec={m['items_per_sec']:.1f} "
+          f"wall_s={wall:.2f} accuracy={m['accuracy']:.4f} "
+          f"expert_calls={m['expert_calls']} level_fractions={fr} "
+          f"forwards per level: "
+          f"{ {lvl.spec.kind: lvl.forwards for lvl in eng.levels} } "
+          f"kernel launches: {launches}", flush=True)
+    if any(launches.values()):
+        _fail(f"the dense default ladder launched a kernel: {launches}")
+    vals = [m["items_per_sec"], m["accuracy"], expert_acc] + fr
+    if not all(map(math.isfinite, vals)) or not 0 <= m["accuracy"] <= 1:
+        _fail(f"non-finite or implausible default-serve metrics {vals}")
+    if not 0 < m["expert_calls"] <= DEFAULT_ITEMS:
+        _fail(f"expert_calls {m['expert_calls']} not in (0, "
+              f"{DEFAULT_ITEMS}]")
+    del eng, m
+
+    # (2) Table 1: imdb N = 1300 of 25 000 items, scaled to this stream
+    cfg = dataclasses.replace(
+        default_cascade_config(stream.spec.n_classes, mu=2e-7, seed=0),
+        hard_budget=TABLE1_BUDGET)
+    eng = BatchedCascadeEngine(cfg, SimulatedExpert(stream), n_streams=64,
+                               history_limit=0, device="cuda")
+    t0 = time.time()
+    mb = eng.run(stream)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    overflow = eng.levels[-1].forwards_by_batch.get(1, 0)
+    print(f"[default-serve] table1 hard_budget={TABLE1_BUDGET} mu=2e-7 "
+          f"simulated expert: items_per_sec={mb['items_per_sec']:.1f} "
+          f"wall_s={wall:.2f} accuracy={mb['accuracy']:.4f} "
+          f"expert_calls={eng.expert_calls_total} overflow_lanes="
+          f"{overflow} level_fractions="
+          f"{[round(f, 4) for f in mb['level_fractions']]}", flush=True)
+    if eng.expert_calls_total > TABLE1_BUDGET:
+        _fail(f"{eng.expert_calls_total} expert calls over the budget of "
+              f"{TABLE1_BUDGET}")
+    if not eng._budget_exhausted():
+        _fail(f"the budget of {TABLE1_BUDGET} was never reached "
+              f"({eng.expert_calls_total} calls)")
+    del eng
+
+    # (3) card against CPU: the same seeded weights, stream and draws
+    small = make_stream("imdb", seed=0, n_samples=48)
+    cfg = default_cascade_config(small.spec.n_classes, mu=3e-7, seed=0)
+    recs = {}
+    for dev in ("cuda", "cpu"):
+        eng = BatchedCascadeEngine(cfg, SimulatedExpert(small), n_streams=8,
+                                   device=dev)
+        eng.run(small)
+        recs[dev] = _routing_records(eng)
+    div = _first_divergence(recs["cuda"], recs["cpu"])
+    calls = int(sum(r["called"].sum() for r in recs["cuda"]))
+    print(f"[default-serve] card vs CPU, 48 items at batch 8: routing "
+          f"{'identical' if div is None else 'DIFFERS'} over "
+          f"{len(recs['cuda'])} ticks ({calls} expert calls)", flush=True)
+    if div is not None:
+        _fail(f"card and CPU routing part at tick {div[0]}, lane {div[1]} "
+              f"({div[2]})")
 
 
 # ---------------------------------------------------------------------------
@@ -1061,6 +1192,7 @@ def main():
     eng, launches, by_variant, _ = phase_serve()
     phase_students(eng, tokens)
     del eng
+    phase_default_serve()
     cfg, params, prompts = zoo_model()
     zoo_results = phase_zoo_kernels(cfg, params, prompts)
     zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)

@@ -23,13 +23,19 @@ With ``n_streams == 1`` the engine therefore runs exactly the torch ops
 At S > 1 the reference's documented deviations hold: one weighted update
 per tick (``updates_per_tick="scaled"`` lr-scales it by the tick's k
 demonstrations via ``Optimizer.step_k``), beta decays per consumed item
-(decay ** S per tick), and annotations land in the ring in lane order.
+(decay ** S per tick), the hard expert budget is enforced at tick
+granularity (the first ``remaining`` deferred lanes, in lane order, get
+the expert; the rest fall back to the last student's prediction, counted
+and costed as last-level exits), and annotations land in the ring in
+lane order.  Under ``sample_actions`` every lane draws its float32 action
+uniforms from its tick's ``action`` generator, and a lane defers where
+its draw is below the gate's probability.
 
 The base form commits every tick synchronously (the reference's
 ``max_delay=0``, ``pipeline_depth=0``, per-tick commits, no mesh).  The
 async expert queue, route pipelining, per-lane commits, lane sharding,
-fault requeues, autoscaling, admission, checkpoints, the hard expert
-budget and sampled deferral actions are not ported yet (ROADMAP).
+fault requeues, autoscaling, admission and checkpoints are not ported
+yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -74,6 +80,8 @@ class _InFlightTick:
     docs: list                    # per-lane raw docs
     S: int                        # lanes in this tick (<= n_streams)
     jump: np.ndarray              # (nlev, S) bool DAgger jump mask
+    u_act: np.ndarray             # (nlev, S) float32 sampled-action draws
+    budget_ok: bool               # route-time hard-budget gate
     cache_rngs: list              # per-level cache-sampling generators
     feats_cache: list             # per-level lazily built feature rows
     handles: Optional[tuple]      # level-0 (probs, dprob) device pair
@@ -151,11 +159,22 @@ class BatchedCascadeEngine:
         self._beta = [self.cfg.beta0] * len(self.levels)
         self._items = 0
 
+    def close(self) -> None:
+        """Shut down the expert's worker pool, if it has one
+        (idempotent; the pool is rebuilt lazily on the next submit)."""
+        close = getattr(self.expert, "close", None)
+        if close is not None:
+            close()
+
     # -- aggregates -----------------------------------------------------
     @property
     def expert_calls_total(self) -> int:
         """Expert calls summed over lanes."""
         return int(self.expert_calls.sum())
+
+    def _budget_exhausted(self) -> bool:
+        hb = self.cfg.hard_budget
+        return hb is not None and self.expert_calls_total >= hb
 
     def _bucket(self, n: int) -> int:
         """Padded batch size for a subset of n lanes: powers of two from 8
@@ -196,14 +215,17 @@ class BatchedCascadeEngine:
         t = self.t
         feats_cache: list = [None] * nlev
         u_jump = np.empty((nlev, S))
+        u_act = np.empty((nlev, S), np.float32)
         cache_rngs = None
         for s in range(S):
             r = tick_rngs(cfg.seed, s, t, nlev)
             u_jump[:, s] = r.jump.random(nlev)
+            u_act[:, s] = r.action.random(nlev).astype(np.float32)
             if s == 0:
                 cache_rngs = r.cache
 
-        jump = u_jump < np.array(self._beta)[:, None]
+        budget_ok = not self._budget_exhausted()
+        jump = (u_jump < np.array(self._beta)[:, None]) & budget_ok
 
         # level 0's gather mask (lanes that did not jump) is known before
         # any dprob returns: launch its forward now
@@ -225,7 +247,8 @@ class BatchedCascadeEngine:
 
         return _InFlightTick(
             t=t, indices=[int(i) for i in indices], docs=list(docs), S=S,
-            jump=jump, cache_rngs=cache_rngs, feats_cache=feats_cache,
+            jump=jump, u_act=u_act, budget_ok=budget_ok,
+            cache_rngs=cache_rngs, feats_cache=feats_cache,
             handles=handles, beta_after=list(self._beta))
 
     def _route_resolve(self, rec: _InFlightTick) -> dict:
@@ -264,17 +287,41 @@ class BatchedCascadeEngine:
             eval_mask[i, sel] = True
             dprob_h[i, sel] = dprob_np
             probs_h[i, sel] = probs_np
-            defer_np = dprob_np > 0.5
+            if cfg.sample_actions:
+                defer_np = rec.u_act[i, sel] < dprob_np
+            else:
+                defer_np = dprob_np > 0.5
+            if not rec.budget_ok and i == nlev - 1:
+                defer_np[:] = False     # budget gate: cannot reach expert
             take = sel[~defer_np]
             predictions[take] = np.argmax(probs_np[~defer_np], axis=-1)
             exit_level[take] = i
             alive[take] = False
 
-        called = jumped | alive             # deferred past the last level
+        want = jumped | alive               # deferred past the last level
         level_costs = np.array([lvl.spec.cost for lvl in self.levels])
         cost_h = eval_mask.T @ level_costs  # sum of evaluated level costs
-        levels_out = np.where(called, nlev, exit_level)
-        cost_out = cost_h + np.where(called, cfg.expert_cost, 0.0)
+
+        # hard budget at tick granularity: the first `remaining` lanes win
+        called = want.copy()
+        hb = cfg.hard_budget
+        if hb is not None:
+            remaining = max(hb - self.expert_calls_total, 0)
+            if int(called.sum()) > remaining:
+                called[np.flatnonzero(called)[remaining:]] = False
+        overflow = want & ~called
+        last = self.levels[-1]
+        for s in np.flatnonzero(overflow):
+            # budget overflow: the last student answers (a lane that
+            # jumped too), costed as an evaluation of the last level
+            x = torch.from_numpy(feats(nlev - 1)[s]).to(self.device)
+            predictions[s] = int(np.argmax(
+                last.predict(last.params, x).cpu().numpy()))
+
+        levels_out = np.where(called, nlev,
+                              np.where(overflow, nlev - 1, exit_level))
+        cost_out = (cost_h + np.where(called, cfg.expert_cost, 0.0)
+                    + np.where(overflow, last.spec.cost, 0.0))
 
         y_full = np.zeros(S, np.int32)
         if called.any():

@@ -15,13 +15,16 @@ between levels, all updated online from expert demonstrations:
       update f_1..f_{N-1} from Eq.(1)/Eq.(5) gradients
       decay beta
 
-The port serves the kernel ladder ``lr -> tinytf_flash -> ssm``
-(``kernel_cascade_config``).  A level's route pass (student predict +
-deferral gate) runs the kernel path — on a CUDA device, the hand-written
-kernels — and counts itself in ``_Level.forwards``; its imitation and
-gate updates differentiate the plain PyTorch path with autograd, as the
-reference differentiates its jnp path.  Other level kinds (the dense
-``tinytf`` / ``mlp`` students) are not ported yet and raise.
+Two ladders: the paper's ``lr -> tinytf`` (``default_cascade_config``;
+``large=True`` adds ``tinytf_large``), whose dense students are plain
+PyTorch, and the kernel ladder ``lr -> tinytf_flash -> ssm``
+(``kernel_cascade_config``), whose upper levels' route passes launch the
+hand-written CUDA kernels on a CUDA device.  A level's forwards count
+themselves in ``_Level.forwards``; its imitation and gate updates
+differentiate the plain PyTorch path with autograd, as the reference
+differentiates its jnp path.  ``CascadeConfig.hard_budget`` caps the
+expert calls and ``sample_actions`` samples each deferral from the gate
+instead of thresholding it at 0.5, as in the reference.
 
 State keeps the reference's layout (``STATE_ATTRS``: student params +
 optimizer state, deferral params + optimizer state), so
@@ -50,7 +53,9 @@ from repro_torch.models.kernel_students import (
     ssm_student_loss_weighted, ssm_student_predict, tinytf_flash_init,
     tinytf_flash_loss_weighted, tinytf_flash_predict)
 from repro_torch.models.students import (
-    LRSpec, lr_init, lr_loss_weighted, lr_predict)
+    LRSpec, MLPSpec, TinyTFSpec, lr_init, lr_loss_weighted, lr_predict,
+    mlp_init, mlp_loss_weighted, mlp_predict, tinytf_init,
+    tinytf_loss_weighted, tinytf_predict)
 from repro_torch.optim import adam, ogd_sqrt_t
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -59,7 +64,7 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 class LevelSpec:
     """Per-level hyperparameters (paper App. B.3 Tables 3/4 columns)."""
 
-    kind: str                     # 'lr' | 'tinytf_flash' | 'ssm'
+    kind: str                     # one of LEVEL_KINDS
     cost: float                   # c_i (model cost units, LR = 1)
     cache_size: int = 8
     batch_size: int = 8
@@ -79,10 +84,43 @@ class CascadeConfig:
     expert_cost: float            # c_N in model cost units
     mu: float = 2e-6              # cost weighting factor (user budget knob)
     beta0: float = 1.0            # initial DAgger jump probability
-    n_features: int = 2048        # hashed BoW dim for LR
+    n_features: int = 2048        # hashed BoW dim for LR / MLP
+    tf_spec: Optional[TinyTFSpec] = None
+    mlp_spec: Optional[MLPSpec] = None
     tf_flash_spec: Optional[TinyTFFlashSpec] = None
     ssm_spec: Optional[SSMStudentSpec] = None
+    sample_actions: bool = False  # sample action_i ~ f_i; default
+                                  # thresholds the gate at 0.5
+    hard_budget: Optional[int] = None  # max expert calls (None = mu-driven)
     seed: int = 0
+
+
+# the student kinds a level can be
+LEVEL_KINDS = ("lr", "mlp", "tinytf", "tinytf_large", "tinytf_flash", "ssm")
+
+
+def default_cascade_config(n_classes: int, mu: float = 2e-6,
+                           expert_cost: float = 1.0e6,
+                           beta0: float = 1.0,
+                           large: bool = False,
+                           seed: int = 0) -> CascadeConfig:
+    """The paper's small cascade (LR -> BERT-ish -> LLM) with the
+    reference's fixed costs; ``large=True`` adds a second, bigger
+    transformer level (the BERT-large analogue)."""
+    levels = [
+        LevelSpec(kind="lr", cost=1.0, cache_size=8, batch_size=8,
+                  student_lr=0.5, beta_decay=0.97, calibration_factor=0.4),
+        LevelSpec(kind="tinytf", cost=550.0, cache_size=16, batch_size=8,
+                  student_lr=1e-3, beta_decay=0.95, calibration_factor=0.3),
+    ]
+    if large:
+        levels.append(LevelSpec(kind="tinytf_large", cost=2200.0,
+                                cache_size=32, batch_size=16,
+                                student_lr=7e-4, beta_decay=0.95,
+                                calibration_factor=0.4))
+    return CascadeConfig(levels=tuple(levels), n_classes=n_classes,
+                         expert_cost=expert_cost, mu=mu, beta0=beta0,
+                         tf_spec=TinyTFSpec(n_classes=n_classes), seed=seed)
 
 
 def kernel_cascade_config(n_classes: int, mu: float = 2e-6,
@@ -197,11 +235,31 @@ class _Level:
                 lambda p, xb: ssm_student_predict(p, xb, sspec)
             self._loss = lambda p, xb, yb, w: ssm_student_loss_weighted(
                 p, xb, yb, w, sspec)
+        elif spec.kind == "mlp":
+            self.sspec = replace(cfg.mlp_spec or MLPSpec(),
+                                 n_features=cfg.n_features, n_classes=C)
+            self.params = mlp_init(gen, self.sspec, device)
+            self.opt = adam(spec.student_lr)
+            feat_shape, feat_dtype = (cfg.n_features,), np.float32
+            self._predict_batch = mlp_predict
+            self._loss = mlp_loss_weighted
+        elif spec.kind in ("tinytf", "tinytf_large"):
+            base = cfg.tf_spec or TinyTFSpec(n_classes=C)
+            if spec.kind == "tinytf_large":
+                base = replace(base, d_model=base.d_model * 2,
+                               n_layers=base.n_layers + 2,
+                               d_ff=base.d_ff * 2)
+            self.sspec = replace(base, n_classes=C)
+            self.params = tinytf_init(gen, self.sspec, device)
+            self.opt = adam(spec.student_lr)
+            feat_shape, feat_dtype = (self.sspec.max_len,), np.int32
+            sspec = self.sspec
+            self._predict_batch = lambda p, xb: tinytf_predict(p, xb, sspec)
+            self._loss = lambda p, xb, yb, w: tinytf_loss_weighted(
+                p, xb, yb, w, sspec)
         else:
-            raise NotImplementedError(
-                f"level kind {spec.kind!r} is not ported yet (ROADMAP "
-                "Queue 1 item 5: the dense tinytf / mlp students); the "
-                "port serves the kernel ladder lr -> tinytf_flash -> ssm")
+            raise ValueError(f"unknown level kind {spec.kind!r}; the "
+                             f"known kinds are {', '.join(LEVEL_KINDS)}")
         self.opt_state = self.opt.init(self.params)
 
         self.dspec = DeferralSpec(n_classes=C)
@@ -216,9 +274,10 @@ class _Level:
         self.cache_y = np.zeros((spec.cache_size,), np.int32)
         self.cache_n = 0
         self.cache_ptr = 0
-        # kernel-path forwards run by this level (route passes and gate
-        # calibration forwards) — what the kernels' launch counters are
-        # checked against — and the same split by padded batch
+        # forwards run by this level (route passes, gate calibration and
+        # single-item predicts) — what the kernels' launch counters are
+        # checked against on the kernel ladder — and the same split by
+        # padded batch
         self.forwards = 0
         self.forwards_by_batch = {}
         # initial state for reset(); updates build new tensors and never
@@ -242,17 +301,27 @@ class _Level:
         """The level's learned state (STATE_ATTRS order)."""
         return {a: getattr(self, a) for a in STATE_ATTRS}
 
-    # -- forwards (kernel path) ------------------------------------------
+    # -- forwards (the kernel path on the kernel ladder) ---------------
+    def _count_forward(self, B: int) -> None:
+        self.forwards += 1
+        self.forwards_by_batch[B] = self.forwards_by_batch.get(B, 0) + 1
+
     @torch.no_grad()
     def route_pass(self, params, dparams, xb):
         """Batched student predict + deferral gate over ``xb`` (B, ...):
         returns device tensors (probs (B, C), dprob (B,)).  At a (1, ...)
         batch this is the reference's ``predict_and_defer``."""
-        self.forwards += 1
-        B = xb.shape[0]
-        self.forwards_by_batch[B] = self.forwards_by_batch.get(B, 0) + 1
+        self._count_forward(xb.shape[0])
         probs = self._predict_batch(params, xb)
         return probs, deferral_prob(dparams, probs)
+
+    @torch.no_grad()
+    def predict(self, params, x):
+        """Single-item student predict (no gate): ``x`` one feature row on
+        the level's device -> (C,) probs.  The budget fallback and the
+        ensemble run it; it counts as a forward at batch 1."""
+        self._count_forward(1)
+        return self._predict_batch(params, x[None])[0]
 
     # -- cache -------------------------------------------------------------
     def cache_add(self, x: np.ndarray, y: int):
@@ -301,7 +370,7 @@ class _Level:
 
     def featurize(self, doc: np.ndarray) -> np.ndarray:
         """Map a raw doc to this level's input (hashed BoW or token ids)."""
-        if self.spec.kind == "lr":
+        if self.spec.kind in ("lr", "mlp"):
             return hash_bow(doc, self.cfg.n_features)
         return hash_ids(doc, self.sspec.vocab, self.sspec.max_len)
 
@@ -354,11 +423,27 @@ class OnlineCascade:
             for v in self.history.values():
                 v.clear()
 
+    def close(self) -> None:
+        """Shut down the expert's worker pool, if it has one."""
+        close = getattr(self.expert, "close", None)
+        if close is not None:
+            close()
+
     def _predict_and_defer(self, i: int, x: np.ndarray):
         lvl = self.levels[i]
         xb = torch.from_numpy(np.ascontiguousarray(x[None])).to(self.device)
         probs, dprob = lvl.route_pass(lvl.params, lvl.dparams, xb)
         return probs.cpu().numpy()[0], float(dprob.cpu().numpy()[0])
+
+    # -- cost of deferring FROM level i (to i+1) -----------------------
+    def _defer_cost(self, i: int) -> float:
+        if i + 1 < len(self.levels):
+            return self.levels[i + 1].spec.cost
+        return self.cfg.expert_cost
+
+    def _budget_exhausted(self) -> bool:
+        hb = self.cfg.hard_budget
+        return hb is not None and self.expert_calls >= hb
 
     def process(self, idx: int, doc: np.ndarray) -> dict:
         """Run one episode of the MDP; returns prediction + diagnostics."""
@@ -367,6 +452,9 @@ class OnlineCascade:
         n_levels = len(self.levels)
         rngs = tick_rngs(cfg.seed, self.stream_id, self.t, n_levels)
         u_jump = rngs.jump.random(n_levels)
+        # the action draws use the tick's own `action` generator, so jump
+        # and cache draws are the same with or without them
+        u_act = rngs.action.random(n_levels) if cfg.sample_actions else None
         feat_cache: Dict[int, np.ndarray] = {}
 
         def feat(i):
@@ -382,7 +470,7 @@ class OnlineCascade:
 
         for i, lvl in enumerate(self.levels):
             # DAgger jump: at probability beta_i, query the expert directly.
-            if u_jump[i] < lvl.beta:
+            if not self._budget_exhausted() and u_jump[i] < lvl.beta:
                 chosen_level = len(self.levels)
                 expert_called = True
                 break
@@ -390,13 +478,35 @@ class OnlineCascade:
             probs_list.append(probs)
             dprob_list.append(dprob)
             episode_cost_units += lvl.spec.cost
-            if dprob <= 0.5:
+            if cfg.sample_actions:
+                # compare at float32 like the batched engine; both
+                # operands are exact in either precision
+                defer = float(np.float32(u_act[i])) < dprob
+            else:
+                defer = dprob > 0.5
+            if self._budget_exhausted() and i == n_levels - 1:
+                defer = False          # budget gate: cannot reach expert
+            if not defer:
                 prediction = int(np.argmax(probs))
                 chosen_level = i
                 break
         else:
             chosen_level = len(self.levels)
             expert_called = True
+
+        if expert_called and self._budget_exhausted():
+            # fall back to the last student instead of the expert, costed
+            # like any evaluation of that level.  The reference keeps this
+            # guard although the budget gates above already keep a spent
+            # budget's walk from the expert; the batched engine's overflow
+            # lanes are where the same rule runs
+            lvl = self.levels[-1]
+            x = torch.from_numpy(feat(n_levels - 1)).to(self.device)
+            probs = lvl.predict(lvl.params, x).cpu().numpy()
+            prediction = int(np.argmax(probs))
+            chosen_level = n_levels - 1
+            expert_called = False
+            episode_cost_units += lvl.spec.cost
 
         y_expert = None
         if expert_called:

@@ -1,14 +1,15 @@
 """Where the serving time goes on the card.
 
-Serves the kernel ladder with ``BatchedCascadeEngine`` on the CUDA device
-and records a steady window (after ``--warmup-ticks``) under
+Serves a ladder (the kernel ladder by default, or the paper's
+``default`` one) with ``BatchedCascadeEngine`` and the simulated expert
+on the CUDA device and records a steady window (after ``--warmup-ticks``) under
 ``torch.profiler``.  Reports, as one JSON object on the last line:
 
 * the window's wall time per tick and items per second;
 * the device's busy time (the union of all kernel intervals) and its
   idle share of the window;
-* device time by kernel, the port's three kernels and the matrix
-  products (cuBLAS / CUTLASS) grouped, the top kernels by name;
+* device time by kernel, the port's kernels and the matrix products
+  (cuBLAS / CUTLASS) grouped, the top kernels by name;
 * host wall time spent in the per-tick commit (ring scatter + the
   autograd student / gate updates) versus the rest of the tick (route
   passes, featurization, routing, the expert).
@@ -152,7 +153,7 @@ def main(argv=None):
     ap.add_argument("--samples", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--ladder", default="kernel",
-                    choices=["kernel", "kernel-ci"])
+                    choices=["kernel", "kernel-ci", "default"])
     ap.add_argument("--warmup-ticks", type=int, default=4)
     ap.add_argument("--out", default="",
                     help="also write the JSON report to this path")

@@ -1,44 +1,126 @@
 """Streaming cascade server on the PyTorch port (port of
-``repro.launch.serve``, the flags of the kernel-ladder slice).
+``repro.launch.serve``, the flags of the ported slices).
 
 Two engines:
 
 * ``--engine batched`` (default): ``BatchedCascadeEngine`` serves S
   concurrent stream lanes in lockstep — per-level batched forwards over
-  the gathered alive subset (the upper levels through the CUDA kernels),
-  one batched expert call per tick, per-tick weighted updates.
+  the gathered alive subset, one batched expert call per tick, per-tick
+  weighted updates.
 * ``--engine sequential``: the per-item Algorithm-1 loop
-  (``OnlineCascade``).
+  (``OnlineCascade``), with micro-batched expert calls via a probe/replay
+  pass.
 
-The ladder is ``lr -> tinytf_flash -> ssm`` at the default widths
-(``--ladder kernel``) or at the CI widths (``--ladder kernel-ci``); the
-expert is the stream's simulated annotator.  Runs on the CUDA card unless
-``--device cpu`` is given.
+Ladders: ``--ladder default`` is the paper's ``lr -> tinytf`` (dense
+students); ``kernel`` is ``lr -> tinytf_flash -> ssm`` at the default
+widths, whose upper levels launch the CUDA kernels; ``kernel-ci`` is the
+same ladder at the CI widths.  Experts: ``--expert model`` (the default)
+trains a ``tinytf`` stand-in LLM on the stream's ground truth before
+serving; ``--expert simulated`` replays the stream's precomputed
+noisy-teacher labels.  Runs on the CUDA card unless ``--device cpu`` is
+given; the device is checked before the expert is trained.
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --dataset imdb \
+      --samples 2048 --batch 64
   PYTHONPATH=src python -m repro_torch.launch.serve --ladder kernel \
-      --dataset imdb --samples 2048 --batch 64
+      --expert simulated --dataset imdb --samples 2048 --batch 64
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
+
 from repro_torch.core import (BatchedCascadeEngine, OnlineCascade,
-                              SimulatedExpert, kernel_cascade_config)
+                              SimulatedExpert, default_cascade_config,
+                              kernel_cascade_config, train_model_expert)
+from repro_torch.core.rng import tick_rngs
 from repro_torch.data import make_stream
 from repro_torch.device import DeviceLike, resolve_device, sync
 from repro_torch.models.kernel_students import TINY_SSM_CI, TINY_TF_CI
 
+LADDERS = ("default", "kernel", "kernel-ci")
+
 
 def _ladder_config(ladder: str, n_classes: int, mu: float, seed: int,
                    expert_cost: float):
-    if ladder not in ("kernel", "kernel-ci"):
-        raise ValueError(f"unknown ladder {ladder!r} (kernel | kernel-ci)")
+    if ladder not in LADDERS:
+        raise ValueError(f"unknown ladder {ladder!r} ({' | '.join(LADDERS)})")
+    if ladder == "default":
+        return default_cascade_config(n_classes=n_classes, mu=mu, seed=seed,
+                                      expert_cost=expert_cost)
     spec_kw = ({"tf_flash_spec": TINY_TF_CI, "ssm_spec": TINY_SSM_CI}
                if ladder == "kernel-ci" else {})
     return kernel_cascade_config(n_classes=n_classes, mu=mu, seed=seed,
                                  expert_cost=expert_cost, **spec_kw)
+
+
+def _make_expert(stream, n_classes: int, expert_kind: str, samples: int,
+                 seed: int, device):
+    """The expert and its training seconds (0 for the simulated one)."""
+    if expert_kind == "model":
+        print("training stand-in LLM expert ...", flush=True)
+        t0 = time.time()
+        expert = train_model_expert(stream, n_classes, epochs=2,
+                                    max_samples=min(4000, samples),
+                                    seed=seed, device=device)
+        sync(expert.device)
+        dt = time.time() - t0
+        print(f"expert trained in {dt:.1f}s", flush=True)
+        return expert, dt
+    if expert_kind != "simulated":
+        raise ValueError(f"unknown expert {expert_kind!r} "
+                         "(model | simulated)")
+    return SimulatedExpert(stream, "gpt-3.5-turbo"), 0.0
+
+
+class _BatchProxy:
+    """Expert proxy serving precomputed labels to the cascade during the
+    replay pass of a micro-batch; falls back to a single expert call when
+    the routing probe mispredicted (rare: post-update gate flips)."""
+
+    def __init__(self, expert):
+        self.expert = expert
+        self.cost = expert.cost
+        self.table = {}
+        self.fallback_calls = 0
+
+    def label(self, idx: int, doc) -> int:
+        """Serve item ``idx``'s precomputed label (or fall back live)."""
+        if idx in self.table:
+            return int(self.table[idx])
+        self.fallback_calls += 1
+        return int(self.expert.label(idx, doc))
+
+
+def probe_route(cascade: OnlineCascade, doc, tick: int) -> bool:
+    """Predict whether processing ``doc`` at ``tick`` would consult the
+    expert, WITHOUT mutating the learned state.  The per-tick pre-split
+    RNG discipline (core.rng) lets the probe reproduce the exact DAgger
+    jump draws — and, under ``cfg.sample_actions``, the exact
+    sampled-action draws — that the replay pass will see.  Its forwards
+    are real and count in the levels' ``forwards``."""
+    cfg = cascade.cfg
+    n_levels = len(cascade.levels)
+    rngs = tick_rngs(cfg.seed, cascade.stream_id, tick, n_levels)
+    u_jump = rngs.jump.random(n_levels)
+    u_act = rngs.action.random(n_levels) if cfg.sample_actions else None
+    for i, lvl in enumerate(cascade.levels):
+        if not cascade._budget_exhausted() and u_jump[i] < lvl.beta:
+            return True                      # DAgger jump
+        _, dprob = cascade._predict_and_defer(i, lvl.featurize(doc))
+        if cfg.sample_actions:
+            # float32 comparison, identical to OnlineCascade.process
+            defer = float(np.float32(u_act[i])) < dprob
+        else:
+            defer = dprob > 0.5
+        if cascade._budget_exhausted() and i == n_levels - 1:
+            defer = False
+        if not defer:
+            return False
+    return True
 
 
 def _report(metrics: dict, n: int, dt: float, lanes: str) -> None:
@@ -53,18 +135,19 @@ def _report(metrics: dict, n: int, dt: float, lanes: str) -> None:
 
 
 def serve_stream_batched(dataset: str, samples: int, mu: float,
-                         batch: int = 64, seed: int = 0,
-                         log_every: int = 500,
+                         batch: int = 64, expert_kind: str = "model",
+                         seed: int = 0, log_every: int = 500,
                          updates_per_tick: str = "single",
-                         ladder: str = "kernel",
+                         ladder: str = "default",
                          device: DeviceLike = None):
-    """Default serving path: the batched multi-stream engine on the
-    kernel ladder.  Returns the engine's ``run`` metrics plus the engine
-    itself (``"engine"``: its levels' forward counts, per-stream
-    accounting)."""
+    """Default serving path: the batched multi-stream engine.  Returns
+    the engine's ``run`` metrics plus the engine itself (``"engine"``:
+    its levels' forward counts, per-stream accounting, its expert) and
+    the expert's training seconds (``"expert_train_s"``)."""
     dev = resolve_device(device)
     stream = make_stream(dataset, seed=seed, n_samples=samples)
-    expert = SimulatedExpert(stream, "gpt-3.5-turbo")
+    expert, train_s = _make_expert(stream, stream.spec.n_classes,
+                                   expert_kind, samples, seed, dev)
     cfg = _ladder_config(ladder, stream.spec.n_classes, mu, seed,
                          expert.cost)
     # history_limit=0: serving reads only aggregate metrics
@@ -72,7 +155,10 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
                                   updates_per_tick=updates_per_tick,
                                   history_limit=0, device=dev)
     t0 = time.time()
-    metrics = engine.run(stream, log_every=log_every)
+    try:
+        metrics = engine.run(stream, log_every=log_every)
+    finally:
+        engine.close()
     sync(dev)
     dt = time.time() - t0
     cs = engine.commit_stats
@@ -81,26 +167,73 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
               f"mean age {cs['age_sum'] / cs['lanes']:.2f} ticks, "
               f"mean latency {cs['wall_sum'] / cs['lanes'] * 1e3:.1f} ms")
     _report(metrics, len(stream), dt,
-            f"batch={batch} ladder={ladder} device={dev}")
+            f"batch={batch} ladder={ladder} expert={expert_kind} "
+            f"device={dev}")
     metrics["engine"] = engine
+    metrics["expert_train_s"] = train_s
     return metrics
 
 
-def serve_stream(dataset: str, samples: int, mu: float, seed: int = 0,
-                 log_every: int = 500, ladder: str = "kernel",
-                 device: DeviceLike = None):
-    """Sequential Algorithm-1 loop (``OnlineCascade``) on the ladder."""
+def serve_stream(dataset: str, samples: int, mu: float,
+                 microbatch: int = 16, expert_kind: str = "model",
+                 seed: int = 0, log_every: int = 500,
+                 ladder: str = "default", device: DeviceLike = None):
+    """Sequential Algorithm-1 loop (``OnlineCascade``) with probe/replay
+    expert micro-batching."""
     dev = resolve_device(device)
     stream = make_stream(dataset, seed=seed, n_samples=samples)
-    expert = SimulatedExpert(stream, "gpt-3.5-turbo")
+    expert, _ = _make_expert(stream, stream.spec.n_classes, expert_kind,
+                             samples, seed, dev)
+    proxy = _BatchProxy(expert)
     cfg = _ladder_config(ladder, stream.spec.n_classes, mu, seed,
                          expert.cost)
-    cascade = OnlineCascade(cfg, expert, history_limit=0, device=dev)
+    cascade = OnlineCascade(cfg, proxy, history_limit=0, device=dev)
+
+    preds = np.zeros(len(stream), np.int32)
     t0 = time.time()
-    metrics = cascade.run(stream, log_every=log_every)
+    expert_batch_sizes = []
+    i = 0
+    while i < len(stream):
+        j = min(i + microbatch, len(stream))
+        batch_idx = list(range(i, j))
+        # pass 1 (probe): which queries will reach the expert.  Item k of
+        # the batch is processed at tick cascade.t + k + 1; the pre-split
+        # tick keys make the probe's jump draws exact
+        need = [k for off, k in enumerate(batch_idx)
+                if probe_route(cascade, stream.docs[k],
+                               cascade.t + off + 1)]
+        # one batched expert call for just the deferred subset
+        if need:
+            labels = expert.label_batch(need, [stream.docs[k] for k in need])
+            for k, y in zip(need, labels):
+                proxy.table[k] = int(y)
+            expert_batch_sizes.append(len(need))
+        # pass 2 (replay): stream-order Algorithm 1 with online updates
+        for k in batch_idx:
+            preds[k] = cascade.process(k, stream.docs[k])["prediction"]
+        # the replayed micro-batch's labels are spent
+        for k in batch_idx:
+            proxy.table.pop(k, None)
+        i = j
+        if log_every and i % max(log_every, microbatch) < microbatch:
+            acc = float(np.mean(preds[:i] == stream.labels[:i]))
+            print(f"[{i}/{len(stream)}] acc={acc:.4f} "
+                  f"expert_calls={cascade.expert_calls}", flush=True)
     sync(dev)
-    _report(metrics, len(stream), time.time() - t0,
-            f"sequential ladder={ladder} device={dev}")
+    dt = time.time() - t0
+    metrics = {"accuracy": float(np.mean(preds == stream.labels)),
+               "expert_calls": cascade.expert_calls,
+               "level_fractions": (cascade.level_counts
+                                   / max(len(stream), 1)).tolist(),
+               "predictions": preds,
+               "fallback_calls": proxy.fallback_calls,
+               "mean_expert_batch": (float(np.mean(expert_batch_sizes))
+                                     if expert_batch_sizes else 0.0)}
+    _report(metrics, len(stream), dt,
+            f"sequential ladder={ladder} expert={expert_kind} device={dev}")
+    print(f"mean expert batch={metrics['mean_expert_batch']:.1f}  "
+          f"probe mispredicts (single-call fallbacks)="
+          f"{proxy.fallback_calls}")
     return metrics
 
 
@@ -120,7 +253,8 @@ def main(argv=None):
     ap.add_argument("--engine", default="batched",
                     choices=["batched", "sequential"],
                     help="'batched' = BatchedCascadeEngine (S lanes in "
-                         "lockstep); 'sequential' = per-item OnlineCascade")
+                         "lockstep); 'sequential' = per-item OnlineCascade "
+                         "with probe/replay expert micro-batching")
     ap.add_argument("--batch", type=int, default=64,
                     help="concurrent stream lanes S (batched engine); S=1 "
                          "is bit-identical to the sequential loop")
@@ -129,13 +263,21 @@ def main(argv=None):
                     help="per-tick update scheduling (batched engine): "
                          "'scaled' lr-scales the one weighted step by the "
                          "tick's expert-demo count (Optimizer.step_k)")
-    ap.add_argument("--expert", default="simulated", choices=["simulated"],
-                    help="the stream's precomputed noisy-teacher labels")
-    ap.add_argument("--ladder", default="kernel",
-                    choices=["kernel", "kernel-ci"],
-                    help="'kernel' = lr -> tinytf_flash -> ssm at the "
-                         "default widths; 'kernel-ci' = the same ladder at "
-                         "the CI widths")
+    ap.add_argument("--microbatch", type=int, default=16,
+                    help="expert micro-batch size (sequential engine): "
+                         "the probe/replay pass batches this many items' "
+                         "deferred expert calls into one forward")
+    ap.add_argument("--expert", default="model",
+                    choices=["model", "simulated"],
+                    help="'model' trains an in-repo transformer as the "
+                         "LLM stand-in (real expert compute); 'simulated' "
+                         "replays the stream's precomputed noisy-teacher "
+                         "annotations (zero compute)")
+    ap.add_argument("--ladder", default="default", choices=list(LADDERS),
+                    help="'default' = lr -> tinytf dense students; "
+                         "'kernel' = lr -> tinytf_flash -> ssm at the "
+                         "default widths (CUDA kernels on the card); "
+                         "'kernel-ci' = the same ladder at the CI widths")
     ap.add_argument("--seed", type=int, default=0,
                     help="stream/cascade RNG seed")
     ap.add_argument("--device", default="cuda",
@@ -146,14 +288,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.engine == "batched":
         serve_stream_batched(args.dataset, args.samples, args.mu,
-                             batch=args.batch, seed=args.seed,
-                             log_every=args.log_every,
+                             batch=args.batch, expert_kind=args.expert,
+                             seed=args.seed, log_every=args.log_every,
                              updates_per_tick=args.updates,
                              ladder=args.ladder, device=args.device)
     else:
-        serve_stream(args.dataset, args.samples, args.mu, seed=args.seed,
-                     log_every=args.log_every, ladder=args.ladder,
-                     device=args.device)
+        serve_stream(args.dataset, args.samples, args.mu,
+                     microbatch=args.microbatch, expert_kind=args.expert,
+                     seed=args.seed, log_every=args.log_every,
+                     ladder=args.ladder, device=args.device)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,9 @@ call of each kernel a call launches, from a ``torch.profiler`` trace).
 Rows: flash attention at the cascade's buckets 64 / 32 / 16 / 8 (fp32)
 and the zoo's prefill (bf16), decode attention, the SSD scan, and
 ``moe_gmm`` at the zoo's prefill and decode (bf16, and the fp32 prefill
-row), each kernel row but the SSD scan's with its library twin
+row), each kernel row with its plain PyTorch version (``plain`` names it:
+``attention_ref``, ``decode_attention_ref``, ``ssd_scan_chunked_ref``,
+``gmm_ref``) and, but the SSD scan's, with its library twin
 (``F.scaled_dot_product_attention`` or ``torch.bmm``).  Where the
 version's launchers take them, rows at a forced flash ``variant`` and
 decode ``n_split`` show each choice's trade-off.
@@ -125,12 +127,17 @@ def main(argv=None) -> int:
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref)
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.moe_gmm import ops as gmm_ops
     from repro_torch.kernels.moe_gmm.kernel import moe_gmm_cuda
+    from repro_torch.kernels.moe_gmm.ref import gmm_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
@@ -140,9 +147,10 @@ def main(argv=None) -> int:
     rows = []
 
     def emit(kernel, path, shape, fn, launcher=None, variant=None,
-             library=None, reps=args.reps):
+             library=None, plain=None, reps=args.reps):
         """Time ``fn``; the variant is the one its call took (read from
-        ``launcher``'s counts) unless given."""
+        ``launcher``'s counts) unless given; ``library`` / ``plain`` name
+        the function of a twin row."""
         if launcher is not None and variant is None:
             before = dict(getattr(launcher, "launches_by_variant", {}))
             fn()
@@ -152,6 +160,8 @@ def main(argv=None) -> int:
                "variant": variant}
         if library:
             row["library"] = library
+        if plain:
+            row["plain"] = plain
         rows.append({**row, **_row(torch, fn, reps)})
 
     # flash attention: the cascade's tinytf_flash layer at every bucket
@@ -177,6 +187,12 @@ def main(argv=None) -> int:
              flash_attention_cuda)
         emit("flash_attention", path, shape, lambda: sdpa(q, k, v),
              library="F.scaled_dot_product_attention")
+        emit("flash_attention", path, shape,
+             lambda: attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True,
+                                   window=window,
+                                   sm_scale=q.shape[-1] ** -0.5),
+             plain="attention_ref", reps=10)
         if not path.startswith("cascade"):
             continue
         # the scalar kernel beside the chosen one
@@ -214,6 +230,14 @@ def main(argv=None) -> int:
         emit("decode_attention", path, shape,
              lambda: sdpa_masked(q, k, v, pos),
              library="F.scaled_dot_product_attention")
+        B, _, H, hd = q.shape
+        K = k.shape[2]
+        pos2 = pos if pos.ndim == 2 else pos[None].expand(B, -1)
+        emit("decode_attention", path, shape,
+             lambda: decode_attention_ref(
+                 q[:, 0].reshape(B, K, H // K, hd), k, v, pos2,
+                 sm_scale=hd ** -0.5),
+             plain="decode_attention_ref", reps=10)
     # the split's trade-off: the zoo's step and the cascade's bucket 8 at
     # forced split counts (versions whose launcher takes ``n_split``)
     if _takes(decode_attention_cuda, "n_split"):
@@ -233,6 +257,9 @@ def main(argv=None) -> int:
         adt = -torch.arange(1, H + 1, device="cuda").float() * dt
         emit("ssd_scan", f"cascade B={B}", list(x.shape),
              lambda: ssd_ops.ssd_scan(x, adt, dt, Bm, Cm, chunk=chunk))
+        emit("ssd_scan", f"cascade B={B}", list(x.shape),
+             lambda: ssd_scan_chunked_ref(x, adt, dt, Bm, Cm, chunk),
+             plain="ssd_scan_chunked_ref", reps=10)
     # moe_gmm at the zoo's expert FFN (8 experts, d_model 6144, d_ff
     # 16384): prefill capacity 640 and decode capacity 4, the up and down
     # projections, and the prefill's up projection in fp32
@@ -249,6 +276,8 @@ def main(argv=None) -> int:
              moe_gmm_cuda, reps=reps)
         emit("moe_gmm", path, shape, lambda: torch.bmm(x, w),
              library="torch.bmm", reps=reps)
+        emit("moe_gmm", path, shape, lambda: gmm_ref(x, w),
+             plain="gmm_ref", reps=reps)
     for row in rows:
         print(json.dumps({"label": args.label, **row}), flush=True)
     return 0

@@ -1,5 +1,6 @@
-"""FLOP cost model for the kernel ladder (port of the ``lr``,
-``tinytf_flash`` and ``ssm`` entries of ``repro.metrics.costs``).
+"""FLOP cost model for the cascade's students (port of the student
+entries of ``repro.metrics.costs``: ``lr``, ``mlp``, ``tinytf``,
+``tinytf_flash`` and ``ssm``).
 
 Inference cost is counted in "model cost units" where logistic regression
 = 1; ``core.cascade.kernel_cascade_config`` derives the deferral
@@ -9,13 +10,32 @@ as the reference.
 from __future__ import annotations
 
 from repro_torch.models.kernel_students import SSMStudentSpec, TinyTFFlashSpec
-from repro_torch.models.students import LRSpec
+from repro_torch.models.students import LRSpec, MLPSpec, TinyTFSpec
 
 
 def lr_flops(spec: LRSpec, train: bool = False) -> float:
     """Analytic FLOPs of one logistic-regression forward (per item)."""
     f = 2.0 * spec.n_features * spec.n_classes
     return 2.0 * f if train else f     # paper C.1: training ~ 2x inference
+
+
+def mlp_flops(spec: MLPSpec, train: bool = False) -> float:
+    """Analytic FLOPs of one deep-MLP student forward (per item)."""
+    h, nl = spec.hidden, spec.n_layers
+    f = 2.0 * (spec.n_features * h + (nl - 1) * h * h
+               + h * spec.n_classes)
+    return 2.0 * f if train else f
+
+
+def tinytf_flops(spec: TinyTFSpec, train: bool = False) -> float:
+    """Analytic FLOPs of one dense tiny-transformer forward (per item)."""
+    L, d, f = spec.max_len, spec.d_model, spec.d_ff
+    per_layer = (8.0 * L * d * d          # qkvo projections
+                 + 4.0 * L * L * d        # scores + AV
+                 + 4.0 * L * d * f)       # mlp
+    total = per_layer * spec.n_layers + 2.0 * L * d * spec.vocab / spec.vocab
+    total += 2.0 * d * spec.n_classes
+    return 2.0 * total if train else total
 
 
 def tinytf_flash_flops(spec: TinyTFFlashSpec, train: bool = False) -> float:

@@ -62,20 +62,19 @@ def prefill_attention(q, k, v, *, window: Optional[int], q_offset: int = 0,
     return flash_attention(q, k, v, causal=True, window=window)
 
 
-def ring_decode_attention(q, k, v, *, kv_positions,
+def ring_decode_attention(q, k, v, *, kv_positions, q_position: int,
                           window: Optional[int]) -> torch.Tensor:
     """One new token against the ring cache (the reference's
-    ``chunked_attention`` at Sq == 1): q (B, 1, H, hd); k/v (B, W, K, hd);
-    kv_positions (W,) int32, -1 for empty slots.
+    ``chunked_attention`` at Sq == 1): q (B, 1, H, hd) at absolute
+    position ``q_position``; k/v (B, W, K, hd); kv_positions (W,) int32,
+    -1 for empty slots.
 
-    The kernel masks only empty slots.  The reference also masks causal
-    and window; after the new token is written every cached position is
-    <= its own, and all of them lie inside the window exactly when the
-    ring is no longer than the window, which ``prefill`` guarantees by
-    default (cache_len = min(S, window)).  A longer ring raises instead
-    of silently attending outside the window."""
-    W = k.shape[1]
-    if window is not None and W > window:
-        raise ValueError(f"ring cache of {W} slots is longer than the "
-                         f"attention window {window}")
-    return decode_attention(q, k, v, kv_positions)
+    The kernel masks only slots whose position is negative, so the causal
+    and window masks are folded into the positions first: a slot after
+    the query, or at or before ``q_position - window``, is passed as -1.
+    A ring longer than the window thus attends to the window alone."""
+    pos = kv_positions
+    drop = pos > q_position
+    if window is not None:
+        drop = drop | (pos <= q_position - window)
+    return decode_attention(q, k, v, torch.where(drop, -1, pos).to(pos.dtype))

@@ -34,7 +34,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.layers import dense_init
 from repro_torch.models.ssm import init_mamba, mamba_forward, ssd_chunked
-from repro_torch.models.students import _weighted_xent
+from repro_torch.models.students import _ln, _to, _weighted_xent
 
 
 @dataclass(frozen=True)
@@ -76,12 +76,6 @@ TINY_SSM_CI = SSMStudentSpec(vocab=256, max_len=32, d_model=16, d_state=8,
                              expand=2, head_dim=16, chunk=16, n_layers=1)
 
 
-def _ln(x, scale):
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
-    return (x - mu) * torch.rsqrt(var + 1e-6) * scale
-
-
 # ---------------------------------------------------------------------------
 # tinytf_flash: causal transformer, flash-attention layers, decode readout
 # ---------------------------------------------------------------------------
@@ -113,14 +107,6 @@ def tinytf_flash_init(gen: torch.Generator, spec: TinyTFFlashSpec,
         } for _ in range(spec.n_layers)],
     }
     return _to(params, device)
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device=device, dtype=torch.float32)
 
 
 def _causal_attend(q, k, v, spec: TinyTFFlashSpec, use_kernels: bool):

@@ -164,7 +164,7 @@ def _self_attn_decode(p, h, cfg: ModelConfig, cache, pos: int):
     cv[:, slot] = v[:, 0]
     cpos[slot] = pos
     out = ring_decode_attention(q, ck, cv, kv_positions=cpos,
-                                window=cfg.attn.window)
+                                q_position=pos, window=cfg.attn.window)
     return _attn_out(p["attn"], out, cfg), {"k": ck, "v": cv, "pos": cpos}
 
 

@@ -188,9 +188,10 @@ def test_batched_s8_matches_jax(updates):
 def test_serve_cli_on_cpu():
     for argv in (["--device", "cpu", "--ladder", "kernel-ci", "--samples",
                   "48", "--batch", "16", "--dataset", "fever",
-                  "--log-every", "0"],
+                  "--log-every", "0", "--expert", "simulated"],
                  ["--device", "cpu", "--ladder", "kernel-ci", "--samples",
-                  "24", "--engine", "sequential", "--log-every", "0"]):
+                  "24", "--engine", "sequential", "--log-every", "0",
+                  "--expert", "simulated"]):
         buf = io.StringIO()
         with redirect_stdout(buf):
             serve.main(argv)
@@ -204,6 +205,7 @@ def test_cli_engine_matches_engine_run():
     buf = io.StringIO()
     with redirect_stdout(buf):
         m = serve.serve_stream_batched("imdb", 32, 3e-7, batch=8,
+                                       expert_kind="simulated",
                                        log_every=0, ladder="kernel-ci",
                                        device="cpu")
     eng = m["engine"]
@@ -218,6 +220,7 @@ def test_forwards_by_batch_splits_forwards_by_bucket(batch, buckets):
     ran at: the engine's buckets (powers of two from 8, capped at the
     lane count), summing to ``forwards``."""
     m = serve.serve_stream_batched("imdb", 32, 3e-7, batch=batch,
+                                   expert_kind="simulated",
                                    log_every=0, ladder="kernel-ci",
                                    device="cpu")
     for lvl in m["engine"].levels:
@@ -238,14 +241,22 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         P.OnlineCascade(pcfg, ex, device=None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve.main(["--ladder", "kernel-ci", "--samples", "8"])
+        serve.main(["--ladder", "kernel-ci", "--samples", "8",
+                    "--expert", "simulated"])
+    # the model expert is trained only after the device check passed
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--ladder", "default", "--samples", "8"])
 
 
 def test_unported_level_kind_raises():
+    """Every level kind of the reference is ported: a kind no engine
+    knows raises, naming the known ones."""
     _, pcfg = _cfgs()
     from dataclasses import replace
-    cfg = replace(pcfg, levels=(P.LevelSpec(kind="tinytf", cost=1.0),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert set(P.LEVEL_KINDS) == {"lr", "mlp", "tinytf", "tinytf_large",
+                                  "tinytf_flash", "ssm"}
+    cfg = replace(pcfg, levels=(P.LevelSpec(kind="bert", cost=1.0),))
+    with pytest.raises(ValueError, match="known kinds are lr, mlp, tinytf"):
         P.OnlineCascade(cfg, None, device="cpu")
 
 

@@ -11,9 +11,11 @@ never reach it.  For ``moe_gmm`` and flash attention each case also
 asserts which variant (``"tc"`` tensor cores, ``"simt"`` CUDA cores)
 the launch took (flash: also ``"tiled"``, fp32 register tiles, forced
 against ``"simt"`` on one input).  The CUDA engine must route a short
-stream like the CPU engine does, and the zoo's smoke model must serve
-on the card as on the CPU.  Nothing here imports JAX (the GPU machine
-has none).
+stream like the CPU engine does, on the kernel ladder and on the paper's
+default ``lr -> tinytf`` ladder; a hard expert budget must hold on the
+card; the model expert must label on the card as on the CPU; and the
+zoo's smoke model must serve on the card as on the CPU.  Nothing here
+imports JAX (the GPU machine has none).
 """
 import numpy as np
 import pytest
@@ -478,3 +480,58 @@ def test_cuda_engine_routes_like_the_cpu_engine(cuda):
     assert np.array_equal(runs["cpu"][0], runs["cuda"][0])
     assert np.array_equal(runs["cpu"][1], runs["cuda"][1])
     assert runs["cpu"][2] == runs["cuda"][2]
+
+
+def _default_ladder_run(dev, stream, **cfg_kw):
+    from dataclasses import replace
+    from repro_torch.core import (BatchedCascadeEngine, SimulatedExpert,
+                                  default_cascade_config)
+    cfg = replace(default_cascade_config(2, mu=3e-6), **cfg_kw)
+    eng = BatchedCascadeEngine(cfg, SimulatedExpert(stream), n_streams=8,
+                               device=dev)
+    m = eng.run(stream)
+    return eng, m
+
+
+def test_default_ladder_routes_like_the_cpu(cuda):
+    """The paper's lr -> tinytf ladder at full width on a short stream:
+    identical routing on the card and on the CPU, from the same seeded
+    initial weights."""
+    from repro_torch.data import make_stream
+    stream = make_stream("hatespeech", seed=0, n_samples=48)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng, m = _default_ladder_run(dev, stream)
+        runs[dev] = (m["predictions"], np.concatenate(
+            [np.asarray(x) for x in eng.history["level"]]),
+            [lvl.forwards for lvl in eng.levels])
+    assert np.array_equal(runs["cpu"][0], runs["cuda"][0])
+    assert np.array_equal(runs["cpu"][1], runs["cuda"][1])
+    assert runs["cpu"][2] == runs["cuda"][2]
+
+
+def test_hard_budget_holds_on_the_card(cuda):
+    from repro_torch.data import make_stream
+    stream = make_stream("imdb", seed=0, n_samples=256)
+    for budget in (5, 21):
+        eng, m = _default_ladder_run("cuda", stream, hard_budget=budget)
+        assert m["expert_calls"] == eng.expert_calls_total == budget
+        # overflow lanes answered from the last student's fallback
+        assert eng.levels[-1].forwards_by_batch.get(1, 0) >= 1
+
+
+def test_model_expert_labels_on_the_card_equal_the_cpus(cuda):
+    from repro_torch.core import ModelExpert, train_model_expert
+    from repro_torch.data import make_stream
+    from repro_torch.tree import tree_map
+    stream = make_stream("imdb", seed=0, n_samples=256)
+    cpu = train_model_expert(stream, 2, d_model=64, n_layers=2, epochs=1,
+                             seed=1, device="cpu")
+    gpu = ModelExpert(params=tree_map(lambda t: t.cuda(), cpu.params),
+                      spec=cpu.spec, workers=2, device="cuda")
+    idxs = list(range(len(stream)))
+    want = cpu.label_batch(idxs, stream.docs)
+    assert np.array_equal(gpu.label_batch(idxs, stream.docs), want)
+    assert np.array_equal(gpu.poll(gpu.submit_many(idxs, stream.docs)),
+                          want)
+    gpu.close()

@@ -188,7 +188,8 @@ def test_ring_decode_attention_matches(W, window, pos):
     for p in range(max(0, pos - W + 1), pos + 1):
         cpos[p % W] = p
     got = t_attn.ring_decode_attention(_t(q), _t(k), _t(v),
-                                       kv_positions=_t(cpos), window=window)
+                                       kv_positions=_t(cpos), q_position=pos,
+                                       window=window)
     want = j_attn.chunked_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         q_positions=jnp.asarray([pos], jnp.int32),
@@ -208,12 +209,31 @@ def test_mask_matches(causal, window):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
-def test_ring_longer_than_window_raises():
-    q = torch.zeros((1, 1, 2, 8))
-    k = torch.zeros((1, 16, 2, 8))
-    with pytest.raises(ValueError, match="longer than the attention window"):
-        t_attn.ring_decode_attention(q, k, k, kv_positions=torch.arange(
-            16, dtype=torch.int32), window=8)
+def test_ring_longer_than_window_attends_to_the_window():
+    """A ring of 16 slots under a window of 8: the slots at or before
+    q_pos - 8 are masked, as the reference's window mask does (and a slot
+    after the query position, as its causal mask does)."""
+    rng = np.random.default_rng(21)
+    q = _np(rng, 2, 1, 4, 32)
+    k, v = _np(rng, 2, 16, 2, 32), _np(rng, 2, 16, 2, 32)
+    pos = 29
+    cpos = np.full((16,), -1, np.int32)
+    for p in range(pos - 15, pos + 1):
+        cpos[p % 16] = p
+    cpos[3] = pos + 2                 # a slot the causal mask drops
+    got = t_attn.ring_decode_attention(_t(q), _t(k), _t(v),
+                                       kv_positions=_t(cpos), q_position=pos,
+                                       window=8)
+    want = j_attn.chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        q_positions=jnp.asarray([pos], jnp.int32),
+        kv_positions=jnp.asarray(cpos), causal=True, window=8)
+    _close(got, want, 1e-5)
+    # the window is what changed the answer: the whole ring differs
+    whole = t_attn.ring_decode_attention(_t(q), _t(k), _t(v),
+                                         kv_positions=_t(cpos),
+                                         q_position=pos, window=None)
+    assert not torch.allclose(got, whole, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
