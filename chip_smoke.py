@@ -44,6 +44,33 @@ Phases (any failure exits non-zero and prints no result line):
      25 000 scaled to 2048): at most 106 calls and the budget reached;
      (3) 48 items at batch 8 on the card and on the CPU from the same
      seed: identical routing, else the first tick and lane that differ;
+  8. engine-matrix: ``BatchedCascadeEngine``'s serving options on imdb,
+     2048 items, batch 64, seed 0, mu 3e-7, each run printing items/s,
+     wall s, accuracy, expert calls, level fractions, pipeline / commit
+     (mean age, age_max) / fault stats: (a) the default ladder with the
+     model expert (trained once, reused) at max_delay 2 — every commit
+     within 2 ticks, every annotated lane committed exactly once — and
+     profiled at max_delay 0 and 2; (b) per-lane commits at max_delay 2,
+     simulated expert, W=1 against W=4 under an adversarial latency:
+     identical predictions, routing, expert calls, commit log, every
+     parameter ``torch.equal``; (b') the same pair with the model
+     expert, its per-item labels compared on the batches the engine sent
+     and its pool threads' streams checked, then the process backend
+     (labels against the thread backend, device memory per child, its
+     children killed and the pool rebuilt); (c) the kernel ladder at
+     depth 2 against 0, at max_delay 0 (profiled) and 2: identical runs
+     and every kernel launched as often as the layer-forwards counted
+     (at max_delay 0 as often as in phase 4); (d) hard budget 0 (the
+     converged regime) on both ladders, and the default ladder's
+     learning regime, depth 2 against 0, profiled (ms per tick, device
+     idle share): identical predictions, 32 ticks submitted and
+     resolved, and no refetch or fence where converged; (e)
+     ``FlakyExpert`` (seeded) over the simulated expert with
+     ``expert_timeout``, ``max_requeues=2``, ``autoscale=(1, 8)``:
+     every injected timeout or death requeued or counted as dropped, and
+     the fleet log equal to the CPU's on the same stream; (f) 48 items
+     at batch 8, max_delay 2, per-lane commits, depth 2: routing on the
+     card equal to the CPU's;
   6. zoo-kernels: Mixtral-8x22B at full width (d_model 6144, 48/8 heads
      of 128, 8 experts of d_ff 16384, bf16), depth cut to 2 layers,
      weights from a seeded CUDA generator; prompts from
@@ -82,7 +109,8 @@ kernels; ``launches`` is the total over the cascade and zoo serving
 runs, each counted from zero, ``launches_by_variant`` its split by
 variant (decode attention: "single" / "split"), and ``paths`` has each
 path's own count, times, ``variant`` (the one its timed row took; the
-SSD scan has one scalar kernel, "simt") and ``launches_by_variant``;
+SSD scan has one scalar kernel, "simt") and ``launches_by_variant``,
+``cascade_pipelined`` the launches of phase 8 (c)'s depth-2 run;
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -747,6 +775,402 @@ def phase_default_serve():
 
 
 # ---------------------------------------------------------------------------
+# engine-matrix: the serving options of BatchedCascadeEngine at full width
+# ---------------------------------------------------------------------------
+MATRIX_ITEMS, MATRIX_BATCH, MATRIX_MU = 2048, 64, 3e-7
+MATRIX_DEVICE = "cuda"
+# (e): the seeded fault schedule and the requeue deadline (s)
+MATRIX_FAULTS = {"timeout_rate": 0.1, "death_rate": 0.05, "slow_rate": 0.2,
+                 "seed": 0}
+MATRIX_TIMEOUT = 1.0
+
+
+def _pool_latency(seq, j):
+    """(b): an adversarial per-shard latency, in non-blocking probes."""
+    return (seq * 2654435761 + j * 40503) % 9
+
+
+def _sync():
+    if MATRIX_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _matrix_engine(ladder, expert, hard_budget=None, device=None,
+                   n_streams=None, **opts):
+    """An engine on ``ladder`` (imdb's 2 classes, mu 3e-7, seed 0) with
+    the unbounded history (and so the commit log) on."""
+    from repro_torch.core import BatchedCascadeEngine
+    from repro_torch.launch.serve import _ladder_config
+    cfg = dataclasses.replace(
+        _ladder_config(ladder, 2, MATRIX_MU, 0, expert.cost),
+        hard_budget=hard_budget)
+    return BatchedCascadeEngine(cfg, expert,
+                                n_streams=n_streams or MATRIX_BATCH,
+                                device=device or MATRIX_DEVICE, **opts)
+
+
+def _matrix_report(tag, eng, m, wall):
+    cs = eng.commit_stats
+    age = cs["age_sum"] / cs["lanes"] if cs["lanes"] else 0.0
+    print(f"[engine-matrix] {tag}: items_per_sec={m['items_per_sec']:.1f} "
+          f"wall_s={wall:.2f} accuracy={m['accuracy']:.4f} "
+          f"expert_calls={m['expert_calls']} level_fractions="
+          f"{[round(f, 4) for f in m['level_fractions']]} "
+          f"pipeline_stats={eng.pipeline_stats} commit_stats: lanes="
+          f"{cs['lanes']} mean_age={age:.3f} age_max={cs['age_max']} "
+          f"fault_stats={eng.fault_stats}", flush=True)
+
+
+def _matrix_run(tag, eng, stream):
+    t0 = time.time()
+    m = eng.run(stream)
+    _sync()
+    _matrix_report(tag, eng, m, time.time() - t0)
+    return m
+
+
+def _profiled(tag, eng, stream):
+    """Serve through ``profile_serve.profiled_run`` (4 warm-up ticks, then
+    a profiled window); items/s and wall are the window's, beside its ms
+    per tick and the device's idle share."""
+    from repro_torch.launch.profile_serve import profiled_run
+    rep, preds = profiled_run(eng, stream, warmup_ticks=4)
+    m = {"items_per_sec": rep["items_per_sec"], "accuracy": rep["accuracy"],
+         "expert_calls": rep["expert_calls"],
+         "level_fractions": rep["level_fractions"], "predictions": preds}
+    _matrix_report(f"{tag} (profiled window of {rep['window_ticks']} "
+                   "ticks)", eng, m,
+                   rep["wall_ms_per_tick"] * rep["window_ticks"] / 1e3)
+    idle = rep["device_idle_share"]
+    print(f"[engine-matrix] {tag}: wall_ms_per_tick="
+          f"{rep['wall_ms_per_tick']:.3f} device_busy_ms_per_tick="
+          f"{rep['device_busy_ms_per_tick']:.3f} device_idle_share="
+          f"{'not measured' if idle is None else f'{idle:.4f}'} "
+          f"host_commit_share={rep['host_commit_share']:.4f}", flush=True)
+    return m, rep
+
+
+def _states_equal(a, b):
+    from repro_torch.core import STATE_ATTRS
+    return all(torch.equal(x, y) for la, lb in zip(a.levels, b.levels)
+               for attr in STATE_ATTRS
+               for x, y in zip(tree_leaves(getattr(la, attr)),
+                               tree_leaves(getattr(lb, attr))))
+
+
+def _same_run(tag, a, ma, b, mb, state=True):
+    """Two runs of one stream: identical predictions, routing, expert
+    calls and (``state``) bitwise learned state, else fail."""
+    div = _first_divergence(_routing_records(a), _routing_records(b))
+    same_pred = bool(np.array_equal(ma["predictions"], mb["predictions"]))
+    same_state = _states_equal(a, b) if state else None
+    print(f"[engine-matrix] {tag}: predictions identical {same_pred}, "
+          f"routing {'identical' if div is None else f'differs {div}'}, "
+          f"expert calls {ma['expert_calls']} / {mb['expert_calls']}"
+          + ("" if state is False else
+             f", every parameter torch.equal {same_state}"), flush=True)
+    if not same_pred or div is not None \
+            or ma["expert_calls"] != mb["expert_calls"] \
+            or same_state is False:
+        _fail(f"{tag}: the two runs differ")
+
+
+def _commit_log_checks(tag, eng, bound):
+    """Every annotated (tick, lane) committed exactly once, within
+    ``bound`` ticks (fault-free runs: nothing dropped)."""
+    called = {(t, int(s)) for t, c in
+              enumerate(eng.history["expert_called"], 1)
+              for s in np.flatnonzero(c)}
+    keys = [(t, s) for t, s, _ in eng.commit_log]
+    ages = [c - t for t, _, c in eng.commit_log]
+    if len(eng._pending) or len(set(keys)) != len(keys) \
+            or set(keys) != called:
+        _fail(f"{tag}: annotated lanes not committed exactly once "
+              f"({len(keys)} commits, {len(set(keys))} distinct, "
+              f"{len(called)} annotated, {len(eng._pending)} pending)")
+    if max(ages) > bound or eng.commit_stats["age_max"] > bound:
+        _fail(f"{tag}: a commit age {max(ages)} exceeds {bound}")
+    print(f"[engine-matrix] {tag}: {len(keys)} annotated lanes committed "
+          f"exactly once, ages {min(ages)}..{max(ages)} (bound {bound})",
+          flush=True)
+
+
+def _matrix_async(stream):
+    """(a) the default ladder with the model expert at max_delay 2; the
+    model expert is trained once and reused by (b')."""
+    from repro_torch.core import train_model_expert
+    t0 = time.time()
+    expert = train_model_expert(stream, 2, epochs=2,
+                                max_samples=MATRIX_ITEMS, seed=0,
+                                device=MATRIX_DEVICE)
+    _sync()
+    print(f"[engine-matrix] model expert trained in {time.time() - t0:.2f}"
+          " s", flush=True)
+    eng = _matrix_engine("default", expert, max_delay=2)
+    _matrix_run("(a) default ladder, model expert, max_delay=2", eng, stream)
+    _commit_log_checks("(a)", eng, 2)
+    for D in (0, 2):
+        _profiled(f"(a) profile, model expert, max_delay={D}",
+                  _matrix_engine("default", expert, max_delay=D,
+                                 history_limit=0), stream)
+    return expert
+
+
+def _matrix_pool(stream, expert):
+    """(b) per-lane commits at max_delay 2, W=1 against W=4 (simulated
+    expert, adversarial latency at W=4); (b') the same pair with the
+    model expert, its per-item labels compared; the process backend."""
+    from repro_torch.core import ModelExpert, SimulatedExpert
+    runs = {}
+    for w in (1, 4):
+        ex = SimulatedExpert(stream, workers=w,
+                             latency=_pool_latency if w > 1 else None)
+        eng = _matrix_engine("default", ex, per_lane=True, max_delay=2)
+        runs[w] = (eng, _matrix_run(f"(b) per-lane, simulated, W={w}", eng,
+                                    stream))
+    _same_run("(b) W=1 vs W=4", *runs[1], *runs[4])
+    if runs[1][0].commit_log != runs[4][0].commit_log:
+        _fail("(b) the commit logs of W=1 and W=4 differ")
+    _commit_log_checks("(b) W=4", runs[4][0], 2)
+    del runs
+
+    experts = {w: ModelExpert(params=expert.params, spec=expert.spec,
+                              workers=w, device=MATRIX_DEVICE)
+               for w in (1, 4)}
+    runs = {}
+    for w, ex in experts.items():
+        eng = _matrix_engine("default", ex, per_lane=True, max_delay=2)
+        runs[w] = (eng, _matrix_run(f"(b') per-lane, model expert, W={w}",
+                                    eng, stream))
+    _same_run("(b') W=1 vs W=4", *runs[1], *runs[4])
+    # per-item labels, on the batches the engine sent (tick by tick)
+    n_cmp = n_diff = 0
+    for t, called in enumerate(runs[1][0].history["expert_called"]):
+        idxs = [t * MATRIX_BATCH + int(s) for s in np.flatnonzero(called)]
+        docs = [stream.docs[i] for i in idxs]
+        a = experts[1].poll(experts[1].submit_many(idxs, docs))
+        b = experts[4].poll(experts[4].submit_many(idxs, docs))
+        n_cmp += len(idxs)
+        n_diff += int((a != b).sum())
+    streams_ok = [s != torch.cuda.default_stream()
+                  for s in experts[4].worker_streams()]
+    # are the shard forwards' bits independent of the shard's batch?
+    from repro_torch.data import hash_ids
+    from repro_torch.models.students import tinytf_predict
+    spec = expert.spec
+    ids = torch.from_numpy(np.stack([hash_ids(d, spec.vocab, spec.max_len)
+                                     for d in stream.docs[:64]])).cuda()
+    with torch.no_grad():
+        full = tinytf_predict(expert.params, ids, spec)
+        part = tinytf_predict(expert.params, ids[:16], spec)
+    bits = bool(torch.equal(full[:16], part))
+    print(f"[engine-matrix] (b') per-item expert labels W=1 vs W=4: "
+          f"{n_cmp} compared, {n_diff} differ; shard probs bitwise equal "
+          f"at M=16 vs inside M=64: {bits}; pool streams "
+          f"{len(streams_ok)}, none the default stream: {all(streams_ok)}",
+          flush=True)
+    if n_diff or not streams_ok or not all(streams_ok):
+        _fail("(b') the model expert's labels depend on W, or a pool "
+              "worker ran on the default stream")
+    for ex in experts.values():
+        ex.close()
+    del runs
+
+    # the process backend: children on the card, one CUDA context each
+    import os
+    import signal
+    from repro_torch.core import ExpertWorkerDied
+    idxs = list(range(MATRIX_BATCH))
+    docs = [stream.docs[i] for i in idxs]
+    want = expert.label_batch(idxs, docs)
+    _sync()
+    free0 = torch.cuda.mem_get_info()[0]
+    px = ModelExpert(params=expert.params, spec=expert.spec, workers=2,
+                     backend="process", device=MATRIX_DEVICE)
+    try:
+        t0 = time.time()
+        got = px.poll(px.submit_many(idxs, docs))
+        spawn_s = time.time() - t0
+        old = px._executor
+        n_children = len(old._processes)
+        per_child = (free0 - torch.cuda.mem_get_info()[0]) / n_children
+        for pid in list(old._processes):
+            os.kill(pid, signal.SIGKILL)
+        died = False
+        try:
+            px.poll(px.submit_many(idxs, docs))
+        except ExpertWorkerDied:
+            died = True
+        t0 = time.time()
+        again = px.poll(px.submit_many(idxs, docs))
+        rebuild_s = time.time() - t0
+        rebuilt = px._executor is not old
+    finally:
+        px.close()
+    print(f"[engine-matrix] (b') process backend, "
+          f"{n_children} children on the card: "
+          f"labels equal the thread backend's "
+          f"{bool(np.array_equal(got, want))} (first batch in "
+          f"{spawn_s:.2f} s, spawn included); device memory per child "
+          f"{per_child / 2**20:.1f} MiB (its CUDA context, its copy of "
+          f"the expert, its allocator); children killed: next "
+          f"ticket raised ExpertWorkerDied {died}, pool rebuilt {rebuilt}, "
+          f"labels after the rebuild equal "
+          f"{bool(np.array_equal(again, want))} ({rebuild_s:.2f} s)",
+          flush=True)
+    if not (np.array_equal(got, want) and np.array_equal(again, want)
+            and rebuilt):
+        _fail("(b') the process backend mislabels or was not rebuilt")
+
+
+def _matrix_pipeline(stream, phase4_launches):
+    """(c) the kernel ladder in the learning regime, depth 2 against 0, at
+    max_delay 0 and 2: identical runs, launches = layer-forwards."""
+    from repro_torch.core import SimulatedExpert
+    pipelined = None
+    for D in (0, 2):
+        runs = {}
+        for P in (0, 2):
+            for fn in LAUNCHERS.values():
+                fn.launches = 0
+            _zero_variant_counts()
+            gmm0 = moe_gmm_cuda.launches
+            eng = _matrix_engine("kernel", SimulatedExpert(stream),
+                                 max_delay=D, pipeline_depth=P)
+            tag = f"(c) kernel ladder, max_delay={D}, pipeline_depth={P}"
+            if D == 0:
+                m, _ = _profiled(tag, eng, stream)
+            else:
+                m = _matrix_run(tag, eng, stream)
+            launches = {n: fn.launches for n, fn in LAUNCHERS.items()}
+            lv = {lvl.spec.kind: lvl for lvl in eng.levels}
+            tf, ssm = lv["tinytf_flash"], lv["ssm"]
+            expect = {"flash_attention": tf.sspec.n_layers * tf.forwards,
+                      "decode_attention": tf.forwards,
+                      "ssd_scan": ssm.sspec.n_layers * ssm.forwards}
+            by_variant = {n: c for n, c in _variant_counts().items()
+                          if n in LAUNCHERS}
+            print(f"[engine-matrix] {tag}: launches {launches} expected "
+                  f"{expect}; by variant {by_variant}; moe_gmm "
+                  f"{moe_gmm_cuda.launches - gmm0}", flush=True)
+            if launches != expect or min(launches.values()) <= 0:
+                _fail(f"{tag}: launches {launches} != layer-forwards "
+                      f"{expect}")
+            if by_variant["flash_attention"]["tiled"] != \
+                    launches["flash_attention"]:
+                _fail(f"{tag}: a flash launch left the tiled variant")
+            runs[P] = (eng, m, launches, by_variant)
+        _same_run(f"(c) max_delay={D}: depth 0 vs 2", runs[0][0], runs[0][1],
+                  runs[2][0], runs[2][1])
+        if runs[0][2] != runs[2][2]:
+            _fail(f"(c) max_delay={D}: launches differ with depth")
+        if D == 0:
+            if runs[0][2] != phase4_launches:
+                _fail(f"(c) depth 0 launches {runs[0][2]} != phase 4's "
+                      f"{phase4_launches}")
+            if runs[2][0].pipeline_stats["refetches"] <= 0:
+                _fail("(c) the learning regime refetched nothing")
+            pipelined = runs[2][2:]
+    return pipelined
+
+
+def _matrix_converged(stream):
+    """(d) both ladders with hard_budget=0 (no expert traffic), depth 2
+    against 0, profiled; the default ladder's learning regime too."""
+    from repro_torch.core import SimulatedExpert
+    for ladder, hb in (("default", 0), ("kernel", 0), ("default", None)):
+        regime = "converged" if hb == 0 else "learning"
+        runs = {}
+        for P in (0, 2):
+            eng = _matrix_engine(ladder, SimulatedExpert(stream),
+                                 hard_budget=hb, pipeline_depth=P)
+            runs[P] = (eng, _profiled(
+                f"(d) {ladder} ladder, {regime}, pipeline_depth={P}", eng,
+                stream)[0])
+        _same_run(f"(d) {ladder} {regime}: depth 0 vs 2", *runs[0],
+                  *runs[2])
+        st = runs[2][0].pipeline_stats
+        n_ticks = MATRIX_ITEMS // MATRIX_BATCH
+        if st["submitted"] != n_ticks or st["resolved"] != n_ticks:
+            _fail(f"(d) {ladder}: submitted/resolved {st}")
+        if hb == 0 and (st["refetches"] or st["update_fences"]
+                        or st["budget_fences"]):
+            _fail(f"(d) {ladder} converged: speculation fenced {st}")
+
+
+def _matrix_faults(stream):
+    """(e) faults and the fleet: FlakyExpert (seeded) over the simulated
+    expert, requeues, drops and autoscale; the fleet log against the
+    CPU's on the same stream."""
+    from repro_torch.core import FlakyExpert, SimulatedExpert
+    logs = {}
+    for dev in (MATRIX_DEVICE, "cpu"):
+        ex = FlakyExpert(SimulatedExpert(stream, workers="auto"),
+                         **MATRIX_FAULTS)
+        eng = _matrix_engine("default", ex, device=dev, max_delay=2,
+                             expert_timeout=MATRIX_TIMEOUT, max_requeues=2,
+                             autoscale=(1, 8))
+        _matrix_run(f"(e) faults + autoscale on {dev}", eng, stream)
+        inj, fs = ex.injected, eng.fault_stats
+        events = inj["timeout"] + inj["die"]
+        print(f"[engine-matrix] (e) {dev}: injected {inj}; fleet_log "
+              f"{eng.fleet_log}", flush=True)
+        if (fs["timeouts"], fs["worker_deaths"]) != (inj["timeout"],
+                                                     inj["die"]) \
+                or events == 0 or fs["requeues"] > events \
+                or (fs["requeues"] < events) != (
+                    fs["dropped_annotations"] > 0) \
+                or len(eng._pending):
+            _fail(f"(e) {dev}: a fault was neither requeued nor counted "
+                  f"as dropped: injected {inj}, stats {fs}")
+        logs[dev] = (list(eng.fleet_log), dict(fs))
+    same = logs[MATRIX_DEVICE] == logs["cpu"]
+    print(f"[engine-matrix] (e) card vs CPU: fleet_log and fault_stats "
+          f"identical {same}", flush=True)
+    if logs[MATRIX_DEVICE][0] != logs["cpu"][0]:
+        _fail("(e) the card's fleet log differs from the CPU's")
+
+
+def _matrix_card_vs_cpu():
+    """(f) 48 items at batch 8, max_delay 2, per-lane commits, depth 2:
+    routing on the card equal to the CPU's."""
+    from repro_torch.core import SimulatedExpert
+    from repro_torch.data import make_stream
+    small = make_stream("imdb", seed=0, n_samples=48)
+    recs = {}
+    for dev in (MATRIX_DEVICE, "cpu"):
+        eng = _matrix_engine("default", SimulatedExpert(small), device=dev,
+                             n_streams=8, max_delay=2, per_lane=True,
+                             pipeline_depth=2)
+        _matrix_run(f"(f) 48 items at batch 8 on {dev}", eng, small)
+        recs[dev] = _routing_records(eng)
+    div = _first_divergence(recs[MATRIX_DEVICE], recs["cpu"])
+    print(f"[engine-matrix] (f) card vs CPU, 48 items at batch 8, "
+          f"max_delay=2 per-lane depth 2: routing "
+          f"{'identical' if div is None else 'DIFFERS'} over "
+          f"{len(recs['cpu'])} ticks", flush=True)
+    if div is not None:
+        _fail(f"(f) card and CPU routing part at tick {div[0]}, lane "
+              f"{div[1]} ({div[2]})")
+
+
+def phase_engine_matrix(phase4_launches):
+    """Phase 8: the engine matrix at full width (imdb, 2048 items, batch
+    64, seed 0, mu 3e-7).  Returns the pipelined kernel-ladder run's
+    launches and launches by variant ((c), max_delay 0, depth 2)."""
+    from repro_torch.data import make_stream
+    stream = make_stream("imdb", seed=0, n_samples=MATRIX_ITEMS)
+    expert = _matrix_async(stream)
+    _matrix_pool(stream, expert)
+    expert.close()
+    pipelined = _matrix_pipeline(stream, phase4_launches)
+    _matrix_converged(stream)
+    _matrix_faults(stream)
+    _matrix_card_vs_cpu()
+    return pipelined
+
+
+# ---------------------------------------------------------------------------
 # the zoo: Mixtral-8x22B at full width, depth cut to ZOO_LAYERS
 # ---------------------------------------------------------------------------
 def zoo_model():
@@ -1128,7 +1552,7 @@ def _record_row(rows, launches, by_variant):
 
 
 def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
-                  zoo_by_variant):
+                  zoo_by_variant, pipelined):
     """One entry per kernel: the top-level numbers are those of the path
     each kernel was first ported for (cascade at batch 64; moe_gmm: zoo
     prefill), ``launches`` and ``launches_by_variant`` the totals over the
@@ -1137,7 +1561,9 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
     ``cascade_b16`` hold the timed rows at the engine's smaller buckets
     (their launch counts are the cascade run's, over all buckets);
     ``cascade_forced_simt`` the scalar flash kernel forced at the path
-    shape, which no served path takes (``launches`` null)."""
+    shape, which no served path takes (``launches`` null);
+    ``cascade_pipelined`` the launches of phase 8 (c)'s pipelined run
+    (kernel ladder, depth 2, counted from zero over that run)."""
     def split(counts, name, n):
         return counts.get(name, {"tc": 0, "simt": n})
 
@@ -1175,6 +1601,11 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
         if name in VARIANT_LAUNCHERS:
             top["variants"] = list(VARIANT_LAUNCHERS[name]
                                    .launches_by_variant)
+        if name in LAUNCHERS:
+            n = pipelined[0][name]
+            paths["cascade_pipelined"] = {
+                "launches": n,
+                "launches_by_variant": split(pipelined[1], name, n)}
         record.append({"name": name, "route": "cuda",
                        "source": SOURCE[name], "replaces": REPLACES[name],
                        **top, "paths": paths})
@@ -1193,6 +1624,7 @@ def main():
     phase_students(eng, tokens)
     del eng
     phase_default_serve()
+    pipelined = phase_engine_matrix(launches)
     cfg, params, prompts = zoo_model()
     zoo_results = phase_zoo_kernels(cfg, params, prompts)
     zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)
@@ -1200,7 +1632,7 @@ def main():
     phase_zoo_checks(cfg, params, prompts)
     print(json.dumps({"kernels": kernel_record(
         results, launches, by_variant, zoo_results, zoo_launches,
-        zoo_by_variant)}))
+        zoo_by_variant, pipelined)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """Online cascade learning (Algorithm 1), ported to PyTorch.
 
 Public surface: the sequential ``OnlineCascade``, the serving-scale
-``BatchedCascadeEngine`` (base form), the paper's default and the kernel
-ladder's configurations, the deferral-gate math, the simulated and the
-model expert, the MDP's cost terms and the online-ensemble baseline.
+``BatchedCascadeEngine`` (with its async expert queue, per-lane commits,
+fault requeues, autoscaling and pipelined route passes), the paper's
+default and the kernel ladder's configurations, the deferral-gate math,
+the simulated and the model expert (and the fault-injecting
+``FlakyExpert``), the MDP's cost terms and the online-ensemble baseline.
 """
 from repro_torch.core.batched import BatchedCascadeEngine
 from repro_torch.core.cascade import (
@@ -13,12 +15,14 @@ from repro_torch.core.deferral import (
     DeferralSpec, deferral_init, deferral_prob, reexploration_floor)
 from repro_torch.core.ensemble import OnlineEnsemble
 from repro_torch.core.experts import (
-    ExpertTicket, ModelExpert, SimulatedExpert, train_model_expert)
+    ExpertShardError, ExpertShardTimeout, ExpertTicket, ExpertWorkerDied,
+    FlakyExpert, ModelExpert, SimulatedExpert, train_model_expert)
 from repro_torch.core.mdp import episode_cost, policy_value
 
 __all__ = ["BatchedCascadeEngine", "CascadeConfig", "DeferralSpec",
-           "ExpertTicket", "LEVEL_KINDS", "LevelSpec", "ModelExpert",
-           "OnlineCascade", "OnlineEnsemble", "STATE_ATTRS",
+           "ExpertShardError", "ExpertShardTimeout", "ExpertTicket",
+           "ExpertWorkerDied", "FlakyExpert", "LEVEL_KINDS", "LevelSpec",
+           "ModelExpert", "OnlineCascade", "OnlineEnsemble", "STATE_ATTRS",
            "SimulatedExpert", "default_cascade_config", "deferral_init",
            "deferral_prob", "episode_cost", "kernel_cascade_config",
            "policy_value", "reexploration_floor", "train_model_expert"]

@@ -1,5 +1,4 @@
-"""Batched multi-stream cascade engine, base form (port of
-``repro.core.batched``).
+"""Batched multi-stream cascade engine (port of ``repro.core.batched``).
 
 ``BatchedCascadeEngine`` runs S stream lanes in lockstep.  Each tick:
 
@@ -9,7 +8,8 @@
     still alive there, padded to a bucketed size (powers of two from 8,
     capped at S).  On a CUDA device the upper levels' forwards launch the
     hand-written kernels (flash / decode attention, SSD scan).
-  expert call — the deferred subset goes to the expert as one batch.
+  expert call — the deferred subset goes to the expert as one request
+    (``submit_many``: sharded over the expert's pool, per-item ticket).
   commit — the tick's demonstrations are scattered into per-level ring
     buffers on the device (in-place ``index_copy_``, the reference's
     donated jitted scatter), then one weighted student step and one
@@ -17,31 +17,68 @@
     methods the sequential ``OnlineCascade`` uses.
 
 RNG follows ``core.rng``: lane s at tick t draws from the children of
-``SeedSequence((seed, s, t))``; cache sampling uses the lane-0 children.
-With ``n_streams == 1`` the engine therefore runs exactly the torch ops
-``OnlineCascade`` runs, in the same order — bit-for-bit equal results.
-At S > 1 the reference's documented deviations hold: one weighted update
-per tick (``updates_per_tick="scaled"`` lr-scales it by the tick's k
-demonstrations via ``Optimizer.step_k``), beta decays per consumed item
-(decay ** S per tick), the hard expert budget is enforced at tick
-granularity (the first ``remaining`` deferred lanes, in lane order, get
-the expert; the rest fall back to the last student's prediction, counted
-and costed as last-level exits), and annotations land in the ring in
-lane order.  Under ``sample_actions`` every lane draws its float32 action
-uniforms from its tick's ``action`` generator, and a lane defers where
-its draw is below the gate's probability.
+``SeedSequence((seed, s, t))``; cache sampling uses the lane-0 children
+(per-lane commits: each lane's own).  With ``n_streams == 1`` the engine
+runs exactly the torch ops ``OnlineCascade`` runs, in the same order —
+bit-for-bit equal results.  At S > 1 the reference's documented
+deviations hold: one weighted update per tick (``updates_per_tick=
+"scaled"`` lr-scales it by the tick's k demonstrations via
+``Optimizer.step_k``), beta decays per consumed item (decay ** S per
+tick), the hard expert budget is enforced at tick granularity (the first
+``remaining`` deferred lanes, in lane order, get the expert; the rest
+fall back to the last student's prediction, counted and costed as
+last-level exits), and annotations land in the ring in lane order.
+Under ``sample_actions`` every lane draws its float32 action uniforms
+from its tick's ``action`` generator, and a lane defers where its draw
+is below the gate's probability.
 
-The base form commits every tick synchronously (the reference's
-``max_delay=0``, ``pipeline_depth=0``, per-tick commits, no mesh).  The
-async expert queue, route pipelining, per-lane commits, lane sharding,
-fault requeues, autoscaling, admission and checkpoints are not ported
-yet (ROADMAP).
+The serving matrix, as in the reference (its module docstring has the
+full contracts; each holds here on the same tick keys):
+
+* ``max_delay=D`` — the async expert queue.  A routed tick's deferred
+  lanes are submitted and answered provisionally with the last student's
+  prediction (its probs come from the route-time calibration forwards);
+  the annotations commit at the end of tick t + D, in FIFO tick order
+  with the tick's own cache generators.  ``flush()`` drains the queue.
+  D = 0 is the synchronous engine, bitwise.
+* ``per_lane=True`` — each lane commits on its own deterministic
+  sub-deadline (``lanes_due``) as a per-item update sampled with the
+  lane's own tick generators, blocking only on the ticket shard that
+  holds it: results are bitwise invariant to the expert's worker count
+  and latency.  ``readiness_commits=True`` also commits lanes whose
+  labels have already landed (commit age drops; state then depends on
+  annotation latency).  ``commit_stats`` / ``commit_log`` record ages.
+* ``expert_timeout`` / ``max_requeues`` — a shard that times out or
+  whose worker died is requeued as a fresh submit, or past
+  ``max_requeues`` dropped to the -1 sentinel (counted in
+  ``fault_stats["dropped_annotations"]``; the lane's provisional answer
+  stands).  ``autoscale=(lo, hi)`` sizes the expert's fleet off queue
+  depth at each tick boundary (``fleet_log``).  ``reset`` closes the
+  expert's pool.
+* ``pipeline_depth=P`` — up to P ticks' level-0 forwards stay in flight
+  (``submit_tick`` / ``resolve_tick`` / ``drain``) while the host
+  resolves older ticks, with update and budget fences and a level-0
+  refetch when a commit lands between dispatch and resolve
+  (``pipeline_stats``): any P gives identical predictions, levels,
+  expert calls and parameters.  On the card the level-0 inputs go up
+  through pinned staging buffers and its (probs, dprob) come back
+  through pinned host tensors fenced by an event (``transfer.py``), so
+  neither stage waits for the whole stream.  Route passes and commits
+  share the one current stream: a dispatched forward reads the
+  parameters live at dispatch, as the reference promises, and the
+  refetch covers a commit that lands in between.
+
+Not ported yet (ROADMAP Queue 1): the occupancy arguments ``lanes=`` /
+``stream_ids=`` / ``stream_ticks=`` of the admission front-end (item
+8), ``save_state`` / ``restore_state`` (item 5), lane sharding over a
+mesh (item 11) and the determinism sanitizer's trace (item 9).
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from collections import deque
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,31 +86,60 @@ import torch
 from repro_torch.core.cascade import (
     CascadeConfig, _Level, build_levels, make_history)
 from repro_torch.core.deferral import reexploration_floor
+from repro_torch.core.experts import (ExpertShardError, ExpertShardTimeout,
+                                      ExpertTicket)
 from repro_torch.core.rng import sample_cache_indices, tick_rngs
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.transfer import HostPrefetch, PinnedStaging
+
+# autoscale unit: target one worker per this many uncommitted deferred
+# items (clipped into the configured [lo, hi] fleet bounds)
+_AUTOSCALE_ITEMS_PER_WORKER = 4
+
+
+def lanes_due(k: int, age: int, max_delay: int, per_lane: bool) -> int:
+    """Cumulative count of a routed tick's k annotated lanes whose commit
+    deadline has passed ``age`` ticks after routing: per-tick mode all k
+    at age ``max_delay``, none before; per-lane mode ``floor(age * k /
+    max_delay)``, everything at ``age >= max_delay``.  A pure function,
+    so the commit schedule never depends on worker timing."""
+    if age >= max_delay:
+        return k
+    if not per_lane or age <= 0:
+        return 0
+    return (age * k) // max_delay
 
 
 @dataclass
 class _PendingTick:
-    """One routed tick's expert annotations, ready to commit: the called
-    lanes' feature rows per level, the route-time probs / dprob of every
-    level (gate calibration inputs), and the tick's own cache-sampling
-    generators."""
+    """One routed tick whose expert annotations are still in flight: what
+    the commit needs to replay the synchronous engine's update block once
+    the labels land.  ``committed`` is the per-lane drain cursor (0 or k
+    in per-tick mode)."""
 
+    ticket: ExpertTicket
+    t: int                        # tick this record was routed at
     called: np.ndarray            # (S,) bool — lanes annotated this tick
     sel_c: np.ndarray             # called lane indices
-    labels: np.ndarray            # (k,) expert labels of sel_c
     feats: List[np.ndarray]       # per-level (S, ...) host feature rows
     probs: np.ndarray             # (nlev, S, C) route-time student probs
     dprob: np.ndarray             # (nlev, S) route-time deferral probs
     cache_rngs: list              # per-level np generators (lane-0 tick)
+    committed: int = 0            # lanes already committed (prefix)
+    lane_cache_rngs: Optional[list] = None   # per called lane, per level
     wall: float = 0.0             # wall-clock at submit (latency stats)
+    idxs: Optional[list] = None   # stream indices of the called lanes
+                                  # (what a failed shard is requeued as)
+    docs_k: Optional[list] = None  # raw docs of the called lanes
+    requeues: dict = field(default_factory=dict)  # shard lo -> retries
 
 
 @dataclass
 class _InFlightTick:
     """One tick between its dispatch (draws, jump mask, level-0 forward)
-    and its resolve (the walk, the expert, the commit)."""
+    and its resolve (the walk, the expert, the commits).  ``version`` is
+    the engine's commit counter at dispatch: a commit in between makes
+    the resolve refetch the level-0 forward."""
 
     t: int                        # tick number assigned at dispatch
     indices: List[int]            # per-lane stream indices
@@ -81,11 +147,15 @@ class _InFlightTick:
     S: int                        # lanes in this tick (<= n_streams)
     jump: np.ndarray              # (nlev, S) bool DAgger jump mask
     u_act: np.ndarray             # (nlev, S) float32 sampled-action draws
-    budget_ok: bool               # route-time hard-budget gate
+    budget_ok: bool               # route-time budget gate (fence-stable)
     cache_rngs: list              # per-level cache-sampling generators
     feats_cache: list             # per-level lazily built feature rows
-    handles: Optional[tuple]      # level-0 (probs, dprob) device pair
+    sel0: np.ndarray              # lanes alive at level 0 (post-jump)
+    xb0: Optional[np.ndarray]     # padded level-0 host feature batch
+    handles: Optional[HostPrefetch]   # level-0 (probs, dprob), prefetching
+    version: int                  # engine commit counter at dispatch
     beta_after: List[float]       # per-level beta after this tick's decay
+    lane_cache: Optional[list] = None   # per-lane cache rngs (per_lane)
 
 
 class BatchedCascadeEngine:
@@ -94,12 +164,21 @@ class BatchedCascadeEngine:
     ``process_tick(indices, docs)`` advances every lane by one item; lane
     s of tick t handles ``docs[s]``; a tick's deferred lanes go to the
     expert as one ``expert.submit_many(indices, docs)`` request.
-    Runs on ``device`` (CUDA by default; ``device="cpu"`` explicitly).
+    Pipelined serving goes through ``submit_tick`` / ``resolve_tick`` /
+    ``drain``.  Runs on ``device`` (CUDA by default; ``device="cpu"``
+    explicitly).
     """
 
     def __init__(self, config: CascadeConfig, expert, n_streams: int = 64,
-                 updates_per_tick: str = "single",
+                 *, updates_per_tick: str = "single",
+                 max_delay: int = 0, pipeline_depth: int = 0,
+                 per_lane: bool = False,
                  history_limit: Optional[int] = None,
+                 commit_log: Optional[bool] = None,
+                 expert_timeout: Optional[float] = None,
+                 max_requeues: int = 2,
+                 autoscale: Optional[Tuple[int, int]] = None,
+                 readiness_commits: bool = False,
                  device: DeviceLike = None):
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
@@ -107,16 +186,57 @@ class BatchedCascadeEngine:
             raise ValueError(
                 f"updates_per_tick must be 'single' or 'scaled', "
                 f"got {updates_per_tick!r}")
+        if max_delay < 0:
+            raise ValueError(f"max_delay must be >= 0, got {max_delay}")
+        if pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0, got {pipeline_depth}")
+        if expert_timeout is not None and expert_timeout <= 0:
+            raise ValueError(
+                f"expert_timeout must be > 0 (or None), got {expert_timeout}")
+        if max_requeues < 0:
+            raise ValueError(f"max_requeues must be >= 0, got {max_requeues}")
+        # an expert constructed with workers="auto" opts into autoscaling
+        # even when the engine caller didn't pass bounds
+        if autoscale is None and getattr(expert, "auto_workers", False):
+            autoscale = (1, 8)
+        if autoscale is True:
+            autoscale = (1, 8)
+        if autoscale is not None:
+            lo, hi = int(autoscale[0]), int(autoscale[1])
+            if not (1 <= lo <= hi):
+                raise ValueError(
+                    f"autoscale bounds must satisfy 1 <= lo <= hi, "
+                    f"got ({lo}, {hi})")
+            autoscale = (lo, hi)
+            if not hasattr(expert, "workers"):
+                raise ValueError(
+                    "autoscale requires an expert with a mutable "
+                    "`workers` fleet width")
         self.device = resolve_device(device)
         self.cfg = config
         self.expert = expert
         self.n_streams = n_streams
         self.updates_per_tick = updates_per_tick
+        self.max_delay = int(max_delay)
+        self.pipeline_depth = int(pipeline_depth)
+        self.per_lane = bool(per_lane)
+        self.expert_timeout = expert_timeout
+        self.max_requeues = int(max_requeues)
+        self.autoscale = autoscale
+        self.readiness_commits = bool(readiness_commits)
+        if autoscale is not None:
+            expert.workers = autoscale[0]
+            # pools sized once take the upper bound so scaling up never
+            # needs an executor rebuild (ModelExpert._pool_width)
+            if getattr(expert, "max_workers", False) is None:
+                expert.max_workers = autoscale[1]
         # identical construction to OnlineCascade (same initial state)
         self.levels: List[_Level] = build_levels(config, self.device)
         nlev = len(self.levels)
         self._bs_list = [min(lvl.spec.batch_size, lvl.spec.cache_size)
                          for lvl in self.levels]
+        self._staging = PinnedStaging(self.device)
         self._cache_x: List[torch.Tensor] = []
         self._cache_y: List[torch.Tensor] = []
         self._init_ring()
@@ -128,9 +248,33 @@ class BatchedCascadeEngine:
         self.items_seen = np.zeros(S, np.int64)
         self.J_cum = np.zeros(S, np.float64)
         self.history = make_history(history_limit)
-        self.commit_stats = {"lanes": 0, "age_sum": 0, "wall_sum": 0.0}
-        self._beta: List[float] = [config.beta0] * nlev
-        self._items = 0
+        # routed ticks whose annotations are still in flight (at most
+        # max_delay + 1 deep)
+        self._pending: deque = deque()
+        # per-lane annotation-commit accounting (ages in ticks, latencies
+        # in seconds); commit_log records (submit_tick, lane, commit_tick)
+        # per lane, on by default only with unbounded history
+        self.commit_stats = {"lanes": 0, "age_sum": 0, "age_max": 0,
+                             "wall_sum": 0.0}
+        if commit_log is None:
+            commit_log = history_limit is None
+        self.commit_log: Optional[list] = [] if commit_log else None
+        # route pipeline: dispatched-but-unresolved ticks, the route-time
+        # beta / item recurrence, and the commit counter the staleness
+        # check reads
+        self._ring: deque = deque()
+        self._route_beta: List[float] = [config.beta0] * nlev
+        self._route_items = 0
+        self._state_version = 0
+        self.pipeline_stats = {"submitted": 0, "resolved": 0,
+                               "refetches": 0, "update_fences": 0,
+                               "budget_fences": 0}
+        # every fault is either healed (requeues) or surrendered
+        # (dropped_annotations) — never silent
+        self.fault_stats = {"timeouts": 0, "worker_deaths": 0,
+                            "requeues": 0, "dropped_annotations": 0,
+                            "scale_ups": 0, "scale_downs": 0}
+        self.fleet_log: List[Tuple[int, int]] = []   # (tick, new width)
 
     def _init_ring(self) -> None:
         """Device ring buffers (zeroed) + host mirrors of fill/ptr."""
@@ -142,7 +286,9 @@ class BatchedCascadeEngine:
         self._cache_ptr = [0] * len(self.levels)
 
     def reset(self):
-        """Back to tick 0 of a fresh stream."""
+        """Back to tick 0 of a fresh stream (in-flight ticks and pending
+        annotations belong to the abandoned stream; the expert's pool is
+        closed and rebuilt lazily on the next submit)."""
         for lvl in self.levels:
             lvl.reset()
         self._init_ring()
@@ -155,9 +301,23 @@ class BatchedCascadeEngine:
         if self.history is not None:
             for v in self.history.values():
                 v.clear()
-        self.commit_stats = {"lanes": 0, "age_sum": 0, "wall_sum": 0.0}
-        self._beta = [self.cfg.beta0] * len(self.levels)
-        self._items = 0
+        self._pending.clear()
+        self._ring.clear()
+        self._route_beta = [self.cfg.beta0] * len(self.levels)
+        self._route_items = 0
+        self._state_version += 1
+        for k in self.pipeline_stats:
+            self.pipeline_stats[k] = 0
+        self.commit_stats = {"lanes": 0, "age_sum": 0, "age_max": 0,
+                             "wall_sum": 0.0}
+        if self.commit_log is not None:
+            self.commit_log.clear()
+        for k in self.fault_stats:
+            self.fault_stats[k] = 0
+        self.fleet_log.clear()
+        if self.autoscale is not None:
+            self.expert.workers = self.autoscale[0]
+        self.close()
 
     def close(self) -> None:
         """Shut down the expert's worker pool, if it has one
@@ -166,10 +326,16 @@ class BatchedCascadeEngine:
         if close is not None:
             close()
 
+    def __del__(self):  # best-effort: don't leak expert workers at GC
+        try:
+            self.close()
+        except Exception:
+            pass
+
     # -- aggregates -----------------------------------------------------
     @property
     def expert_calls_total(self) -> int:
-        """Expert calls summed over lanes."""
+        """Expert calls summed over lanes (resolved ticks only)."""
         return int(self.expert_calls.sum())
 
     def _budget_exhausted(self) -> bool:
@@ -185,27 +351,154 @@ class BatchedCascadeEngine:
             b *= 2
         return min(b, self.n_streams)
 
+    # -- expert ---------------------------------------------------------
+    def _expert_submit(self, idxs: Sequence[int], docs) -> ExpertTicket:
+        """Enqueue a batch annotation: sharded (``submit_many``) where the
+        expert has a pool, one request (``submit``) where it has only
+        that, else resolved at once through ``label_batch``."""
+        sub = getattr(self.expert, "submit_many", None)
+        if sub is None:
+            sub = getattr(self.expert, "submit", None)
+        if sub is not None:
+            return sub(idxs, docs)
+        return ExpertTicket(labels=np.asarray(
+            self.expert.label_batch(idxs, docs), np.int32))
+
+    def _resolve_labels(self, rec: _PendingTick, lo: int,
+                        hi: int) -> np.ndarray:
+        """Labels for called items ``[lo, hi)`` of a pending record,
+        surviving shard failures: ``expert_timeout`` bounds the wait on
+        each shard; a failed shard is requeued, or past ``max_requeues``
+        force-resolved to -1, so this always returns."""
+        while True:
+            try:
+                return np.asarray(rec.ticket.result_slice(
+                    lo, hi, timeout=self.expert_timeout), np.int32)
+            except ExpertShardError as e:
+                self._requeue_shard(rec, e)
+
+    def _requeue_shard(self, rec: _PendingTick, err: ExpertShardError):
+        k = rec.sel_c.size
+        lo = err.lo
+        hi = k if err.hi is None else err.hi
+        if isinstance(err, ExpertShardTimeout):
+            self.fault_stats["timeouts"] += 1
+        else:
+            self.fault_stats["worker_deaths"] += 1
+        tries = rec.requeues.get(lo, 0)
+        sub = getattr(self.expert, "submit", None)
+        if tries < self.max_requeues and sub is not None:
+            rec.requeues[lo] = tries + 1
+            self.fault_stats["requeues"] += 1
+            # the failed range as one fresh submit; not re-counted in
+            # expert_calls (the annotation was costed at route time)
+            rec.ticket.replace(lo, hi, sub(rec.idxs[lo:hi],
+                                           rec.docs_k[lo:hi]))
+        else:
+            # graceful degradation: the provisional student answer
+            # stands; the lost demonstration is counted, never silent
+            rec.ticket.force_resolve(lo, hi,
+                                     np.full(hi - lo, -1, np.int32))
+            self.fault_stats["dropped_annotations"] += hi - lo
+
+    # -- fleet autoscaling ----------------------------------------------
+    def _autoscale_tick(self) -> None:
+        """Queue-depth worker autoscaling at the tick boundary (dispatch
+        time): the uncommitted deferred-item count is a pure function of
+        the commit schedule, so two runs of one stream make identical
+        decisions (``fleet_log``).  Width only changes future shard
+        layouts, never labels."""
+        lo, hi = self.autoscale
+        depth = sum(r.sel_c.size - r.committed for r in self._pending)
+        target = min(hi, max(lo, -(-depth // _AUTOSCALE_ITEMS_PER_WORKER)))
+        cur = int(self.expert.workers)
+        if target != cur:
+            key = "scale_ups" if target > cur else "scale_downs"
+            self.fault_stats[key] += 1
+            self.expert.workers = target
+            self.fleet_log.append((self.t, int(target)))
+
     # -- the tick -------------------------------------------------------
     def process_tick(self, indices: Sequence[int], docs) -> dict:
-        """Advance every lane by one item.  len(docs) may be < n_streams
-        on the final partial tick of a stream."""
+        """Advance every lane by one item (dispatch and resolve back to
+        back: the returned dict is this tick's own result).  len(docs)
+        may be < n_streams on the final partial tick of a stream.  Mixing
+        it with ``submit_tick`` while ticks are in flight is an error."""
+        if self._ring:
+            raise RuntimeError(
+                "route pipeline has in-flight ticks: resolve_tick()/"
+                "drain() them first, or drive the engine entirely "
+                "through submit_tick()")
         return self._route_resolve(self._route_dispatch(indices, docs))
 
+    # -- pipelined route driver (stage A / stage B) ----------------------
+    def submit_tick(self, indices: Sequence[int], docs) -> List[dict]:
+        """Dispatch one tick into the route pipeline (stage A); returns
+        the output dicts of every tick the call resolved, oldest first:
+        ring overflow past ``pipeline_depth``, plus ticks resolved early
+        by a fence (a due commit, or a hard budget inside its ambiguous
+        window)."""
+        outs: List[dict] = []
+        S = len(docs)
+        hb = self.cfg.hard_budget
+        if hb is not None and self._ring:
+            resolved_calls = self.expert_calls_total
+            in_flight = sum(r.S for r in self._ring)
+            if resolved_calls < hb and resolved_calls + in_flight + S > hb:
+                # ambiguous budget window: drain so the new tick's jump
+                # gate reads the exact call count
+                self.pipeline_stats["budget_fences"] += 1
+                while self._ring:
+                    outs.append(self._route_resolve(self._ring.popleft()))
+        while self._ring and self._commit_due():
+            # a commit is due while the ring drains: dispatching now is
+            # guaranteed stale — resolve past the commit first
+            self.pipeline_stats["update_fences"] += 1
+            outs.append(self._route_resolve(self._ring.popleft()))
+        self._ring.append(self._route_dispatch(indices, docs))
+        while len(self._ring) > self.pipeline_depth:
+            outs.append(self._route_resolve(self._ring.popleft()))
+        return outs
+
+    def _commit_due(self) -> bool:
+        """True when the pending queue's head has lanes whose deadline
+        falls at or before the end of the current tick."""
+        if not self._pending:
+            return False
+        rec = self._pending[0]
+        return lanes_due(rec.sel_c.size, self.t - rec.t, self.max_delay,
+                         self.per_lane) > rec.committed
+
+    def resolve_tick(self) -> Optional[dict]:
+        """Resolve the oldest in-flight tick (stage B); None if empty."""
+        if not self._ring:
+            return None
+        return self._route_resolve(self._ring.popleft())
+
+    def drain(self) -> List[dict]:
+        """Resolve every in-flight tick, oldest first."""
+        outs = []
+        while self._ring:
+            outs.append(self._route_resolve(self._ring.popleft()))
+        return outs
+
     def _dispatch_level(self, i: int, fi: np.ndarray, sel: np.ndarray):
-        """Pad the gathered lane subset ``fi[sel]`` to its bucket and run
-        the level-i route pass; returns the (probs, dprob) device pair.
-        Shared by the level-0 dispatch, the walk, and the every-gate
+        """Pad the gathered lane subset ``fi[sel]`` to its bucket and queue
+        the level-i route pass (no host sync).  Returns the (probs, dprob)
+        device pair and the padded host batch (kept for a refetch).
+        Shared by the level-0 dispatch, the walk and the every-gate
         calibration forwards so the pad/bucket rule cannot drift."""
         lvl = self.levels[i]
         B = self._bucket(sel.size)
         xb = np.zeros((B,) + fi.shape[1:], fi.dtype)
         xb[:sel.size] = fi[sel]
-        return lvl.route_pass(lvl.params, lvl.dparams,
-                              torch.from_numpy(xb).to(self.device))
+        xd = self._staging.upload(xb)
+        return lvl.route_pass(lvl.params, lvl.dparams, xd), xb
 
     def _route_dispatch(self, indices: Sequence[int],
                         docs) -> _InFlightTick:
-        """Draws, masks, the beta schedule, and the level-0 forward."""
+        """Stage A: draws, masks, the route-time beta recurrence, and the
+        level-0 forward with its outputs' copy to the host started."""
         cfg = self.cfg
         nlev = len(self.levels)
         S = len(docs)
@@ -213,57 +506,83 @@ class BatchedCascadeEngine:
             raise ValueError(f"tick of {S} items > n_streams={self.n_streams}")
         self.t += 1
         t = self.t
+        self.pipeline_stats["submitted"] += 1
+        if self.autoscale is not None:
+            self._autoscale_tick()
         feats_cache: list = [None] * nlev
         u_jump = np.empty((nlev, S))
         u_act = np.empty((nlev, S), np.float32)
         cache_rngs = None
+        # per-lane commits sample each lane's cache mini-batch with the
+        # lane's own tick generators; per-tick mode needs only lane 0's
+        lane_cache = [] if self.per_lane else None
         for s in range(S):
             r = tick_rngs(cfg.seed, s, t, nlev)
             u_jump[:, s] = r.jump.random(nlev)
             u_act[:, s] = r.action.random(nlev).astype(np.float32)
+            if lane_cache is not None:
+                lane_cache.append(r.cache)
             if s == 0:
                 cache_rngs = r.cache
 
         budget_ok = not self._budget_exhausted()
-        jump = (u_jump < np.array(self._beta)[:, None]) & budget_ok
+        jump = (u_jump < np.array(self._route_beta)[:, None]) & budget_ok
 
         # level 0's gather mask (lanes that did not jump) is known before
-        # any dprob returns: launch its forward now
+        # any dprob returns: queue its forward and the copy of its
+        # outputs to the host now
         sel0 = np.flatnonzero(~jump[0])
+        xb0 = None
         handles = None
         if sel0.size:
             fi = np.stack([self.levels[0].featurize(d) for d in docs])
             feats_cache[0] = fi
-            handles = self._dispatch_level(0, fi, sel0)
+            pair, xb0 = self._dispatch_level(0, fi, sel0)
+            handles = HostPrefetch(pair)
 
         # beta decays per consumed ITEM (decay^S per tick); the
         # re-exploration floor applies once per tick at the post-tick
-        # item count
-        self._items += S
+        # item count.  Deterministic in items seen, so it advances here
+        # and ``lvl.beta`` is synced to it when the tick resolves
+        self._route_items += S
         for i, lvl in enumerate(self.levels):
-            self._beta[i] = max(
-                self._beta[i] * lvl.spec.beta_decay ** S,
-                reexploration_floor(lvl.spec.beta_floor, self._items))
+            self._route_beta[i] = max(
+                self._route_beta[i] * lvl.spec.beta_decay ** S,
+                reexploration_floor(lvl.spec.beta_floor, self._route_items))
 
         return _InFlightTick(
             t=t, indices=[int(i) for i in indices], docs=list(docs), S=S,
             jump=jump, u_act=u_act, budget_ok=budget_ok,
-            cache_rngs=cache_rngs, feats_cache=feats_cache,
-            handles=handles, beta_after=list(self._beta))
+            cache_rngs=cache_rngs, feats_cache=feats_cache, sel0=sel0,
+            xb0=xb0, handles=handles, version=self._state_version,
+            beta_after=list(self._route_beta), lane_cache=lane_cache)
 
     def _route_resolve(self, rec: _InFlightTick) -> dict:
-        """The vectorised walk, the expert call, the commit, accounting."""
+        """Stage B: the vectorised walk, the expert submit, due commits,
+        accounting — the unpipelined op sequence for tick ``rec.t``."""
         cfg = self.cfg
         nlev = len(self.levels)
         S = rec.S
+        t = rec.t
         docs = rec.docs
         feats_cache = rec.feats_cache
+        self.pipeline_stats["resolved"] += 1
 
         def feats(i):
             if feats_cache[i] is None:
                 feats_cache[i] = np.stack(
                     [self.levels[i].featurize(d) for d in docs])
             return feats_cache[i]
+
+        handles = rec.handles
+        if handles is not None and rec.version != self._state_version:
+            # a commit landed after this tick's dispatch: the level-0
+            # forward read pre-update params; rerun it on the committed
+            # state (the featurized batch is reused)
+            self.pipeline_stats["refetches"] += 1
+            lvl = self.levels[0]
+            handles = HostPrefetch(lvl.route_pass(
+                lvl.params, lvl.dparams, self._staging.upload(rec.xb0)))
 
         alive = np.ones(S, bool)            # walking, not yet exited
         jumped = np.zeros(S, bool)
@@ -279,11 +598,15 @@ class BatchedCascadeEngine:
             if sel.size == 0:
                 continue
             if i == 0:
-                probs_d, dprob_d = rec.handles
+                # dispatched at stage A (sel == rec.sel0: same jump mask)
+                probs_np, dprob_np = handles.result()
             else:
-                probs_d, dprob_d = self._dispatch_level(i, feats(i), sel)
-            probs_np = probs_d.cpu().numpy()[:sel.size]
-            dprob_np = dprob_d.cpu().numpy()[:sel.size]
+                (probs_d, dprob_d), _ = self._dispatch_level(i, feats(i),
+                                                             sel)
+                probs_np = probs_d.cpu().numpy()
+                dprob_np = dprob_d.cpu().numpy()
+            probs_np = probs_np[:sel.size]
+            dprob_np = dprob_np[:sel.size]
             eval_mask[i, sel] = True
             dprob_h[i, sel] = dprob_np
             probs_h[i, sel] = probs_np
@@ -314,7 +637,7 @@ class BatchedCascadeEngine:
         for s in np.flatnonzero(overflow):
             # budget overflow: the last student answers (a lane that
             # jumped too), costed as an evaluation of the last level
-            x = torch.from_numpy(feats(nlev - 1)[s]).to(self.device)
+            x = self._staging.upload(feats(nlev - 1)[s])
             predictions[s] = int(np.argmax(
                 last.predict(last.params, x).cpu().numpy()))
 
@@ -324,6 +647,7 @@ class BatchedCascadeEngine:
                     + np.where(overflow, last.spec.cost, 0.0))
 
         y_full = np.zeros(S, np.int32)
+        resolved = False
         if called.any():
             sel_c = np.flatnonzero(called)
 
@@ -342,27 +666,47 @@ class BatchedCascadeEngine:
 
             # every annotated lane calibrates EVERY gate: levels the walk
             # never evaluated for a called lane get probs / dprob against
-            # the tick's pre-update students
+            # the tick's pre-update students (also what the deferred
+            # lanes' provisional answers read)
             for i in range(nlev):
                 missing = np.flatnonzero(called & ~eval_mask[i])
                 if missing.size == 0:
                     continue
-                probs_d, dprob_d = self._dispatch_level(
+                (probs_d, dprob_d), _ = self._dispatch_level(
                     i, scatter_feats(i), missing)
                 probs_h[i, missing] = probs_d.cpu().numpy()[:missing.size]
                 dprob_h[i, missing] = dprob_d.cpu().numpy()[:missing.size]
 
-            wall = time.time()
-            ticket = self.expert.submit_many([rec.indices[s] for s in sel_c],
-                                             [docs[s] for s in sel_c])
-            y_lab = np.asarray(ticket.result(), np.int32)
-            y_full[sel_c] = y_lab
-            predictions[sel_c] = y_lab
-            self._commit(_PendingTick(
-                called=called, sel_c=sel_c, labels=y_lab,
+            idxs_c = [rec.indices[s] for s in sel_c]
+            docs_c = [docs[s] for s in sel_c]
+            prec = _PendingTick(
+                ticket=self._expert_submit(idxs_c, docs_c), t=t,
+                called=called.copy(), sel_c=sel_c,
                 feats=[scatter_feats(i) for i in range(nlev)],
                 probs=probs_h, dprob=dprob_h, cache_rngs=rec.cache_rngs,
-                wall=wall))
+                lane_cache_rngs=([rec.lane_cache[s] for s in sel_c]
+                                 if self.per_lane else None),
+                wall=time.time(), idxs=idxs_c, docs_k=docs_c)
+            if self.max_delay == 0:
+                # synchronous: resolve inline; -1 marks an annotation
+                # dropped past max_requeues, whose lane keeps the last
+                # student's answer
+                y_lab = self._resolve_labels(prec, 0, sel_c.size)
+                y_full[sel_c] = y_lab
+                predictions[sel_c] = np.where(
+                    y_lab >= 0, y_lab,
+                    np.argmax(probs_h[nlev - 1, sel_c], axis=-1))
+                resolved = True
+            else:
+                # deferred lanes answer provisionally with the last
+                # student's prediction (the calibration forwards' probs)
+                predictions[sel_c] = np.argmax(
+                    probs_h[nlev - 1, sel_c], axis=-1)
+            self._pending.append(prec)
+        # bounded annotation delay, in ticks: a record routed at tick u
+        # commits by the end of tick u + max_delay even if no later tick
+        # calls the expert (per-lane mode on the finer lanes_due schedule)
+        self._drain_due(t)
 
         for lvl, b in zip(self.levels, rec.beta_after):
             lvl.beta = b
@@ -381,84 +725,210 @@ class BatchedCascadeEngine:
             self.history["J"].append(J_t.copy())
         return {
             "indices": np.asarray(rec.indices, np.int64),
-            "tick": rec.t,
+            "tick": t,
             "predictions": predictions.astype(np.int64),
             "levels": levels_out,
             "expert_called": called,
             "cost_units": cost_out,
-            "expert_labels": np.where(called, y_full,
-                                      np.int32(-1)).astype(np.int32),
+            # annotations still in flight (max_delay >= 1) report -1
+            "expert_labels": (np.where(called, y_full,
+                                       np.int32(-1)).astype(np.int32)
+                              if resolved else np.full(S, -1, np.int32)),
         }
 
-    # -- commit ---------------------------------------------------------
-    def _commit(self, rec: _PendingTick) -> None:
-        """Apply a tick's annotations: ring-buffer scatter plus the
-        per-tick weighted student / deferral updates, sampling with the
-        tick's own cache generators."""
-        cfg = self.cfg
-        dev = self.device
-        nlev = len(self.levels)
-        sel_c = rec.sel_c
-        k = sel_c.size
-        S = rec.called.shape[0]
+    # -- commit: apply routed ticks' landed annotations ------------------
+    def _drain_due(self, t: int) -> None:
+        """Commit every annotation whose deadline has passed by the end of
+        tick ``t``, in strict (submit-tick, lane) order: the head record
+        drains to its ``lanes_due`` cursor (or, with readiness commits,
+        its landed prefix), and the drain moves on only once the head is
+        fully committed."""
+        while self._pending:
+            rec = self._pending[0]
+            k = rec.sel_c.size
+            due = lanes_due(k, t - rec.t, self.max_delay, self.per_lane)
+            if self.readiness_commits and due < k:
+                due = max(due, self._ready_count(rec))
+            if due > rec.committed:
+                if self.per_lane:
+                    for j in range(rec.committed, due):
+                        self._commit_lane(rec, j, t)
+                else:
+                    self._commit(rec, t)
+            if rec.committed < k:
+                break
+            self._pending.popleft()
 
-        # host mirrors first: sampling sees the post-insert fill level
-        ptr_pre = list(self._cache_ptr)
+    def _ready_count(self, rec: _PendingTick) -> int:
+        """Lanes of the head record whose annotations have landed: per
+        lane the contiguous ready prefix from the cursor, per tick all or
+        nothing.  A hung shard never reports ready."""
+        k = rec.sel_c.size
+        if not self.per_lane:
+            return k if rec.ticket.done() else 0
+        j = rec.committed
+        while j < k and rec.ticket.item_done(j):
+            j += 1
+        return j
+
+    def _record_commit(self, rec: _PendingTick, lanes, t: int) -> None:
+        """Aggregate per-lane commit age / latency (and the commit log)."""
+        n = len(lanes)
+        self.commit_stats["lanes"] += n
+        self.commit_stats["age_sum"] += n * (t - rec.t)
+        self.commit_stats["age_max"] = max(self.commit_stats["age_max"],
+                                           t - rec.t)
+        self.commit_stats["wall_sum"] += n * (time.time() - rec.wall)
+        if self.commit_log is not None:
+            self.commit_log.extend((rec.t, int(s), t) for s in lanes)
+
+    def _ring_insert(self, ptr: List[int], rows: List[np.ndarray],
+                     ys: np.ndarray) -> None:
+        """Scatter k demonstrations into every level's ring: consecutive
+        slots after ``ptr[i]``, in order; if k > size only the last
+        ``size`` survive (the sequential FIFO's overwrite order)."""
+        up = self._staging.upload
+        k = ys.shape[0]
+        order = np.arange(k)
+        for i, lvl in enumerate(self.levels):
+            size = lvl.spec.cache_size
+            keep = order >= k - size
+            slots = up((ptr[i] + order[keep]) % size)
+            self._cache_x[i].index_copy_(0, slots, up(rows[i][keep]))
+            self._cache_y[i].index_copy_(0, slots, up(ys[keep]))
+
+    def _advance_ring(self, k: int, rngs: list) -> list:
+        """Host fill / ptr mirrors after inserting k demonstrations, and
+        each level's mini-batch indices over the post-insert fill, drawn
+        from ``rngs`` (sampling sees the post-insert fill level)."""
         idx_t = []
         for i, lvl in enumerate(self.levels):
             size = lvl.spec.cache_size
             self._cache_n[i] = min(self._cache_n[i] + k, size)
             self._cache_ptr[i] = (self._cache_ptr[i] + k) % size
-            idx_t.append(torch.from_numpy(sample_cache_indices(
-                rec.cache_rngs[i], self._cache_n[i],
-                self._bs_list[i]).astype(np.int64)).to(dev))
+            idx_t.append(self._staging.upload(sample_cache_indices(
+                rngs[i], self._cache_n[i],
+                self._bs_list[i]).astype(np.int64)))
+        return idx_t
 
-        # ring-buffer insert: called lanes take consecutive slots after
-        # ptr, in lane order; if k > size only the last `size` survive
-        # (the sequential FIFO's overwrite order)
-        order = np.arange(k)
-        for i, lvl in enumerate(self.levels):
-            size = lvl.spec.cache_size
-            keep = order >= k - size
-            slots = torch.from_numpy(
-                (ptr_pre[i] + order[keep]) % size).to(dev)
-            rows = np.ascontiguousarray(rec.feats[i][sel_c[keep]])
-            ys = np.ascontiguousarray(rec.labels[keep])
-            self._cache_x[i].index_copy_(0, slots,
-                                         torch.from_numpy(rows).to(dev))
-            self._cache_y[i].index_copy_(0, slots,
-                                         torch.from_numpy(ys).to(dev))
+    def _commit(self, rec: _PendingTick, t: Optional[int] = None) -> None:
+        """Apply a routed tick's annotations: ring-buffer scatter plus the
+        per-tick weighted student / deferral updates, sampling with the
+        tick's own cache generators.  Lanes whose annotation was dropped
+        (-1) add no demonstration and carry zero update weight."""
+        cfg = self.cfg
+        nlev = len(self.levels)
+        sel_c = rec.sel_c
+        k = sel_c.size
+        y_sel = self._resolve_labels(rec, 0, k)
+        ok = y_sel >= 0
+        k_ok = int(ok.sum())
+        if k_ok == 0:
+            rec.committed = k
+            return
+        S = rec.called.shape[0]
+        sel_ok = sel_c[ok]
+        ptr_pre = list(self._cache_ptr)
+        idx_t = self._advance_ring(k_ok, rec.cache_rngs)
+        self._ring_insert(ptr_pre,
+                          [rec.feats[i][sel_ok] for i in range(nlev)],
+                          y_sel[ok])
 
         # reach[l] = prod_{k<l} dprob[k], float32 left fold like the
         # sequential reference's running product
         reach = np.ones((nlev, S), np.float32)
         for i in range(1, nlev):
             reach[i] = reach[i - 1] * rec.dprob[i - 1]
-        k_arr = (torch.tensor(float(k), dtype=torch.float32, device=dev)
-                 if self.updates_per_tick == "scaled" and k > 1 else None)
+        k_arr = (torch.full((), float(k_ok), dtype=torch.float32,
+                            device=self.device)
+                 if self.updates_per_tick == "scaled" and k_ok > 1 else None)
         B_c = self._bucket(k)
         for i, lvl in enumerate(self.levels):
             xb = self._cache_x[i][idx_t[i]]
             yb = self._cache_y[i][idx_t[i]]
             w = torch.ones((self._bs_list[i],), dtype=torch.float32,
-                           device=dev)
+                           device=self.device)
             lvl.apply_student_update(xb, yb, w, k_arr)
             probs_b = np.zeros((B_c, cfg.n_classes), np.float32)
             probs_b[:k] = rec.probs[i, sel_c]
             y_b = np.zeros(B_c, np.int32)
-            y_b[:k] = rec.labels
+            y_b[:k] = np.maximum(y_sel, 0)
             reach_b = np.zeros(B_c, np.float32)
             reach_b[:k] = reach[i, sel_c]
             w_b = np.zeros(B_c, np.float32)
-            w_b[:k] = 1.0
-            lvl.apply_deferral_update(
-                torch.from_numpy(probs_b).to(dev),
-                torch.from_numpy(y_b).to(dev),
-                torch.from_numpy(reach_b).to(dev),
-                torch.from_numpy(w_b).to(dev), k_arr)
-        # commits are synchronous in the base form: annotation age 0
-        self.commit_stats["lanes"] += k
-        self.commit_stats["wall_sum"] += k * (time.time() - rec.wall)
+            w_b[:k] = ok.astype(np.float32)
+            up = self._staging.upload
+            lvl.apply_deferral_update(up(probs_b), up(y_b), up(reach_b),
+                                      up(w_b), k_arr)
+        rec.committed = k
+        self._record_commit(rec, sel_ok, self.t if t is None else t)
+        # params changed: a route forward dispatched before this commit
+        # is stale (the resolve refetches it)
+        self._state_version += 1
+
+    def _commit_lane(self, rec: _PendingTick, j: int, t: int) -> None:
+        """Apply ONE lane's landed annotation (per-lane commit mode): the
+        sequential reference's per-item update block for called lane
+        ``sel_c[j]`` — a single-demonstration ring insert, one student
+        step on a mini-batch sampled with the lane's own tick generators,
+        and a single-item deferral update.  Blocks only on the ticket
+        shard holding item ``j``."""
+        cfg = self.cfg
+        nlev = len(self.levels)
+        s = int(rec.sel_c[j])
+        y = self._resolve_labels(rec, j, j + 1)
+        if y[0] < 0:
+            # annotation dropped past max_requeues: no demonstration
+            rec.committed = j + 1
+            return
+        ptr_pre = list(self._cache_ptr)
+        rngs = rec.lane_cache_rngs[j]
+        idx_t = self._advance_ring(1, rngs)
+        self._ring_insert(ptr_pre,
+                          [rec.feats[i][s:s + 1] for i in range(nlev)], y)
+        reach = np.float32(1.0)
+        B_c = self._bucket(1)
+        for i, lvl in enumerate(self.levels):
+            xb = self._cache_x[i][idx_t[i]]
+            yb = self._cache_y[i][idx_t[i]]
+            w = torch.ones((self._bs_list[i],), dtype=torch.float32,
+                           device=self.device)
+            lvl.apply_student_update(xb, yb, w)
+            probs_b = np.zeros((B_c, cfg.n_classes), np.float32)
+            probs_b[0] = rec.probs[i, s]
+            y_b = np.zeros(B_c, np.int32)
+            y_b[0] = y[0]
+            reach_b = np.zeros(B_c, np.float32)
+            reach_b[0] = reach
+            w_b = np.zeros(B_c, np.float32)
+            w_b[0] = 1.0
+            up = self._staging.upload
+            lvl.apply_deferral_update(up(probs_b), up(y_b), up(reach_b),
+                                      up(w_b))
+            reach = np.float32(reach * np.float32(rec.dprob[i, s]))
+        rec.committed = j + 1
+        self._record_commit(rec, [s], t)
+        self._state_version += 1
+
+    def flush(self) -> int:
+        """Drain the deferred-annotation queue (blocking); returns the
+        number of ticks committed.  The route ring must be empty first
+        (``drain()``): committing while ticks are in flight would land
+        updates out of FIFO tick order."""
+        if self._ring:
+            raise RuntimeError(
+                "route pipeline has in-flight ticks: drain() them "
+                "(and consume their outputs) before flush()")
+        n = 0
+        while self._pending:
+            rec = self._pending.popleft()
+            if self.per_lane:
+                for j in range(rec.committed, rec.sel_c.size):
+                    self._commit_lane(rec, j, self.t)
+            else:
+                self._commit(rec, self.t)
+            n += 1
+        return n
 
     # -- per-stream metrics ---------------------------------------------
     def stream_metrics(self) -> dict:
@@ -474,21 +944,40 @@ class BatchedCascadeEngine:
 
     def run(self, stream, log_every: int = 0) -> dict:
         """Serve an entire stream, tick-major: tick T covers items
-        [T*S, T*S + S) with lane s = offset.  Returns OnlineCascade-style
-        summary metrics plus throughput and per-stream accounting."""
+        [T*S, T*S + S) with lane s = offset; with ``pipeline_depth >= 1``
+        through ``submit_tick`` / ``drain`` (results mapped back through
+        each output's "indices"), then ``flush``.  Returns
+        OnlineCascade-style summary metrics plus throughput and per-stream
+        accounting."""
         S = self.n_streams
         n = len(stream)
         preds = np.zeros(n, np.int32)
+        done = 0                      # items with results already landed
+
+        def take(out):
+            nonlocal done
+            idxs = out["indices"]
+            preds[idxs] = out["predictions"]
+            done = max(done, int(idxs.max()) + 1) if idxs.size else done
+
         t0 = time.time()
         for start in range(0, n, S):
             stop = min(start + S, n)
             idxs = list(range(start, stop))
-            out = self.process_tick(idxs, [stream.docs[i] for i in idxs])
-            preds[idxs] = out["predictions"]
-            if log_every and (stop // log_every) > (start // log_every):
-                acc = float(np.mean(preds[:stop] == stream.labels[:stop]))
-                print(f"[{stop}/{n}] acc={acc:.4f} "
+            docs = [stream.docs[i] for i in idxs]
+            if self.pipeline_depth:
+                for out in self.submit_tick(idxs, docs):
+                    take(out)
+            else:
+                take(self.process_tick(idxs, docs))
+            if (log_every and done
+                    and (stop // log_every) > (start // log_every)):
+                acc = float(np.mean(preds[:done] == stream.labels[:done]))
+                print(f"[{done}/{n}] acc={acc:.4f} "
                       f"expert_calls={self.expert_calls_total}")
+        for out in self.drain():
+            take(out)
+        self.flush()
         dt = time.time() - t0
         return {
             "accuracy": float(np.mean(preds == stream.labels)),

@@ -6,7 +6,11 @@ Two engines:
 * ``--engine batched`` (default): ``BatchedCascadeEngine`` serves S
   concurrent stream lanes in lockstep — per-level batched forwards over
   the gathered alive subset, one batched expert call per tick, per-tick
-  weighted updates.
+  weighted updates — with the engine matrix: ``--async-delay`` (the
+  async expert queue), ``--pipeline-depth`` (pipelined route passes),
+  ``--expert-workers`` / ``--expert-backend`` (the expert pool),
+  ``--per-lane-commit``, ``--expert-timeout`` (fault requeues) and
+  ``--autoscale`` (the expert fleet).
 * ``--engine sequential``: the per-item Algorithm-1 loop
   (``OnlineCascade``), with micro-batched expert calls via a probe/replay
   pass.
@@ -23,6 +27,9 @@ given; the device is checked before the expert is trained.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --dataset imdb \
       --samples 2048 --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --expert simulated \
+      --samples 320 --batch 16 --async-delay 2 --expert-workers 4 \
+      --per-lane-commit --pipeline-depth 2
   PYTHONPATH=src python -m repro_torch.launch.serve --ladder kernel \
       --expert simulated --dataset imdb --samples 2048 --batch 64
 """
@@ -58,14 +65,15 @@ def _ladder_config(ladder: str, n_classes: int, mu: float, seed: int,
 
 
 def _make_expert(stream, n_classes: int, expert_kind: str, samples: int,
-                 seed: int, device):
+                 seed: int, device, workers=1, backend: str = "thread"):
     """The expert and its training seconds (0 for the simulated one)."""
     if expert_kind == "model":
         print("training stand-in LLM expert ...", flush=True)
         t0 = time.time()
         expert = train_model_expert(stream, n_classes, epochs=2,
                                     max_samples=min(4000, samples),
-                                    seed=seed, device=device)
+                                    seed=seed, workers=workers,
+                                    backend=backend, device=device)
         sync(expert.device)
         dt = time.time() - t0
         print(f"expert trained in {dt:.1f}s", flush=True)
@@ -73,7 +81,26 @@ def _make_expert(stream, n_classes: int, expert_kind: str, samples: int,
     if expert_kind != "simulated":
         raise ValueError(f"unknown expert {expert_kind!r} "
                          "(model | simulated)")
-    return SimulatedExpert(stream, "gpt-3.5-turbo"), 0.0
+    if backend != "thread":
+        print(f"(simulated expert ignores --expert-backend {backend}: "
+              "table lookups need no process pool)")
+    return SimulatedExpert(stream, "gpt-3.5-turbo", workers=workers), 0.0
+
+
+def parse_autoscale(spec: str):
+    """Parse ``--autoscale``: '' -> None, 'auto' -> (1, 8), 'LO:HI' ->
+    (LO, HI).  The engine scales the expert pool within these bounds off
+    queue depth, deterministically at tick boundaries."""
+    if not spec:
+        return None
+    if spec == "auto":
+        return (1, 8)
+    lo, _, hi = spec.partition(":")
+    try:
+        return (int(lo), int(hi))
+    except ValueError:
+        raise SystemExit(
+            f"--autoscale expects 'auto' or 'LO:HI', got {spec!r}")
 
 
 class _BatchProxy:
@@ -139,21 +166,34 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
                          seed: int = 0, log_every: int = 500,
                          updates_per_tick: str = "single",
                          ladder: str = "default",
-                         device: DeviceLike = None):
-    """Default serving path: the batched multi-stream engine.  Returns
-    the engine's ``run`` metrics plus the engine itself (``"engine"``:
-    its levels' forward counts, per-stream accounting, its expert) and
-    the expert's training seconds (``"expert_train_s"``)."""
+                         device: DeviceLike = None, async_delay: int = 0,
+                         pipeline_depth: int = 0, expert_workers: int = 1,
+                         per_lane: bool = False,
+                         expert_backend: str = "thread",
+                         expert_timeout=None, autoscale=None):
+    """Default serving path: the batched multi-stream engine, with the
+    engine matrix's options (``async_delay`` = the engine's
+    ``max_delay``; ``autoscale`` = (lo, hi) fleet bounds, the expert
+    built with ``workers="auto"``).  Returns the engine's ``run`` metrics
+    plus the engine itself (``"engine"``: its levels' forward counts,
+    per-stream accounting, its expert, its pipeline / commit / fault
+    stats) and the expert's training seconds (``"expert_train_s"``)."""
     dev = resolve_device(device)
     stream = make_stream(dataset, seed=seed, n_samples=samples)
-    expert, train_s = _make_expert(stream, stream.spec.n_classes,
-                                   expert_kind, samples, seed, dev)
+    expert, train_s = _make_expert(
+        stream, stream.spec.n_classes, expert_kind, samples, seed, dev,
+        workers="auto" if autoscale else expert_workers,
+        backend=expert_backend)
     cfg = _ladder_config(ladder, stream.spec.n_classes, mu, seed,
                          expert.cost)
     # history_limit=0: serving reads only aggregate metrics
     engine = BatchedCascadeEngine(cfg, expert, n_streams=batch,
                                   updates_per_tick=updates_per_tick,
-                                  history_limit=0, device=dev)
+                                  max_delay=async_delay,
+                                  pipeline_depth=pipeline_depth,
+                                  per_lane=per_lane, history_limit=0,
+                                  expert_timeout=expert_timeout,
+                                  autoscale=autoscale, device=dev)
     t0 = time.time()
     try:
         metrics = engine.run(stream, log_every=log_every)
@@ -161,14 +201,35 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
         engine.close()
     sync(dev)
     dt = time.time() - t0
+    lanes = (f"batch={batch} ladder={ladder} expert={expert_kind} "
+             f"device={dev}")
+    if async_delay:
+        lanes += f" async_delay={async_delay}"
+    if pipeline_depth:
+        st = engine.pipeline_stats
+        lanes += (f" pipeline_depth={pipeline_depth} "
+                  f"(refetches={st['refetches']} "
+                  f"fences={st['update_fences'] + st['budget_fences']})")
+    if expert_workers > 1 or per_lane:
+        lanes += (f" expert_workers={expert_workers}"
+                  f" commit={'lane' if per_lane else 'tick'}")
     cs = engine.commit_stats
     if cs["lanes"]:
         print(f"annotation commits: {cs['lanes']} lanes, "
-              f"mean age {cs['age_sum'] / cs['lanes']:.2f} ticks, "
+              f"mean age {cs['age_sum'] / cs['lanes']:.2f} ticks "
+              f"(max {cs['age_max']}), "
               f"mean latency {cs['wall_sum'] / cs['lanes'] * 1e3:.1f} ms")
-    _report(metrics, len(stream), dt,
-            f"batch={batch} ladder={ladder} expert={expert_kind} "
-            f"device={dev}")
+    if pipeline_depth:
+        print(f"pipeline stats: {engine.pipeline_stats}")
+    fs = engine.fault_stats
+    if any(fs.values()):
+        print(f"fault stats: timeouts={fs['timeouts']} "
+              f"worker_deaths={fs['worker_deaths']} "
+              f"requeues={fs['requeues']} "
+              f"dropped_annotations={fs['dropped_annotations']} "
+              f"fleet resizes={len(engine.fleet_log)} "
+              f"(final width {engine.expert.workers})")
+    _report(metrics, len(stream), dt, lanes)
     metrics["engine"] = engine
     metrics["expert_train_s"] = train_s
     return metrics
@@ -263,6 +324,45 @@ def main(argv=None):
                     help="per-tick update scheduling (batched engine): "
                          "'scaled' lr-scales the one weighted step by the "
                          "tick's expert-demo count (Optimizer.step_k)")
+    ap.add_argument("--async-delay", type=int, default=0,
+                    help="bounded annotation delay in ticks (batched "
+                         "engine): >=1 overlaps the expert forward with "
+                         "student compute — deferred lanes answer "
+                         "provisionally and annotations commit exactly "
+                         "that many ticks later; 0 = synchronous")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="route-pipeline depth P (batched engine): >=1 "
+                         "keeps up to P ticks' level-0 forwards in "
+                         "flight while older ticks' host routing "
+                         "resolves; predictions, levels and expert calls "
+                         "are identical for any P; 0 = unpipelined")
+    ap.add_argument("--expert-workers", type=int, default=1,
+                    help="expert annotation pool size W (batched "
+                         "engine): >=2 shards each deferred batch over W "
+                         "workers with per-item ticket completion; "
+                         "routing is invariant to W")
+    ap.add_argument("--expert-backend", default="thread",
+                    choices=["thread", "process"],
+                    help="expert pool backend (--expert model): 'thread' "
+                         "(each worker on its own CUDA stream) or "
+                         "'process' (spawned children, each with its own "
+                         "CUDA context, rebuilt if one dies)")
+    ap.add_argument("--expert-timeout", type=float, default=None,
+                    help="per-shard annotation deadline in seconds "
+                         "(batched engine): a shard that misses it is "
+                         "requeued, then dropped (counted in the fault "
+                         "stats); default = wait forever")
+    ap.add_argument("--autoscale", default="",
+                    help="elastic expert-fleet bounds 'LO:HI' (or 'auto' "
+                         "= 1:8): the engine resizes the pool off pending "
+                         "queue depth at tick boundaries; empty = fixed "
+                         "--expert-workers pool")
+    ap.add_argument("--per-lane-commit", action="store_true",
+                    help="per-lane commit granularity (batched engine, "
+                         "with --async-delay >= 2): each lane's "
+                         "annotation commits on a deterministic "
+                         "sub-deadline as a per-item update; results are "
+                         "bitwise invariant to worker count and latency")
     ap.add_argument("--microbatch", type=int, default=16,
                     help="expert micro-batch size (sequential engine): "
                          "the probe/replay pass batches this many items' "
@@ -291,7 +391,14 @@ def main(argv=None):
                              batch=args.batch, expert_kind=args.expert,
                              seed=args.seed, log_every=args.log_every,
                              updates_per_tick=args.updates,
-                             ladder=args.ladder, device=args.device)
+                             ladder=args.ladder, device=args.device,
+                             async_delay=args.async_delay,
+                             pipeline_depth=args.pipeline_depth,
+                             expert_workers=args.expert_workers,
+                             per_lane=args.per_lane_commit,
+                             expert_backend=args.expert_backend,
+                             expert_timeout=args.expert_timeout,
+                             autoscale=parse_autoscale(args.autoscale))
     else:
         serve_stream(args.dataset, args.samples, args.mu,
                      microbatch=args.microbatch, expert_kind=args.expert,

@@ -329,12 +329,19 @@ def test_model_expert_labels_match(expert_setup):
         assert all(px.label(i, ps.docs[i]) == want[i] for i in (0, 7, 33))
     finally:
         px.close()
-    with pytest.raises(ValueError, match="not ported"):
-        P.ModelExpert(params=px.params, spec=pspec, backend="process",
-                      device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        P.ModelExpert(params=px.params, spec=pspec, workers="auto",
-                      device="cpu")
+    # the process backend's spawned children label as the thread pool does
+    pp = P.ModelExpert(params=px.params, spec=pspec, workers=2,
+                       backend="process", device="cpu")
+    try:
+        assert np.array_equal(pp.poll(pp.submit_many(idxs[:12],
+                                                     ps.docs[:12])),
+                              want[:12])
+    finally:
+        pp.close()
+    # workers="auto" hands the width to the engine: a fleet of 1 to start
+    pa = P.ModelExpert(params=px.params, spec=pspec, workers="auto",
+                       device="cpu")
+    assert pa.auto_workers and pa.workers == 1
 
 
 def test_expert_training_loop_matches_reference(expert_setup):

@@ -14,8 +14,12 @@ against ``"simt"`` on one input).  The CUDA engine must route a short
 stream like the CPU engine does, on the kernel ladder and on the paper's
 default ``lr -> tinytf`` ladder; a hard expert budget must hold on the
 card; the model expert must label on the card as on the CPU; and the
-zoo's smoke model must serve on the card as on the CPU.  Nothing here
-imports JAX (the GPU machine has none).
+zoo's smoke model must serve on the card as on the CPU.  The engine
+matrix: pipelined depth 2 routes as depth 0 with bitwise state, stage B
+waits for the level-0 copy's event (device work queued ahead of it with
+``torch.cuda._sleep``), and the model expert's pool threads run on
+streams of their own.  Nothing here imports JAX (the GPU machine has
+none).
 """
 import numpy as np
 import pytest
@@ -535,3 +539,107 @@ def test_model_expert_labels_on_the_card_equal_the_cpus(cuda):
     assert np.array_equal(gpu.poll(gpu.submit_many(idxs, stream.docs)),
                           want)
     gpu.close()
+
+
+# ---------------------------------------------------------------------------
+# the engine matrix on the card
+# ---------------------------------------------------------------------------
+def _ci_ladder():
+    from repro_torch.core import kernel_cascade_config
+    from repro_torch.models.kernel_students import TINY_SSM_CI, TINY_TF_CI
+    return kernel_cascade_config(2, mu=3e-6, tf_flash_spec=TINY_TF_CI,
+                                 ssm_spec=TINY_SSM_CI)
+
+
+@pytest.mark.parametrize("max_delay", [0, 2])
+def test_pipelined_depth2_matches_depth0_on_the_card(cuda, max_delay):
+    """Depth 2 against depth 0 on CUDA: identical routing and bitwise
+    learned state (route passes and commits share one stream)."""
+    from repro_torch.core import (STATE_ATTRS, BatchedCascadeEngine,
+                                  SimulatedExpert)
+    from repro_torch.data import make_stream
+    from repro_torch.tree import tree_leaves
+    stream = make_stream("hatespeech", seed=0, n_samples=128)
+    runs = {}
+    for depth in (0, 2):
+        eng = BatchedCascadeEngine(_ci_ladder(), SimulatedExpert(stream),
+                                   n_streams=8, max_delay=max_delay,
+                                   pipeline_depth=depth, device=cuda)
+        runs[depth] = (eng, eng.run(stream))
+    (e0, m0), (e2, m2) = runs[0], runs[2]
+    assert np.array_equal(m0["predictions"], m2["predictions"])
+    assert m0["expert_calls"] == m2["expert_calls"]
+    for key in ("level", "expert_called"):
+        assert np.array_equal(np.concatenate(e0.history[key]),
+                              np.concatenate(e2.history[key]))
+    st = e2.pipeline_stats
+    assert st["refetches"] + st["update_fences"] > 0
+    for a, b in zip(e0.levels, e2.levels):
+        for attr in STATE_ATTRS:
+            for x, y in zip(tree_leaves(getattr(a, attr)),
+                            tree_leaves(getattr(b, attr))):
+                assert torch.equal(x, y), attr
+
+
+def test_stage_b_waits_for_the_level0_copy(cuda):
+    """~50 ms of device work queued ahead of the copies: a read that did
+    not wait for the copy's event would see a stale pinned buffer."""
+    from dataclasses import replace
+    from repro_torch.core import BatchedCascadeEngine, SimulatedExpert
+    from repro_torch.data import make_stream
+    from repro_torch.transfer import HostPrefetch, PinnedStaging
+    sleep_cycles = 100_000_000            # ~50 ms at the H100's clock
+    x = torch.arange(4096, dtype=torch.float32, device=cuda)
+    stale = HostPrefetch([x * 0.0])       # leaves zeros in a pinned block
+    stale.result()
+    del stale
+    torch.cuda._sleep(sleep_cycles)
+    got = HostPrefetch([x * 2.0]).result()[0].copy()
+    assert np.array_equal(got, np.arange(4096, dtype=np.float32) * 2.0)
+    # staged uploads: a buffer whose copy is still queued is not refilled
+    staging = PinnedStaging(cuda)
+    torch.cuda._sleep(sleep_cycles)
+    a = staging.upload(np.full(8, 1.0, np.float32))
+    b = staging.upload(np.full(8, 2.0, np.float32))
+    assert staging.buffers() == 2
+    assert a.cpu().tolist() == [1.0] * 8 and b.cpu().tolist() == [2.0] * 8
+    # the engine's stage B reads the level-0 outputs its dispatch
+    # produced (hard budget 0: no lane jumps, level 0 serves every lane)
+    stream = make_stream("hatespeech", seed=0, n_samples=8)
+    idxs, docs = list(range(8)), stream.docs[:8]
+    cfg = replace(_ci_ladder(), hard_budget=0)
+    eng = BatchedCascadeEngine(cfg, SimulatedExpert(stream), n_streams=8,
+                               pipeline_depth=1, device=cuda)
+    ref = BatchedCascadeEngine(cfg, SimulatedExpert(stream), n_streams=8,
+                               device=cuda)
+    want = ref.process_tick(idxs, docs)
+    torch.cuda._sleep(sleep_cycles)
+    assert eng.submit_tick(idxs, docs) == []
+    handles = eng._ring[0].handles
+    probs, dprob = (h.copy() for h in handles.result())
+    assert np.array_equal(probs, handles.tensors[0].cpu().numpy())
+    assert np.array_equal(dprob, handles.tensors[1].cpu().numpy())
+    out = eng.resolve_tick()
+    assert np.array_equal(out["predictions"], want["predictions"])
+    assert np.array_equal(out["levels"], want["levels"])
+
+
+def test_pool_workers_run_on_their_own_streams(cuda):
+    from repro_torch.core import ModelExpert
+    from repro_torch.data import make_stream
+    from repro_torch.models.students import TinyTFSpec, tinytf_init
+    spec = TinyTFSpec(vocab=256, max_len=32, d_model=32, n_heads=2,
+                      n_layers=1, d_ff=64, n_classes=2)
+    params = tinytf_init(torch.Generator().manual_seed(0), spec, cuda)
+    stream = make_stream("imdb", seed=0, n_samples=64)
+    idxs, docs = list(range(64)), stream.docs
+    ex = ModelExpert(params=params, spec=spec, workers=4, device=cuda)
+    try:
+        want = ex.label_batch(idxs, docs)
+        assert np.array_equal(ex.poll(ex.submit_many(idxs, docs)), want)
+        streams = ex.worker_streams()
+        assert 1 <= len(streams) <= 4
+        assert all(s != torch.cuda.default_stream() for s in streams)
+        assert len({s.cuda_stream for s in streams}) == len(streams)
+    finally:
+        ex.close()
