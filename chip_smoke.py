@@ -71,6 +71,35 @@ Phases (any failure exits non-zero and prints no result line):
      the fleet log equal to the CPU's on the same stream; (f) 48 items
      at batch 8, max_delay 2, per-lane commits, depth 2: routing on the
      card equal to the CPU's;
+  9. checkpoint-admission: live-state checkpoints and the admission
+     front-end on the kernel ladder at full width (imdb, seed 0, mu 3e-7,
+     64 lanes, simulated expert), each run printing items/s, wall s,
+     accuracy, expert calls and level fractions, and each of (a), (c) and
+     (e) checking every kernel's launches against the layer forwards the
+     engine counted: (a) 2048 items uninterrupted, the same with
+     ``run(checkpoint_every=16)``, and a fresh engine restored from that
+     checkpoint: bitwise the uninterrupted run from tick 16 on
+     (predictions, expert calls, every parameter, optimizer leaf and
+     ring), at max_delay 0 and at max_delay 2 with depth 2, with the
+     checkpoint's bytes (beside those reckoned from the state's shapes)
+     and the save and restore ms; (a') per-lane commits at max_delay 2
+     with ``SimulatedExpert(workers=4)`` under an adversarial latency,
+     512 items cut at tick 4 with a per-lane record caught
+     mid-consumption: bitwise; (b) ``lockstep_requests(2048, 64)``
+     through ``CascadeFrontEnd``: bitwise the classic run; (c)
+     ``poisson_requests(2048, rate=8, mean_len=8, seed=0)`` (about 64
+     items offered a tick against 64 lanes): ticks, idle ticks,
+     occupancy, time-to-answer p50 / p99, queue delay, goodput, flash
+     calls by bucket, and depth 2 identical to depth 0 (admission log,
+     records, predictions, parameters); (d) ``burst_requests(2048,
+     burst=96, every=8)`` under ``admission="shed", queue_limit=16``: at
+     least one request shed, every request answered or shed; (e) (c)'s
+     schedule served 16 ticks, the front-end saved, a fresh engine and
+     front-end restored and finished: equal to (c); (f) 96 items, 8
+     lanes, ``poisson_requests(96, rate=1, mean_len=5, seed=3)`` on the
+     card and on the CPU: identical routing and records, else the first
+     tick and lane that differ; then the launches over the phase, the
+     flash calls by batch and the phase's seconds;
   6. zoo-kernels: Mixtral-8x22B at full width (d_model 6144, 48/8 heads
      of 128, 8 experts of d_ff 16384, bf16), depth cut to 2 layers,
      weights from a seeded CUDA generator; prompts from
@@ -110,7 +139,8 @@ runs, each counted from zero, ``launches_by_variant`` its split by
 variant (decode attention: "single" / "split"), and ``paths`` has each
 path's own count, times, ``variant`` (the one its timed row took; the
 SSD scan has one scalar kernel, "simt") and ``launches_by_variant``,
-``cascade_pipelined`` the launches of phase 8 (c)'s depth-2 run;
+``cascade_pipelined`` the launches of phase 8 (c)'s depth-2 run,
+``cascade_admission`` those of phase 9 (c)'s Poisson run at depth 0;
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -424,6 +454,18 @@ def _zero_variant_counts():
         fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
 
 
+def _layer_forwards(eng):
+    """Kernel launches a kernel-ladder engine's layer forwards imply, and
+    the flash calls by padded batch (the engine's bucket)."""
+    lv = {lvl.spec.kind: lvl for lvl in eng.levels}
+    tf, ssm = lv["tinytf_flash"], lv["ssm"]
+    return ({"flash_attention": tf.sspec.n_layers * tf.forwards,
+             "decode_attention": tf.forwards,
+             "ssd_scan": ssm.sspec.n_layers * ssm.forwards},
+            {b: tf.sspec.n_layers * n
+             for b, n in sorted(tf.forwards_by_batch.items())})
+
+
 def check(name, label, kernel_fn, plain_fn, tol, results, library_fn=None,
           bound=None, timed=False, scaled=False, relative=False, reps=20,
           variant=None):
@@ -608,14 +650,8 @@ def phase_serve():
     by_variant = {n: c for n, c in _variant_counts().items()
                   if n in LAUNCHERS}
     eng = m["engine"]
-    lv = {lvl.spec.kind: lvl for lvl in eng.levels}
-    tf, ssm = lv["tinytf_flash"], lv["ssm"]
-    expect = {"flash_attention": tf.sspec.n_layers * tf.forwards,
-              "decode_attention": tf.forwards,
-              "ssd_scan": ssm.sspec.n_layers * ssm.forwards}
     # flash calls by padded batch (the engine's bucket), from its counts
-    flash_batches = {b: tf.sspec.n_layers * n
-                     for b, n in sorted(tf.forwards_by_batch.items())}
+    expect, flash_batches = _layer_forwards(eng)
     print(f"[serve] items_per_sec={m['items_per_sec']:.1f} "
           f"wall_s={wall:.2f} accuracy={m['accuracy']:.4f} "
           f"expert_calls={m['expert_calls']} level_fractions="
@@ -1043,11 +1079,7 @@ def _matrix_pipeline(stream, phase4_launches):
             else:
                 m = _matrix_run(tag, eng, stream)
             launches = {n: fn.launches for n, fn in LAUNCHERS.items()}
-            lv = {lvl.spec.kind: lvl for lvl in eng.levels}
-            tf, ssm = lv["tinytf_flash"], lv["ssm"]
-            expect = {"flash_attention": tf.sspec.n_layers * tf.forwards,
-                      "decode_attention": tf.forwards,
-                      "ssd_scan": ssm.sspec.n_layers * ssm.forwards}
+            expect = _layer_forwards(eng)[0]
             by_variant = {n: c for n, c in _variant_counts().items()
                           if n in LAUNCHERS}
             print(f"[engine-matrix] {tag}: launches {launches} expected "
@@ -1168,6 +1200,385 @@ def phase_engine_matrix(phase4_launches):
     _matrix_faults(stream)
     _matrix_card_vs_cpu()
     return pipelined
+
+
+# ---------------------------------------------------------------------------
+# checkpoint-admission: live-state checkpoints and the admission front-end
+# on the kernel ladder at full width (imdb, seed 0, mu 3e-7, 64 lanes)
+# ---------------------------------------------------------------------------
+ADMIT_CUT = 16            # (a): save every 16 ticks, resume at tick 16
+ADMIT_LANE_ITEMS, ADMIT_LANE_CUT = 512, 4     # (a'): 8 ticks, cut at 4
+ADMIT_FE_TICKS = 16       # (e): serve 16 ticks, save, resume
+
+
+class _PhaseCounts:
+    """Kernel launches over phase 9, summed from runs each counted from
+    zero, and the flash calls by padded batch over the same runs."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(LAUNCHERS, 0)
+        self.flash_by_batch = {}
+
+    def run(self, tag, engines, fn):
+        """Zero every count, run ``fn``, read the counts: each kernel must
+        have launched as often as the layer forwards ``engines`` counted
+        (their forwards start at 0: fresh engines)."""
+        for lf in LAUNCHERS.values():
+            lf.launches = 0
+        _zero_variant_counts()
+        out = fn()
+        _sync()
+        got = {n: lf.launches for n, lf in LAUNCHERS.items()}
+        by_variant = {n: c for n, c in _variant_counts().items()
+                      if n in LAUNCHERS}
+        expect = dict.fromkeys(LAUNCHERS, 0)
+        flash_b = {}
+        for eng in engines():
+            e, fb = _layer_forwards(eng)
+            for n in expect:
+                expect[n] += e[n]
+            for b, c in fb.items():
+                flash_b[b] = flash_b.get(b, 0) + c
+        print(f"[checkpoint-admission] {tag}: launches {got} expected "
+              f"{expect}; flash calls by batch {dict(sorted(flash_b.items()))}",
+              flush=True)
+        if got != expect or min(got.values()) <= 0:
+            _fail(f"{tag}: launches {got} != the layer forwards {expect}")
+        if by_variant["flash_attention"]["tiled"] != got["flash_attention"]:
+            _fail(f"{tag}: a flash launch left the tiled variant")
+        for n in got:
+            self.launches[n] += got[n]
+        for b, c in flash_b.items():
+            self.flash_by_batch[b] = self.flash_by_batch.get(b, 0) + c
+        return out, got, by_variant
+
+
+def _admit_engine(expert, device=None, n_streams=None, **opts):
+    """The kernel ladder at full width, history (and commit log) on."""
+    return _matrix_engine("kernel", expert, device=device,
+                          n_streams=n_streams, **opts)
+
+
+def _run_report(tag, m, wall, n):
+    print(f"[checkpoint-admission] {tag}: items_per_sec={n / wall:.1f} "
+          f"wall_s={wall:.2f} accuracy={m['accuracy']:.4f} "
+          f"expert_calls={m['expert_calls']} level_fractions="
+          f"{[round(float(f), 4) for f in m['level_fractions']]}",
+          flush=True)
+
+
+def _ckpt_bytes(path):
+    return sum(p.stat().st_size for p in Path(path).iterdir())
+
+
+def _reckoned_bytes(eng):
+    """The checkpoint's array bytes from the engine's shapes: each level's
+    params, optimizer moments and deferral state, the rings, and the
+    pending records' host arrays."""
+    from repro_torch.core import STATE_ATTRS
+    state = sum(x.numel() * x.element_size() for lvl in eng.levels
+                for attr in STATE_ATTRS
+                for x in tree_leaves(getattr(lvl, attr)))
+    rings = sum(x.numel() * x.element_size()
+                for x in eng._cache_x + eng._cache_y)
+    pend = sum(a.nbytes for r in eng._pending
+               for a in [r.called, r.sel_c, r.probs, r.dprob] + r.feats)
+    return state, rings, pend
+
+
+def _rings_equal(a, b):
+    return all(torch.equal(x, y) for x, y in
+               zip(a._cache_x + a._cache_y, b._cache_x + b._cache_y))
+
+
+def _admit_resume(stream, counts, tmp):
+    """(a) 32 ticks uninterrupted; the same with run(checkpoint_every=16);
+    a fresh engine restored from that checkpoint finishes the stream:
+    bitwise the uninterrupted run from tick 16 on.  At max_delay 0 and at
+    max_delay 2, pipeline_depth 2.  Returns the max_delay-0 run 1."""
+    from repro_torch.core import SimulatedExpert
+    S = MATRIX_BATCH
+    classic = None
+    for D, P in ((0, 0), (2, 2)):
+        opts = {"max_delay": D, "pipeline_depth": P}
+        tag = f"(a) max_delay={D} pipeline_depth={P}"
+        path = str(Path(tmp) / f"a{D}")
+        e1 = _admit_engine(SimulatedExpert(stream), **opts)
+        t0 = time.time()
+        m1, _, _ = counts.run(f"{tag} run 1", lambda: [e1],
+                              lambda: e1.run(stream))
+        _run_report(f"{tag} run 1 (uninterrupted)", m1, time.time() - t0,
+                    len(stream))
+        e2 = _admit_engine(SimulatedExpert(stream), **opts)
+        save_ms = []
+        save = e2.save_state
+
+        def timed_save(p):
+            _sync()
+            t = time.perf_counter()
+            save(p)
+            save_ms.append((time.perf_counter() - t) * 1e3)
+        e2.save_state = timed_save
+        t0 = time.time()
+        m2, _, _ = counts.run(
+            f"{tag} run 2", lambda: [e2],
+            lambda: e2.run(stream, checkpoint_every=ADMIT_CUT,
+                           checkpoint_path=path))
+        _run_report(f"{tag} run 2 (checkpoint every {ADMIT_CUT})", m2,
+                    time.time() - t0, len(stream))
+        e3 = _admit_engine(SimulatedExpert(stream), **opts)
+        _sync()
+        t = time.perf_counter()
+        e3.restore_state(path)
+        _sync()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        reck = _reckoned_bytes(e3)
+        nbytes = _ckpt_bytes(path)
+        first = e3.t * S
+        t0 = time.time()
+        m3, _, _ = counts.run(f"{tag} run 3", lambda: [e3],
+                              lambda: e3.run(stream))
+        _run_report(f"{tag} run 3 (restored at tick {first // S})", m3,
+                    time.time() - t0, len(stream) - first)
+        same_pred = bool(np.array_equal(m1["predictions"][first:],
+                                        m3["predictions"][first:]))
+        same_state = _states_equal(e1, e3) and _rings_equal(e1, e3)
+        same_run2 = _states_equal(e1, e2) and bool(np.array_equal(
+            m1["predictions"], m2["predictions"]))
+        print(f"[checkpoint-admission] {tag}: checkpoint {nbytes} bytes "
+              f"(reckoned: state {reck[0]}, rings {reck[1]}, pending "
+              f"{reck[2]} at restore), save ms {save_ms}, restore ms "
+              f"{restore_ms:.3f}; resumed at item {first}: predictions "
+              f"identical {same_pred}, expert calls {m1['expert_calls']} / "
+              f"{m3['expert_calls']}, every parameter and optimizer leaf "
+              f"and ring torch.equal {same_state}; run 2 = run 1 "
+              f"{same_run2}", flush=True)
+        if (first != ADMIT_CUT * S or not same_pred or not same_state
+                or m1["expert_calls"] != m3["expert_calls"]
+                or not same_run2 or len(save_ms) != 1):
+            _fail(f"{tag}: the resumed run is not bitwise the "
+                  "uninterrupted one")
+        if D == 0:
+            classic = (e1, m1)
+    return classic
+
+
+def _admit_lane_resume(tmp):
+    """(a') per-lane commits at max_delay 2, SimulatedExpert(workers=4,
+    adversarial latency), 512 items (8 ticks), cut at tick 4 with
+    per-lane records caught mid-consumption: bitwise the uninterrupted
+    run."""
+    from repro_torch.core import SimulatedExpert
+    from repro_torch.data import make_stream
+    S = MATRIX_BATCH
+    small = make_stream("imdb", seed=0, n_samples=ADMIT_LANE_ITEMS)
+    opts = {"max_delay": 2, "per_lane": True}
+
+    def build():
+        return _admit_engine(SimulatedExpert(small, workers=4,
+                                             latency=_pool_latency), **opts)
+    full = build()
+    t0 = time.time()
+    mf = full.run(small)
+    _sync()
+    _run_report("(a') per-lane, W=4, uninterrupted", mf, time.time() - t0,
+                len(small))
+    part = build()
+    for t in range(ADMIT_LANE_CUT):
+        idxs = list(range(t * S, (t + 1) * S))
+        part.process_tick(idxs, [small.docs[i] for i in idxs])
+    mid = [(r.t, r.committed, int(r.sel_c.size)) for r in part._pending]
+    path = str(Path(tmp) / "lane")
+    part.save_state(path)
+    part.close()
+    res = build()
+    res.restore_state(path)
+    t0 = time.time()
+    mr = res.run(small)
+    _sync()
+    first = ADMIT_LANE_CUT * S
+    _run_report(f"(a') per-lane, restored at tick {ADMIT_LANE_CUT}", mr,
+                time.time() - t0, len(small) - first)
+    same = (bool(np.array_equal(mf["predictions"][first:],
+                                mr["predictions"][first:]))
+            and mf["expert_calls"] == mr["expert_calls"]
+            and full.commit_log == res.commit_log
+            and _states_equal(full, res) and _rings_equal(full, res))
+    print(f"[checkpoint-admission] (a') pending at the cut (tick, "
+          f"committed, k): {mid}; resumed bitwise {same}", flush=True)
+    if not any(0 < c < k for _, c, k in mid):
+        _fail("(a') no per-lane record was caught mid-consumption")
+    if not same:
+        _fail("(a') the per-lane resume is not bitwise the uninterrupted "
+              "run")
+
+
+def _frontend_report(tag, fe, eng, stream, wall):
+    m = fe.metrics()
+    served = m["predictions"] >= 0
+    acc = float(np.mean(m["predictions"][served]
+                        == stream.labels[served])) if served.any() else 0.0
+    print(f"[checkpoint-admission] {tag}: ticks={m['ticks']} "
+          f"idle_ticks={m['idle_ticks']} occupancy_mean="
+          f"{m['occupancy_mean']:.3f}/{eng.n_streams} tta_p50="
+          f"{m['tta_p50']} tta_p99={m['tta_p99']} queue_delay_mean="
+          f"{m['queue_delay_mean']:.3f} requests={m['requests']} "
+          f"answered={m['answered']} shed={m['shed']} goodput_items_per_"
+          f"sec={m['items_done'] / wall:.1f} wall_s={wall:.2f} "
+          f"accuracy={acc:.4f} expert_calls={eng.expert_calls_total} "
+          f"level_fractions={[round(float(f), 4) for f in eng.level_counts.sum(axis=0) / max(m['items_done'], 1)]}",
+          flush=True)
+    return m
+
+
+def _record_fields(fe):
+    return {rid: (r.arrival, r.admit, r.lane, r.done, r.retired, r.shed,
+                  r.items_done, r.expert_calls, r.predictions, r.levels,
+                  r.commit_ticks)
+            for rid, r in fe.records.items()}
+
+
+def _frontend_run(tag, counts, stream, requests, *, device=None,
+                    n_streams=None, admission="queue", queue_limit=0,
+                    count=True, **opts):
+    from repro_torch.core import CascadeFrontEnd, SimulatedExpert
+    eng = _admit_engine(SimulatedExpert(stream), device=device,
+                        n_streams=n_streams, **opts)
+    fe = CascadeFrontEnd(eng, stream, admission=admission,
+                         queue_limit=queue_limit)
+    t0 = time.time()
+    if count:
+        _, got, by_variant = counts.run(tag, lambda: [eng],
+                                        lambda: fe.serve(requests))
+    else:
+        fe.serve(requests)
+        got = by_variant = None
+    _sync()
+    m = _frontend_report(tag, fe, eng, stream, time.time() - t0)
+    return eng, fe, m, (got, by_variant)
+
+
+def _same_frontend(tag, a, fa, b, fb):
+    same = (fa.admission_log == fb.admission_log
+            and _record_fields(fa) == _record_fields(fb)
+            and bool(np.array_equal(fa.metrics()["predictions"],
+                                    fb.metrics()["predictions"]))
+            and _states_equal(a, b))
+    print(f"[checkpoint-admission] {tag}: admission log, every record, "
+          f"the predictions and every parameter identical {same}",
+          flush=True)
+    if not same:
+        _fail(f"{tag}: the two front-end runs differ")
+
+
+def phase_checkpoint_admission():
+    """Phase 9: live-state checkpoints and the admission front-end on the
+    kernel ladder at full width.  Returns (c)'s launches and launches by
+    variant (depth 0) for the kernel record."""
+    import tempfile
+    from repro_torch.core import CascadeFrontEnd, SimulatedExpert
+    from repro_torch.data import (burst_requests, lockstep_requests,
+                                  make_stream, poisson_requests)
+    t_phase = time.time()
+    stream = make_stream("imdb", seed=0, n_samples=MATRIX_ITEMS)
+    counts = _PhaseCounts()
+    with tempfile.TemporaryDirectory() as tmp:
+        e_classic, m_classic = _admit_resume(stream, counts, tmp)
+        _admit_lane_resume(tmp)
+
+        # (b) lockstep through the front-end == the classic run
+        e_b, fe_b, _, _ = _frontend_run(
+            "(b) lockstep_requests(2048, 64)", counts, stream,
+            lockstep_requests(MATRIX_ITEMS, MATRIX_BATCH))
+        levels = [np.concatenate(e.history["level"])
+                  for e in (e_classic, e_b)]
+        same = (bool(np.array_equal(m_classic["predictions"],
+                                    fe_b.metrics()["predictions"]))
+                and bool(np.array_equal(*levels))
+                and m_classic["expert_calls"] == e_b.expert_calls_total
+                and _states_equal(e_classic, e_b))
+        print(f"[checkpoint-admission] (b) lockstep front-end vs the "
+              f"classic run: predictions, levels, expert calls and every "
+              f"parameter identical {same}", flush=True)
+        if not same:
+            _fail("(b) the lockstep schedule is not bitwise the classic run")
+        del e_classic, e_b, fe_b
+
+        # (c) Poisson arrivals near capacity, depth 0 and depth 2
+        reqs = poisson_requests(MATRIX_ITEMS, rate=8, mean_len=8, seed=0)
+        e_c, fe_c, _, admission = _frontend_run(
+            "(c) poisson rate 8, pipeline_depth=0", counts, stream, reqs)
+        e_c2, fe_c2, _, _ = _frontend_run(
+            "(c) poisson rate 8, pipeline_depth=2", counts, stream, reqs,
+            pipeline_depth=2)
+        _same_frontend("(c) depth 0 vs depth 2", e_c, fe_c, e_c2, fe_c2)
+        del e_c2, fe_c2
+
+        # (d) bursts beyond the lanes with shedding
+        breqs = burst_requests(MATRIX_ITEMS, burst=96, every=8, mean_len=8,
+                               seed=0)
+        _, fe_d, m_d, _ = _frontend_run(
+            "(d) burst 96 every 8, shed, queue_limit 16", counts, stream,
+            breqs, admission="shed", queue_limit=16)
+        accounted = all(r.shed != r.answered for r in fe_d.records.values())
+        print(f"[checkpoint-admission] (d) {m_d['requests']} offered: "
+              f"{m_d['answered']} answered, {m_d['shed']} shed, each one "
+              f"or the other {accounted}; tta p50 {m_d['tta_p50']} p99 "
+              f"{m_d['tta_p99']} ticks, mean queue delay "
+              f"{m_d['queue_delay_mean']:.3f}", flush=True)
+        if m_d["shed"] < 1 or not accounted or \
+                m_d["answered"] + m_d["shed"] != len(breqs):
+            _fail("(d) shedding did not account for every request")
+
+        # (e) the front-end's checkpoint, resumed in a fresh engine
+        path = str(Path(tmp) / "fe")
+        e_p = _admit_engine(SimulatedExpert(stream))
+        fe_p = CascadeFrontEnd(e_p, stream)
+        fe_p.serve(reqs, max_ticks=ADMIT_FE_TICKS, finalize=False)
+        fe_p.save_state(path)
+        e_r = _admit_engine(SimulatedExpert(stream))
+        fe_r = CascadeFrontEnd(e_r, stream)
+        t0 = time.time()
+        fe_r.restore_state(path, reqs)
+        _sync()
+        restore_ms = (time.time() - t0) * 1e3
+        print(f"[checkpoint-admission] (e) saved after tick {e_p.t}, "
+              f"{_ckpt_bytes(path)} bytes + .frontend.json "
+              f"{Path(path + '.frontend.json').stat().st_size} bytes, "
+              f"restored in {restore_ms:.3f} ms", flush=True)
+        t0 = time.time()
+        counts.run("(e) resumed front-end", lambda: [e_r],
+                   lambda: fe_r.serve(reqs))
+        _frontend_report("(e) resumed front-end", fe_r, e_r, stream,
+                         time.time() - t0)
+        _same_frontend("(e) resumed vs (c) uninterrupted", e_c, fe_c, e_r,
+                       fe_r)
+        del e_p, fe_p, e_r, fe_r, e_c, fe_c
+
+    # (f) card against CPU on a short staggered schedule
+    small = make_stream("imdb", seed=0, n_samples=96)
+    sreqs = poisson_requests(96, rate=1, mean_len=5, seed=3)
+    runs = {}
+    for dev in (MATRIX_DEVICE, "cpu"):
+        eng, fe, _, _ = _frontend_run(
+            f"(f) 96 items, 8 lanes on {dev}", counts, small, sreqs,
+            device=dev, n_streams=8, count=False)
+        runs[dev] = (_routing_records(eng), _record_fields(fe))
+    div = _first_divergence(runs[MATRIX_DEVICE][0], runs["cpu"][0])
+    same_rec = runs[MATRIX_DEVICE][1] == runs["cpu"][1]
+    print(f"[checkpoint-admission] (f) card vs CPU: routing "
+          f"{'identical' if div is None else f'differs {div}'}, records "
+          f"identical {same_rec}", flush=True)
+    if div is not None:
+        _fail(f"(f) card and CPU routing part at tick {div[0]}, lane "
+              f"{div[1]} ({div[2]})")
+    if not same_rec:
+        _fail("(f) card and CPU records differ")
+    print(f"[checkpoint-admission] launches over the phase "
+          f"{counts.launches}; flash calls by batch "
+          f"{dict(sorted(counts.flash_by_batch.items()))}; phase seconds "
+          f"{time.time() - t_phase:.1f}", flush=True)
+    return admission
 
 
 # ---------------------------------------------------------------------------
@@ -1552,7 +1963,7 @@ def _record_row(rows, launches, by_variant):
 
 
 def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
-                  zoo_by_variant, pipelined):
+                  zoo_by_variant, pipelined, admission):
     """One entry per kernel: the top-level numbers are those of the path
     each kernel was first ported for (cascade at batch 64; moe_gmm: zoo
     prefill), ``launches`` and ``launches_by_variant`` the totals over the
@@ -1563,7 +1974,9 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
     ``cascade_forced_simt`` the scalar flash kernel forced at the path
     shape, which no served path takes (``launches`` null);
     ``cascade_pipelined`` the launches of phase 8 (c)'s pipelined run
-    (kernel ladder, depth 2, counted from zero over that run)."""
+    (kernel ladder, depth 2, counted from zero over that run);
+    ``cascade_admission`` those of phase 9 (c)'s Poisson run through the
+    admission front-end (depth 0, counted from zero over that run)."""
     def split(counts, name, n):
         return counts.get(name, {"tc": 0, "simt": n})
 
@@ -1602,10 +2015,12 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
             top["variants"] = list(VARIANT_LAUNCHERS[name]
                                    .launches_by_variant)
         if name in LAUNCHERS:
-            n = pipelined[0][name]
-            paths["cascade_pipelined"] = {
-                "launches": n,
-                "launches_by_variant": split(pipelined[1], name, n)}
+            for path, (counts, variants) in (("cascade_pipelined", pipelined),
+                                             ("cascade_admission",
+                                              admission)):
+                n = counts[name]
+                paths[path] = {"launches": n, "launches_by_variant":
+                               split(variants, name, n)}
         record.append({"name": name, "route": "cuda",
                        "source": SOURCE[name], "replaces": REPLACES[name],
                        **top, "paths": paths})
@@ -1625,6 +2040,7 @@ def main():
     del eng
     phase_default_serve()
     pipelined = phase_engine_matrix(launches)
+    admission = phase_checkpoint_admission()
     cfg, params, prompts = zoo_model()
     zoo_results = phase_zoo_kernels(cfg, params, prompts)
     zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)
@@ -1632,7 +2048,7 @@ def main():
     phase_zoo_checks(cfg, params, prompts)
     print(json.dumps({"kernels": kernel_record(
         results, launches, by_variant, zoo_results, zoo_launches,
-        zoo_by_variant, pipelined)}))
+        zoo_by_variant, pipelined, admission)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

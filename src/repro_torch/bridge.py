@@ -12,7 +12,9 @@ mismatch raises.
 A bfloat16 array exported from JAX has numpy dtype
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses; its bits go
 through int16 and are viewed as ``torch.bfloat16`` (bit-exact, and no
-``ml_dtypes`` import here).
+``ml_dtypes`` import here).  A leaf that is already a torch tensor (a
+bfloat16 leaf read with ``restore_checkpoint(path, bf16="torch")``) is
+taken as it is.
 """
 from __future__ import annotations
 
@@ -23,10 +25,12 @@ import torch
 
 from repro_torch.core.cascade import STATE_ATTRS
 from repro_torch.models.transformer import init_params
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _leaf_to_torch(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr
     arr = np.array(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -70,13 +74,17 @@ def _check_like(new: Any, cur: Any, path: str) -> None:
 
 
 def load_level_state(level, tree: dict) -> None:
-    """Install a reference ``_Level.state_tree()`` exported as numpy into
-    the port level ``level`` (on the level's device)."""
+    """Install a ``_Level.state_tree()`` exported as numpy (by either
+    package, or read back from a checkpoint) into the port level
+    ``level``, on the level's device.  Every attribute is checked before
+    any is replaced, and the containers follow the level's own (a
+    checkpoint stores a tuple as a list)."""
+    new = {a: to_torch(tree[a], level.device) for a in STATE_ATTRS}
     for attr in STATE_ATTRS:
-        new = to_torch(tree[attr], level.device)
-        cur = getattr(level, attr)
-        _check_like(new, cur, attr)
-        setattr(level, attr, new)
+        _check_like(new[attr], getattr(level, attr), attr)
+    for attr in STATE_ATTRS:
+        setattr(level, attr, tree_unflatten(getattr(level, attr),
+                                            tree_leaves(new[attr])))
 
 
 def load_zoo_params(tree_np: dict, cfg, device) -> dict:

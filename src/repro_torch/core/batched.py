@@ -68,10 +68,40 @@ full contracts; each holds here on the same tick keys):
   parameters live at dispatch, as the reference promises, and the
   refetch covers a commit that lands in between.
 
-Not ported yet (ROADMAP Queue 1): the occupancy arguments ``lanes=`` /
-``stream_ids=`` / ``stream_ticks=`` of the admission front-end (item
-8), ``save_state`` / ``restore_state`` (item 5), lane sharding over a
-mesh (item 11) and the determinism sanitizer's trace (item 9).
+Occupancy (``lanes=`` / ``stream_ids=`` / ``stream_ticks=``) — the
+continuous-batching front-end (``core/admission.py``) serves requests of
+their own lengths over the engine's fixed pool of ``n_streams`` lanes.
+``process_tick`` / ``submit_tick`` then name the physical lane each tick
+position occupies (strictly increasing; default ``arange(S)``, the
+lockstep identity) and replace the position's RNG key ``(s, t)`` with
+the stream's own ``(stream_ids[s], stream_ticks[s])``, so stream r's
+j-th item draws ``tick_rngs(seed, r, j)`` whichever lane or global tick
+serves it; per-tick cache sampling uses position 0's key.  Per-lane
+accounting and the commit log go to the physical lanes, and each output
+carries its ``"lanes"``.  The route itself is position-indexed and
+unchanged, so the defaults are the lockstep engine bitwise.  An EMPTY
+tick (S = 0) is legal: it advances ``t`` and the commit deadlines,
+launches nothing and transfers nothing — the front-end's idle ticks keep
+one clock over busy and idle time.
+
+Live-state checkpoints (``save_state`` / ``restore_state``) write the
+reference's format and tree (``repro_torch.checkpoint``; ``levels``,
+``cache_x``, ``cache_y``, ``acct``, ``pending{i}``, the same metadata
+keys and ``_CKPT_VERSION``), so a checkpoint written by either package
+restores into the other.  A save needs the route ring drained (``run``
+drains before each save) and resolves every uncommitted annotation
+first, under the requeue and timeout rules, storing -1 where one was
+dropped; each pending record keeps its cache generators' exact states,
+caught partway through a per-lane record's commits.  A restore rebuilds
+the rings on the engine's device, the host mirrors, the accounting, the
+route-time beta recurrence, the commit / fault / fleet stats and the
+pending records (with resolved tickets: a restored engine never needs
+the expert pool to replay its commits), then bumps the state version.
+The resumed run is bitwise the uninterrupted one from the checkpoint
+tick on; ``run`` on a restored engine resumes at item ``t * S``.
+
+Not ported yet (ROADMAP Queue 1): lane sharding over a mesh (item 11)
+and the determinism sanitizer's trace (item 9).
 """
 from __future__ import annotations
 
@@ -83,18 +113,26 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (CheckpointError, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.core.cascade import (
-    CascadeConfig, _Level, build_levels, make_history)
+    CascadeConfig, _Level, build_levels, check_fingerprint, make_history)
 from repro_torch.core.deferral import reexploration_floor
 from repro_torch.core.experts import (ExpertShardError, ExpertShardTimeout,
                                       ExpertTicket)
-from repro_torch.core.rng import sample_cache_indices, tick_rngs
+from repro_torch.core.rng import (generator_from_state, generator_state,
+                                  sample_cache_indices, tick_rngs)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.transfer import HostPrefetch, PinnedStaging
 
 # autoscale unit: target one worker per this many uncommitted deferred
 # items (clipped into the configured [lo, hi] fleet bounds)
 _AUTOSCALE_ITEMS_PER_WORKER = 4
+
+# checkpoint schema version (save_state / restore_state), the reference's
+_CKPT_VERSION = 1
+# the per-lane accounting arrays (the checkpoint's "acct" subtree)
+_ACCT = ("expert_calls", "total_cost", "level_counts", "items_seen", "J_cum")
 
 
 def lanes_due(k: int, age: int, max_delay: int, per_lane: bool) -> int:
@@ -127,10 +165,14 @@ class _PendingTick:
     cache_rngs: list              # per-level np generators (lane-0 tick)
     committed: int = 0            # lanes already committed (prefix)
     lane_cache_rngs: Optional[list] = None   # per called lane, per level
+    lanes: Optional[np.ndarray] = None  # physical lane per tick position
+                                        # (occupancy ticks; None = arange)
     wall: float = 0.0             # wall-clock at submit (latency stats)
     idxs: Optional[list] = None   # stream indices of the called lanes
                                   # (what a failed shard is requeued as)
-    docs_k: Optional[list] = None  # raw docs of the called lanes
+    docs_k: Optional[list] = None  # raw docs of the called lanes (None
+                                   # after a restore: the ticket is
+                                   # resolved, no requeue can happen)
     requeues: dict = field(default_factory=dict)  # shard lo -> retries
 
 
@@ -156,6 +198,8 @@ class _InFlightTick:
     version: int                  # engine commit counter at dispatch
     beta_after: List[float]       # per-level beta after this tick's decay
     lane_cache: Optional[list] = None   # per-lane cache rngs (per_lane)
+    lanes: Optional[np.ndarray] = None  # physical lane per tick position
+                                        # (occupancy ticks; None = arange)
 
 
 class BatchedCascadeEngine:
@@ -293,11 +337,8 @@ class BatchedCascadeEngine:
             lvl.reset()
         self._init_ring()
         self.t = 0
-        self.expert_calls[:] = 0
-        self.total_cost[:] = 0
-        self.level_counts[:] = 0
-        self.items_seen[:] = 0
-        self.J_cum[:] = 0
+        for name in _ACCT:
+            getattr(self, name)[:] = 0
         if self.history is not None:
             for v in self.history.values():
                 v.clear()
@@ -419,20 +460,28 @@ class BatchedCascadeEngine:
             self.fleet_log.append((self.t, int(target)))
 
     # -- the tick -------------------------------------------------------
-    def process_tick(self, indices: Sequence[int], docs) -> dict:
+    def process_tick(self, indices: Sequence[int], docs, *,
+                     lanes=None, stream_ids=None,
+                     stream_ticks=None) -> dict:
         """Advance every lane by one item (dispatch and resolve back to
         back: the returned dict is this tick's own result).  len(docs)
-        may be < n_streams on the final partial tick of a stream.  Mixing
-        it with ``submit_tick`` while ticks are in flight is an error."""
+        may be < n_streams on the final partial tick of a stream, and 0
+        on an idle tick.  ``lanes`` / ``stream_ids`` / ``stream_ticks``
+        are the occupancy arguments (module docstring).  Mixing it with
+        ``submit_tick`` while ticks are in flight is an error."""
         if self._ring:
             raise RuntimeError(
                 "route pipeline has in-flight ticks: resolve_tick()/"
                 "drain() them first, or drive the engine entirely "
                 "through submit_tick()")
-        return self._route_resolve(self._route_dispatch(indices, docs))
+        return self._route_resolve(self._route_dispatch(
+            indices, docs, lanes=lanes, stream_ids=stream_ids,
+            stream_ticks=stream_ticks))
 
     # -- pipelined route driver (stage A / stage B) ----------------------
-    def submit_tick(self, indices: Sequence[int], docs) -> List[dict]:
+    def submit_tick(self, indices: Sequence[int], docs, *,
+                    lanes=None, stream_ids=None,
+                    stream_ticks=None) -> List[dict]:
         """Dispatch one tick into the route pipeline (stage A); returns
         the output dicts of every tick the call resolved, oldest first:
         ring overflow past ``pipeline_depth``, plus ticks resolved early
@@ -455,7 +504,9 @@ class BatchedCascadeEngine:
             # guaranteed stale — resolve past the commit first
             self.pipeline_stats["update_fences"] += 1
             outs.append(self._route_resolve(self._ring.popleft()))
-        self._ring.append(self._route_dispatch(indices, docs))
+        self._ring.append(self._route_dispatch(
+            indices, docs, lanes=lanes, stream_ids=stream_ids,
+            stream_ticks=stream_ticks))
         while len(self._ring) > self.pipeline_depth:
             outs.append(self._route_resolve(self._ring.popleft()))
         return outs
@@ -495,15 +546,33 @@ class BatchedCascadeEngine:
         xd = self._staging.upload(xb)
         return lvl.route_pass(lvl.params, lvl.dparams, xd), xb
 
-    def _route_dispatch(self, indices: Sequence[int],
-                        docs) -> _InFlightTick:
+    def _route_dispatch(self, indices: Sequence[int], docs, *,
+                        lanes=None, stream_ids=None,
+                        stream_ticks=None) -> _InFlightTick:
         """Stage A: draws, masks, the route-time beta recurrence, and the
-        level-0 forward with its outputs' copy to the host started."""
+        level-0 forward with its outputs' copy to the host started.  The
+        occupancy arguments only change which physical lane each position
+        accounts to and which (stream, tick) key seeds its draws."""
         cfg = self.cfg
         nlev = len(self.levels)
         S = len(docs)
         if S > self.n_streams:
             raise ValueError(f"tick of {S} items > n_streams={self.n_streams}")
+        if lanes is not None:
+            lanes = np.asarray(lanes, np.int64)
+            if lanes.shape != (S,):
+                raise ValueError(
+                    f"lanes must have one entry per tick position: "
+                    f"got shape {lanes.shape} for a tick of {S}")
+            if S and (lanes[0] < 0 or lanes[-1] >= self.n_streams
+                      or np.any(np.diff(lanes) <= 0)):
+                raise ValueError(
+                    "lanes must be strictly increasing physical lane ids "
+                    f"in [0, n_streams={self.n_streams})")
+        if stream_ids is not None and len(stream_ids) != S:
+            raise ValueError("stream_ids must have one entry per position")
+        if stream_ticks is not None and len(stream_ticks) != S:
+            raise ValueError("stream_ticks must have one entry per position")
         self.t += 1
         t = self.t
         self.pipeline_stats["submitted"] += 1
@@ -517,7 +586,11 @@ class BatchedCascadeEngine:
         # lane's own tick generators; per-tick mode needs only lane 0's
         lane_cache = [] if self.per_lane else None
         for s in range(S):
-            r = tick_rngs(cfg.seed, s, t, nlev)
+            # an admitted stream keeps its own (stream id, local tick)
+            # key whichever lane or global tick serves it
+            sid = s if stream_ids is None else int(stream_ids[s])
+            lt = t if stream_ticks is None else int(stream_ticks[s])
+            r = tick_rngs(cfg.seed, sid, lt, nlev)
             u_jump[:, s] = r.jump.random(nlev)
             u_act[:, s] = r.action.random(nlev).astype(np.float32)
             if lane_cache is not None:
@@ -530,7 +603,8 @@ class BatchedCascadeEngine:
 
         # level 0's gather mask (lanes that did not jump) is known before
         # any dprob returns: queue its forward and the copy of its
-        # outputs to the host now
+        # outputs to the host now (an empty tick launches nothing: a
+        # zero-sized grid is a CUDA launch error)
         sel0 = np.flatnonzero(~jump[0])
         xb0 = None
         handles = None
@@ -555,7 +629,8 @@ class BatchedCascadeEngine:
             jump=jump, u_act=u_act, budget_ok=budget_ok,
             cache_rngs=cache_rngs, feats_cache=feats_cache, sel0=sel0,
             xb0=xb0, handles=handles, version=self._state_version,
-            beta_after=list(self._route_beta), lane_cache=lane_cache)
+            beta_after=list(self._route_beta), lane_cache=lane_cache,
+            lanes=lanes)
 
     def _route_resolve(self, rec: _InFlightTick) -> dict:
         """Stage B: the vectorised walk, the expert submit, due commits,
@@ -686,7 +761,8 @@ class BatchedCascadeEngine:
                 probs=probs_h, dprob=dprob_h, cache_rngs=rec.cache_rngs,
                 lane_cache_rngs=([rec.lane_cache[s] for s in sel_c]
                                  if self.per_lane else None),
-                wall=time.time(), idxs=idxs_c, docs_k=docs_c)
+                lanes=rec.lanes, wall=time.time(), idxs=idxs_c,
+                docs_k=docs_c)
             if self.max_delay == 0:
                 # synchronous: resolve inline; -1 marks an annotation
                 # dropped past max_requeues, whose lane keeps the last
@@ -711,12 +787,14 @@ class BatchedCascadeEngine:
         for lvl, b in zip(self.levels, rec.beta_after):
             lvl.beta = b
 
+        # per-stream accounting, at the physical lanes this tick occupied
+        lanes = np.arange(S) if rec.lanes is None else rec.lanes
         J_t = cfg.mu * cost_out
-        self.expert_calls[:S] += called.astype(np.int64)
-        self.total_cost[:S] += cost_out
-        self.level_counts[np.arange(S), levels_out] += 1
-        self.items_seen[:S] += 1
-        self.J_cum[:S] += J_t
+        self.expert_calls[lanes] += called.astype(np.int64)
+        self.total_cost[lanes] += cost_out
+        self.level_counts[lanes, levels_out] += 1
+        self.items_seen[lanes] += 1
+        self.J_cum[lanes] += J_t
         if self.history is not None:
             self.history["level"].append(levels_out.copy())
             self.history["pred"].append(predictions.astype(np.int64))
@@ -726,6 +804,8 @@ class BatchedCascadeEngine:
         return {
             "indices": np.asarray(rec.indices, np.int64),
             "tick": t,
+            # physical lane per position (the identity without lanes=)
+            "lanes": lanes.copy(),
             "predictions": predictions.astype(np.int64),
             "levels": levels_out,
             "expert_called": called,
@@ -772,7 +852,10 @@ class BatchedCascadeEngine:
         return j
 
     def _record_commit(self, rec: _PendingTick, lanes, t: int) -> None:
-        """Aggregate per-lane commit age / latency (and the commit log)."""
+        """Aggregate per-lane commit age / latency (and the commit log).
+        ``lanes`` are tick positions; the log records the physical lane
+        each occupied at submit, so the front-end can map a commit back
+        to the stream that held that lane at ``rec.t``."""
         n = len(lanes)
         self.commit_stats["lanes"] += n
         self.commit_stats["age_sum"] += n * (t - rec.t)
@@ -780,7 +863,9 @@ class BatchedCascadeEngine:
                                            t - rec.t)
         self.commit_stats["wall_sum"] += n * (time.time() - rec.wall)
         if self.commit_log is not None:
-            self.commit_log.extend((rec.t, int(s), t) for s in lanes)
+            phys = (lanes if rec.lanes is None
+                    else [rec.lanes[int(s)] for s in lanes])
+            self.commit_log.extend((rec.t, int(s), t) for s in phys)
 
     def _ring_insert(self, ptr: List[int], rows: List[np.ndarray],
                      ys: np.ndarray) -> None:
@@ -930,6 +1015,160 @@ class BatchedCascadeEngine:
             n += 1
         return n
 
+    # -- live-state checkpoints -------------------------------------------
+    def _fingerprint(self) -> dict:
+        """Config facts a checkpoint must agree on to be restorable."""
+        return {
+            "engine": "batched", "ckpt_version": _CKPT_VERSION,
+            "n_streams": self.n_streams, "n_levels": len(self.levels),
+            "max_delay": self.max_delay, "per_lane": self.per_lane,
+            "updates_per_tick": self.updates_per_tick,
+            "seed": self.cfg.seed, "n_classes": self.cfg.n_classes,
+        }
+
+    def save_state(self, path: str) -> str:
+        """Checkpoint the engine's full live state mid-stream: per-level
+        STATE_ATTRS and betas, the rings, per-lane accounting, the
+        route-time beta / item recurrence, commit / pipeline / fault /
+        fleet stats, and the pending annotation queue with each record's
+        exact cache-generator states.  Uncommitted annotations are
+        resolved here (blocking, under the requeue / timeout rules; -1
+        where one was dropped), so the checkpoint never holds an
+        unresolvable ticket.  The route ring must be drained first."""
+        if self._ring:
+            raise RuntimeError(
+                "route pipeline has in-flight ticks: drain() them "
+                "(and consume their outputs) before save_state()")
+        tree = {
+            "levels": [lvl.state_tree() for lvl in self.levels],
+            "cache_x": list(self._cache_x),
+            "cache_y": list(self._cache_y),
+            "acct": {name: getattr(self, name) for name in _ACCT},
+        }
+        pending_meta = []
+        for r_i, rec in enumerate(self._pending):
+            k = rec.sel_c.size
+            labels = np.full(k, -1, np.int32)
+            if rec.committed < k:
+                labels[rec.committed:] = self._resolve_labels(
+                    rec, rec.committed, k)
+            entry = {
+                "called": rec.called, "sel_c": rec.sel_c,
+                "labels": labels, "probs": rec.probs, "dprob": rec.dprob,
+                "feats": list(rec.feats),
+                "idxs": np.asarray(rec.idxs or [], np.int64),
+            }
+            if rec.lanes is not None:
+                entry["lanes"] = rec.lanes
+            tree[f"pending{r_i}"] = entry
+            pending_meta.append({
+                "t": rec.t, "committed": rec.committed,
+                "has_lanes": rec.lanes is not None,
+                "requeues": {str(lo): n for lo, n in rec.requeues.items()},
+                "cache_rngs": [generator_state(g) for g in rec.cache_rngs],
+                "lane_cache_rngs": (
+                    [[generator_state(g) for g in lane]
+                     for lane in rec.lane_cache_rngs]
+                    if rec.lane_cache_rngs is not None else None),
+            })
+        meta = {
+            **self._fingerprint(),
+            "t": self.t,
+            "beta": [float(lvl.beta) for lvl in self.levels],
+            "cache_n": list(self._cache_n),
+            "cache_ptr": list(self._cache_ptr),
+            "route_beta": [float(b) for b in self._route_beta],
+            "route_items": self._route_items,
+            "commit_stats": dict(self.commit_stats),
+            "commit_log": ([list(e) for e in self.commit_log]
+                           if self.commit_log is not None else None),
+            "pipeline_stats": dict(self.pipeline_stats),
+            "fault_stats": dict(self.fault_stats),
+            "fleet_log": [list(e) for e in self.fleet_log],
+            "n_pending": len(self._pending),
+            "pending": pending_meta,
+        }
+        return save_checkpoint(path, tree, meta)
+
+    def _ring_from(self, arrays, cur: List[torch.Tensor],
+                   name: str) -> List[torch.Tensor]:
+        """Checkpointed ring buffers on the engine's device, each checked
+        against the engine's own ring."""
+        out = []
+        for i, (a, c) in enumerate(zip(arrays, cur)):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if tuple(t.shape) != tuple(c.shape) or t.dtype != c.dtype:
+                raise CheckpointError(
+                    f"checkpoint {name}[{i}] is {t.dtype}{tuple(t.shape)}, "
+                    f"the engine's ring {c.dtype}{tuple(c.shape)}")
+            out.append(t.to(self.device))
+        return out
+
+    def restore_state(self, path: str) -> None:
+        """Restore a ``save_state`` checkpoint (of either package) into
+        this freshly built, same-config engine, on its device; raises
+        ``CheckpointError`` on a config mismatch.  The resumed run is
+        bitwise the uninterrupted one from the checkpoint tick on."""
+        tree, meta = restore_checkpoint(path)
+        check_fingerprint(meta, self._fingerprint())
+        for lvl, st, b in zip(self.levels, tree["levels"], meta["beta"]):
+            lvl.load_state_tree(st)
+            lvl.beta = float(b)
+        self._cache_x = self._ring_from(tree["cache_x"], self._cache_x,
+                                        "cache_x")
+        self._cache_y = self._ring_from(tree["cache_y"], self._cache_y,
+                                        "cache_y")
+        self._cache_n = [int(v) for v in meta["cache_n"]]
+        self._cache_ptr = [int(v) for v in meta["cache_ptr"]]
+        for name in _ACCT:
+            getattr(self, name)[:] = np.asarray(tree["acct"][name])
+        self.t = int(meta["t"])
+        self._route_beta = [float(b) for b in meta["route_beta"]]
+        self._route_items = int(meta["route_items"])
+        cs = meta["commit_stats"]
+        self.commit_stats = {"lanes": int(cs["lanes"]),
+                             "age_sum": int(cs["age_sum"]),
+                             "age_max": int(cs.get("age_max", 0)),
+                             "wall_sum": float(cs["wall_sum"])}
+        self.commit_log = ([tuple(e) for e in meta["commit_log"]]
+                           if meta["commit_log"] is not None else None)
+        self.pipeline_stats = {k: int(v)
+                               for k, v in meta["pipeline_stats"].items()}
+        self.fault_stats = {k: int(v)
+                            for k, v in meta["fault_stats"].items()}
+        self.fleet_log = [tuple(int(x) for x in e)
+                          for e in meta["fleet_log"]]
+        self._pending.clear()
+        for r_i, pm in enumerate(meta["pending"]):
+            pt = tree[f"pending{r_i}"]
+            self._pending.append(_PendingTick(
+                # resolved at save time (-1 where dropped): the restored
+                # record never needs the docs or the pool for a requeue
+                ticket=ExpertTicket(
+                    labels=np.asarray(pt["labels"], np.int32)),
+                t=int(pm["t"]),
+                called=np.asarray(pt["called"], bool),
+                sel_c=np.asarray(pt["sel_c"], np.int64),
+                feats=[np.asarray(f) for f in pt["feats"]],
+                probs=np.asarray(pt["probs"], np.float32),
+                dprob=np.asarray(pt["dprob"], np.float32),
+                cache_rngs=[generator_from_state(g)
+                            for g in pm["cache_rngs"]],
+                committed=int(pm["committed"]),
+                lane_cache_rngs=(
+                    [[generator_from_state(g) for g in lane]
+                     for lane in pm["lane_cache_rngs"]]
+                    if pm["lane_cache_rngs"] is not None else None),
+                lanes=(np.asarray(pt["lanes"], np.int64)
+                       if pm["has_lanes"] else None),
+                wall=time.time(),
+                idxs=[int(i) for i in np.asarray(pt["idxs"])],
+                docs_k=None,
+                requeues={int(lo): int(n)
+                          for lo, n in pm["requeues"].items()}))
+        # restored params invalidate anything dispatched before
+        self._state_version += 1
+
     # -- per-stream metrics ---------------------------------------------
     def stream_metrics(self) -> dict:
         """Independent per-lane accounting (S rows each)."""
@@ -942,17 +1181,25 @@ class BatchedCascadeEngine:
             "J_cum": self.J_cum.copy(),
         }
 
-    def run(self, stream, log_every: int = 0) -> dict:
+    def run(self, stream, log_every: int = 0, checkpoint_every: int = 0,
+            checkpoint_path: Optional[str] = None) -> dict:
         """Serve an entire stream, tick-major: tick T covers items
         [T*S, T*S + S) with lane s = offset; with ``pipeline_depth >= 1``
         through ``submit_tick`` / ``drain`` (results mapped back through
         each output's "indices"), then ``flush``.  Returns
         OnlineCascade-style summary metrics plus throughput and per-stream
-        accounting."""
+        accounting.
+
+        ``checkpoint_every=k`` saves live state to ``checkpoint_path``
+        every k ticks (draining the route ring first).  On an engine that
+        holds restored state, serving resumes at item ``self.t * S``, and
+        accuracy and items/s cover the items this call served."""
         S = self.n_streams
         n = len(stream)
         preds = np.zeros(n, np.int32)
         done = 0                      # items with results already landed
+        first = self.t * S            # 0 on a fresh engine; the resume
+                                      # point on a restored one
 
         def take(out):
             nonlocal done
@@ -961,7 +1208,7 @@ class BatchedCascadeEngine:
             done = max(done, int(idxs.max()) + 1) if idxs.size else done
 
         t0 = time.time()
-        for start in range(0, n, S):
+        for start in range(first, n, S):
             stop = min(start + S, n)
             idxs = list(range(start, stop))
             docs = [stream.docs[i] for i in idxs]
@@ -972,20 +1219,28 @@ class BatchedCascadeEngine:
                 take(self.process_tick(idxs, docs))
             if (log_every and done
                     and (stop // log_every) > (start // log_every)):
-                acc = float(np.mean(preds[:done] == stream.labels[:done]))
+                lo = min(first, done)
+                acc = float(np.mean(preds[lo:done]
+                                    == stream.labels[lo:done]))
                 print(f"[{done}/{n}] acc={acc:.4f} "
                       f"expert_calls={self.expert_calls_total}")
+            if (checkpoint_every and checkpoint_path
+                    and self.t % checkpoint_every == 0 and stop < n):
+                for out in self.drain():
+                    take(out)
+                self.save_state(checkpoint_path)
         for out in self.drain():
             take(out)
         self.flush()
         dt = time.time() - t0
         return {
-            "accuracy": float(np.mean(preds == stream.labels)),
+            "accuracy": float(np.mean(preds[first:]
+                                      == stream.labels[first:])),
             "expert_calls": self.expert_calls_total,
             "total_cost_units": float(self.total_cost.sum()),
             "level_fractions": (self.level_counts.sum(axis=0)
                                 / max(n, 1)).tolist(),
             "predictions": preds,
-            "items_per_sec": n / max(dt, 1e-9),
+            "items_per_sec": (n - first) / max(dt, 1e-9),
             "per_stream": self.stream_metrics(),
         }

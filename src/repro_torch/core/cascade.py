@@ -28,8 +28,10 @@ instead of thresholding it at 0.5, as in the reference.
 
 State keeps the reference's layout (``STATE_ATTRS``: student params +
 optimizer state, deferral params + optimizer state), so
-``repro_torch.bridge.load_level_state`` installs a reference level's
-exported state directly.  Every tensor lives on the engine's ``device``
+``_Level.load_state_tree`` installs a reference level's exported state
+directly, and ``OnlineCascade.save_state`` / ``restore_state`` write and
+read the reference's checkpoint (``repro_torch.checkpoint``): a
+checkpoint of either package's sequential engine resumes in the other.  Every tensor lives on the engine's ``device``
 (CUDA unless the caller passes ``device="cpu"``); the FIFO caches and all
 routing stay on the host, as in the reference.
 """
@@ -42,6 +44,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (CheckpointError, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.core.deferral import (
     DeferralSpec, deferral_grads_weighted, deferral_init, deferral_prob,
     deferral_update_terms, reexploration_floor)
@@ -301,6 +305,17 @@ class _Level:
         """The level's learned state (STATE_ATTRS order)."""
         return {a: getattr(self, a) for a in STATE_ATTRS}
 
+    def load_state_tree(self, tree: dict, device: DeviceLike = None) -> None:
+        """Install a numpy ``state_tree`` (a checkpoint's, or one exported
+        from either package) on ``device``, which is the level's own:
+        every leaf is checked against the current attribute's layout,
+        shape and dtype before any is replaced (``bridge``)."""
+        if device is not None and torch.device(device) != self.device:
+            raise ValueError(f"level state lives on {self.device}, not "
+                             f"{device}")
+        from repro_torch.bridge import load_level_state
+        load_level_state(self, tree)
+
     # -- forwards (the kernel path on the kernel ladder) ---------------
     def _count_forward(self, B: int) -> None:
         self.forwards += 1
@@ -375,6 +390,16 @@ class _Level:
         return hash_ids(doc, self.sspec.vocab, self.sspec.max_len)
 
 
+def check_fingerprint(meta: dict, fingerprint: dict) -> None:
+    """Raise ``CheckpointError`` unless a checkpoint's metadata agrees
+    with an engine's fingerprint on every key."""
+    for key, val in fingerprint.items():
+        if meta.get(key) != val:
+            raise CheckpointError(
+                f"checkpoint/engine mismatch on {key}: checkpoint "
+                f"has {meta.get(key)!r}, engine has {val!r}")
+
+
 def build_levels(config: CascadeConfig, device: torch.device) -> List[_Level]:
     """The cascade's levels, each initialised from its own seeded CPU
     generator, with deferral costs c_{i+1} (the expert's for the last)."""
@@ -428,6 +453,54 @@ class OnlineCascade:
         close = getattr(self.expert, "close", None)
         if close is not None:
             close()
+
+    # -- live-state checkpoints (as the batched engine's) ---------------
+    def _fingerprint(self) -> dict:
+        return {"engine": "sequential", "n_levels": len(self.levels),
+                "seed": self.cfg.seed, "n_classes": self.cfg.n_classes}
+
+    def save_state(self, path: str) -> str:
+        """Checkpoint learned + accounting state mid-stream: the levels
+        (STATE_ATTRS, beta, FIFO cache) and the scalars.  The per-item
+        RNG is a pure function of (seed, stream_id, t), so resuming at
+        item ``t`` replays the uninterrupted run bitwise."""
+        tree = {
+            "levels": [lvl.state_tree() for lvl in self.levels],
+            "cache_x": [lvl.cache_x.copy() for lvl in self.levels],
+            "cache_y": [lvl.cache_y.copy() for lvl in self.levels],
+            "level_counts": self.level_counts,
+        }
+        meta = {
+            **self._fingerprint(),
+            "t": self.t, "stream_id": self.stream_id,
+            "beta": [float(lvl.beta) for lvl in self.levels],
+            "cache_n": [lvl.cache_n for lvl in self.levels],
+            "cache_ptr": [lvl.cache_ptr for lvl in self.levels],
+            "expert_calls": self.expert_calls,
+            "total_cost": self.total_cost,
+            "J_cum": self.J_cum,
+        }
+        return save_checkpoint(path, tree, meta)
+
+    def restore_state(self, path: str) -> None:
+        """Restore a ``save_state`` checkpoint (of either package) into
+        this same-config cascade, on its device; raises
+        ``CheckpointError`` on a config mismatch."""
+        tree, meta = restore_checkpoint(path)
+        check_fingerprint(meta, self._fingerprint())
+        for i, lvl in enumerate(self.levels):
+            lvl.load_state_tree(tree["levels"][i])
+            lvl.beta = float(meta["beta"][i])
+            lvl.cache_x[:] = np.asarray(tree["cache_x"][i])
+            lvl.cache_y[:] = np.asarray(tree["cache_y"][i])
+            lvl.cache_n = int(meta["cache_n"][i])
+            lvl.cache_ptr = int(meta["cache_ptr"][i])
+        self.level_counts[:] = np.asarray(tree["level_counts"])
+        self.t = int(meta["t"])
+        self.stream_id = int(meta["stream_id"])
+        self.expert_calls = int(meta["expert_calls"])
+        self.total_cost = float(meta["total_cost"])
+        self.J_cum = float(meta["J_cum"])
 
     def _predict_and_defer(self, i: int, x: np.ndarray):
         lvl = self.levels[i]

@@ -1,7 +1,12 @@
-"""Synthetic streams and featurizers (numpy copies of ``repro.data``)."""
+"""Synthetic streams, arrival schedules and featurizers (numpy copies of
+``repro.data``)."""
 from repro_torch.data.features import hash_bow, hash_ids
 from repro_torch.data.streams import (
-    BENCHMARKS, Stream, StreamSpec, benchmark_spec, lm_batches, make_stream)
+    BENCHMARKS, Request, Stream, StreamSpec, arrival_schedule,
+    benchmark_spec, burst_requests, lm_batches, lockstep_requests,
+    make_stream, poisson_requests)
 
-__all__ = ["BENCHMARKS", "Stream", "StreamSpec", "benchmark_spec",
-           "hash_bow", "hash_ids", "lm_batches", "make_stream"]
+__all__ = ["BENCHMARKS", "Request", "Stream", "StreamSpec",
+           "arrival_schedule", "benchmark_spec", "burst_requests",
+           "hash_bow", "hash_ids", "lm_batches", "lockstep_requests",
+           "make_stream", "poisson_requests"]

@@ -15,10 +15,12 @@ this offline container, so we generate seeded token streams that expose the
 The expert LLM is simulated as ground truth + a per-dataset error rate
 matched to the paper's Table 1 LLM rows, biased toward long inputs.
 
-The port's copy of ``repro.data.streams`` (stream generation and the
-LM batches the zoo's prompts come from; the arrival schedules are not
-ported yet).  The tests pin ``make_stream`` docs, labels and expert
-labels, and ``lm_batches``, bit-for-bit against the reference.
+The port's copy of ``repro.data.streams``: stream generation, the LM
+batches the zoo's prompts come from, and the arrival schedules of the
+admission front-end (``Request``, ``lockstep_requests``,
+``poisson_requests``, ``burst_requests``, ``arrival_schedule``).  The
+tests pin ``make_stream`` docs, labels and expert labels,
+``lm_batches`` and every schedule bit-for-bit against the reference.
 """
 from __future__ import annotations
 
@@ -276,3 +278,102 @@ def lm_batches(vocab: int, batch: int, seq: int, steps: int, seed: int = 0):
                 nxt[b] = rng.choice(n_states, p=trans[state[b]])
             state = nxt
         yield {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# Arrival schedules (the admission front-end, core/admission.py)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class Request:
+    """One stream-of-queries request for the admission front-end.
+
+    ``rid`` is the request's RNG stream identity (the ``stream_id`` an
+    isolated sequential run of the same request would use, core/rng.py);
+    ``arrival`` the 1-based front-end tick it becomes admissible at (0
+    means "before serving starts"); ``items`` the indices into the base
+    stream's corpus it consumes, in order.  A schedule partitions
+    ``range(n_items)`` across its requests, so one ``SimulatedExpert``
+    over the base stream annotates every request."""
+    rid: int
+    arrival: int
+    items: tuple
+
+
+def lockstep_requests(n_items: int, n_lanes: int) -> List[Request]:
+    """The all-at-t=0 schedule: ``n_lanes`` requests, request r taking
+    the stride-``n_lanes`` subsequence r, r+S, r+2S, ... — exactly the
+    item -> lane mapping of ``BatchedCascadeEngine.run``, so serving it
+    through the front-end is bitwise the classic lockstep run."""
+    if n_lanes < 1:
+        raise ValueError("n_lanes must be >= 1")
+    return [Request(rid=r, arrival=0,
+                    items=tuple(range(r, n_items, n_lanes)))
+            for r in range(min(n_lanes, n_items))]
+
+
+def _segment_lengths(n_items: int, mean_len: int, rng) -> List[int]:
+    """Partition n_items into contiguous request lengths ~ Geometric."""
+    if mean_len < 1:
+        raise ValueError("mean_len must be >= 1")
+    lens: List[int] = []
+    left = n_items
+    cap = max(8 * mean_len, 1)
+    while left > 0:
+        k = min(int(rng.geometric(1.0 / mean_len)), cap, left)
+        lens.append(k)
+        left -= k
+    return lens
+
+
+def poisson_requests(n_items: int, *, rate: float, mean_len: int = 8,
+                     seed: int = 0) -> List[Request]:
+    """Open-loop Poisson arrivals over contiguous corpus segments: request
+    r is the next ``~Geometric(1/mean_len)`` items; inter-arrival gaps are
+    Exponential(1/rate) ticks (``rate`` in requests per tick), binned to
+    integer arrival ticks.  Fully determined by ``(n_items, rate,
+    mean_len, seed)``."""
+    if rate <= 0:
+        raise ValueError("rate must be > 0 requests/tick")
+    rng = np.random.default_rng(
+        zlib.crc32(f"arrivals:poisson:{seed}:{rate}:{mean_len}".encode()))
+    lens = _segment_lengths(n_items, mean_len, rng)
+    gaps = rng.exponential(1.0 / rate, size=len(lens))
+    arrivals = 1 + np.floor(np.cumsum(gaps)).astype(np.int64)
+    reqs, start = [], 0
+    for r, k in enumerate(lens):
+        reqs.append(Request(rid=r, arrival=int(arrivals[r]),
+                            items=tuple(range(start, start + k))))
+        start += k
+    return reqs
+
+
+def burst_requests(n_items: int, *, burst: int = 8, every: int = 4,
+                   mean_len: int = 8, seed: int = 0) -> List[Request]:
+    """Bursty arrivals: groups of ``burst`` requests land together every
+    ``every`` ticks — the overload shape the shedding policy is for."""
+    if burst < 1 or every < 1:
+        raise ValueError("burst and every must be >= 1")
+    rng = np.random.default_rng(
+        zlib.crc32(f"arrivals:burst:{seed}:{burst}:{every}:"
+                   f"{mean_len}".encode()))
+    lens = _segment_lengths(n_items, mean_len, rng)
+    reqs, start = [], 0
+    for r, k in enumerate(lens):
+        reqs.append(Request(rid=r, arrival=1 + (r // burst) * every,
+                            items=tuple(range(start, start + k))))
+        start += k
+    return reqs
+
+
+def arrival_schedule(kind: str, n_items: int, **kw) -> List[Request]:
+    """Named schedule for the serve CLI: ``lockstep`` (all at t=0, stride
+    partition; takes ``n_lanes``), ``poisson`` (open-loop, contiguous
+    segments), ``burst`` (grouped arrivals)."""
+    if kind == "lockstep":
+        return lockstep_requests(n_items, kw.pop("n_lanes"))
+    if kind == "poisson":
+        return poisson_requests(n_items, **kw)
+    if kind == "burst":
+        return burst_requests(n_items, **kw)
+    raise ValueError(f"unknown arrival schedule {kind!r} "
+                     "(expected lockstep|poisson|burst)")

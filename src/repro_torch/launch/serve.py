@@ -10,7 +10,13 @@ Two engines:
   async expert queue), ``--pipeline-depth`` (pipelined route passes),
   ``--expert-workers`` / ``--expert-backend`` (the expert pool),
   ``--per-lane-commit``, ``--expert-timeout`` (fault requeues) and
-  ``--autoscale`` (the expert fleet).
+  ``--autoscale`` (the expert fleet); live-state checkpoints
+  (``--checkpoint-every`` / ``--checkpoint-path``, ``--restore``); and
+  the continuous-batching front-end (``--arrivals lockstep|poisson|
+  burst`` over a pool of ``--lane-budget`` lanes, ``--admission queue|
+  shed``, ``--queue-limit``, ``--arrival-rate``, ``--request-len``,
+  ``--burst-size``), which reports time-to-answer p50 / p99, occupancy,
+  shed requests and goodput.
 * ``--engine sequential``: the per-item Algorithm-1 loop
   (``OnlineCascade``), with micro-batched expert calls via a probe/replay
   pass.
@@ -32,6 +38,12 @@ Usage:
       --per-lane-commit --pipeline-depth 2
   PYTHONPATH=src python -m repro_torch.launch.serve --ladder kernel \
       --expert simulated --dataset imdb --samples 2048 --batch 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --ladder kernel \
+      --expert simulated --dataset imdb --samples 2048 --batch 64 \
+      --arrivals poisson --arrival-rate 8 --request-len 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --expert simulated \
+      --samples 320 --batch 16 --checkpoint-every 8 \
+      --checkpoint-path build/live     # then the same with --restore build/live
 """
 from __future__ import annotations
 
@@ -40,15 +52,17 @@ import time
 
 import numpy as np
 
-from repro_torch.core import (BatchedCascadeEngine, OnlineCascade,
-                              SimulatedExpert, default_cascade_config,
-                              kernel_cascade_config, train_model_expert)
+from repro_torch.core import (BatchedCascadeEngine, CascadeFrontEnd,
+                              OnlineCascade, SimulatedExpert,
+                              default_cascade_config, kernel_cascade_config,
+                              train_model_expert)
 from repro_torch.core.rng import tick_rngs
-from repro_torch.data import make_stream
+from repro_torch.data import arrival_schedule, make_stream
 from repro_torch.device import DeviceLike, resolve_device, sync
 from repro_torch.models.kernel_students import TINY_SSM_CI, TINY_TF_CI
 
 LADDERS = ("default", "kernel", "kernel-ci")
+ARRIVALS = ("none", "lockstep", "poisson", "burst")
 
 
 def _ladder_config(ladder: str, n_classes: int, mu: float, seed: int,
@@ -150,15 +164,68 @@ def probe_route(cascade: OnlineCascade, doc, tick: int) -> bool:
     return True
 
 
-def _report(metrics: dict, n: int, dt: float, lanes: str) -> None:
+def _report(metrics: dict, n: int, dt: float, lanes: str,
+            served: int = None) -> None:
+    """``n`` items in the stream, ``served`` of them by this call (fewer
+    after a restore; expert calls and level fractions cover all n)."""
+    served = n if served is None else served
     frac = metrics["expert_calls"] / n
-    print(f"\nserved {n} queries in {dt:.1f}s "
-          f"({n / max(dt, 1e-9):.0f} items/s, {lanes})")
+    print(f"\nserved {served} queries in {dt:.1f}s "
+          f"({served / max(dt, 1e-9):.0f} items/s, {lanes})")
     print(f"accuracy={metrics['accuracy']:.4f}  "
           f"expert_calls={metrics['expert_calls']} "
           f"({frac:.1%} of stream)  cost_saving={1-frac:.1%}")
     print(f"level fractions: "
           f"{[round(float(f), 3) for f in metrics['level_fractions']]}")
+
+
+def _serve_frontend(engine, stream, arrivals: str, *, admission: str,
+                    queue_limit: int, arrival_rate: float,
+                    request_len: int, burst_size: int, seed: int) -> dict:
+    """The continuous-batching path: a seeded arrival schedule through
+    the admission front-end, with a per-stream latency report.  Returns
+    the front-end's ``metrics()`` plus accuracy over the served items,
+    wall seconds, goodput and the front-end (``"frontend"``)."""
+    if arrivals == "lockstep":
+        kw = {"n_lanes": engine.n_streams}
+    elif arrivals == "poisson":
+        kw = {"rate": arrival_rate, "mean_len": request_len, "seed": seed}
+    else:
+        kw = {"burst": burst_size, "mean_len": request_len, "seed": seed,
+              "every": max(1, int(round(burst_size / arrival_rate)))}
+    requests = arrival_schedule(arrivals, len(stream), **kw)
+    fe = CascadeFrontEnd(engine, stream, admission=admission,
+                         queue_limit=queue_limit)
+    t0 = time.time()
+    fe.serve(requests)
+    sync(engine.device)
+    dt = time.time() - t0
+    m = fe.metrics()
+    served = m["predictions"] >= 0
+    acc = (float(np.mean(m["predictions"][served]
+                         == stream.labels[served]))
+           if served.any() else 0.0)
+    cs = engine.commit_stats
+    goodput = m["items_done"] / max(dt, 1e-9)
+    print(f"\nserved {m['items_done']} items of {m['requests']} "
+          f"requests in {dt:.1f}s over {m['ticks']} ticks "
+          f"(arrivals={arrivals}, lanes={engine.n_streams}, "
+          f"admission={admission}, device={engine.device})")
+    print(f"answered={m['answered']} shed={m['shed']}  "
+          f"goodput={goodput:.0f} items/s  "
+          f"occupancy={m['occupancy_mean']:.2f}/{engine.n_streams} "
+          f"(idle ticks={m['idle_ticks']})")
+    print(f"time-to-answer p50={m['tta_p50']:.0f} "
+          f"p99={m['tta_p99']:.0f} ticks  "
+          f"mean queue delay={m['queue_delay_mean']:.2f} ticks")
+    if cs["lanes"]:
+        print(f"annotation commits: {cs['lanes']} lanes, "
+              f"mean age {cs['age_sum'] / cs['lanes']:.2f} ticks")
+    print(f"accuracy={acc:.4f} over served items  "
+          f"expert_calls={engine.expert_calls_total}")
+    m.update(accuracy=acc, wall_s=dt, goodput=goodput,
+             expert_calls=engine.expert_calls_total, frontend=fe)
+    return m
 
 
 def serve_stream_batched(dataset: str, samples: int, mu: float,
@@ -170,14 +237,28 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
                          pipeline_depth: int = 0, expert_workers: int = 1,
                          per_lane: bool = False,
                          expert_backend: str = "thread",
-                         expert_timeout=None, autoscale=None):
+                         expert_timeout=None, autoscale=None,
+                         arrivals: str = "none", lane_budget: int = 0,
+                         admission: str = "queue", queue_limit: int = 0,
+                         arrival_rate: float = 1.0, request_len: int = 8,
+                         burst_size: int = 8, checkpoint_every: int = 0,
+                         checkpoint_path: str = "", restore: str = ""):
     """Default serving path: the batched multi-stream engine, with the
     engine matrix's options (``async_delay`` = the engine's
     ``max_delay``; ``autoscale`` = (lo, hi) fleet bounds, the expert
-    built with ``workers="auto"``).  Returns the engine's ``run`` metrics
-    plus the engine itself (``"engine"``: its levels' forward counts,
+    built with ``workers="auto"``).  ``checkpoint_every`` saves live
+    state to ``checkpoint_path`` every that many ticks, and ``restore``
+    resumes from such a checkpoint at its tick.  ``arrivals`` other than
+    "none" serves a seeded arrival schedule through the admission
+    front-end over a pool of ``lane_budget`` lanes (default ``batch``)
+    under ``admission`` "queue" or "shed" (``queue_limit``).  Returns the
+    engine's ``run`` metrics (or, with arrivals, the front-end's) plus
+    the engine itself (``"engine"``: its levels' forward counts,
     per-stream accounting, its expert, its pipeline / commit / fault
     stats) and the expert's training seconds (``"expert_train_s"``)."""
+    if arrivals not in ARRIVALS:
+        raise ValueError(f"unknown arrivals {arrivals!r} "
+                         f"({' | '.join(ARRIVALS)})")
     dev = resolve_device(device)
     stream = make_stream(dataset, seed=seed, n_samples=samples)
     expert, train_s = _make_expert(
@@ -186,17 +267,35 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
         backend=expert_backend)
     cfg = _ladder_config(ladder, stream.spec.n_classes, mu, seed,
                          expert.cost)
-    # history_limit=0: serving reads only aggregate metrics
-    engine = BatchedCascadeEngine(cfg, expert, n_streams=batch,
+    # history_limit=0: serving reads only aggregate metrics; the
+    # front-end keeps the commit log, which its per-stream records read
+    engine = BatchedCascadeEngine(cfg, expert,
+                                  n_streams=lane_budget or batch,
                                   updates_per_tick=updates_per_tick,
                                   max_delay=async_delay,
                                   pipeline_depth=pipeline_depth,
                                   per_lane=per_lane, history_limit=0,
+                                  commit_log=arrivals != "none" or None,
                                   expert_timeout=expert_timeout,
                                   autoscale=autoscale, device=dev)
+    if restore:
+        engine.restore_state(restore)
+        print(f"restored live state from {restore} (resuming at tick "
+              f"{engine.t}, item {engine.t * engine.n_streams})")
+    first = engine.t * engine.n_streams
     t0 = time.time()
     try:
-        metrics = engine.run(stream, log_every=log_every)
+        if arrivals != "none":
+            metrics = _serve_frontend(
+                engine, stream, arrivals, admission=admission,
+                queue_limit=queue_limit, arrival_rate=arrival_rate,
+                request_len=request_len, burst_size=burst_size, seed=seed)
+            metrics["engine"] = engine
+            metrics["expert_train_s"] = train_s
+            return metrics
+        metrics = engine.run(stream, log_every=log_every,
+                             checkpoint_every=checkpoint_every,
+                             checkpoint_path=checkpoint_path or None)
     finally:
         engine.close()
     sync(dev)
@@ -229,7 +328,9 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
               f"dropped_annotations={fs['dropped_annotations']} "
               f"fleet resizes={len(engine.fleet_log)} "
               f"(final width {engine.expert.workers})")
-    _report(metrics, len(stream), dt, lanes)
+    if checkpoint_every and checkpoint_path:
+        lanes += f" checkpoint_every={checkpoint_every}"
+    _report(metrics, len(stream), dt, lanes, served=len(stream) - first)
     metrics["engine"] = engine
     metrics["expert_train_s"] = train_s
     return metrics
@@ -363,6 +464,49 @@ def main(argv=None):
                          "annotation commits on a deterministic "
                          "sub-deadline as a per-item update; results are "
                          "bitwise invariant to worker count and latency")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save live engine state every N ticks to "
+                         "--checkpoint-path (classic serving path): "
+                         "params, optimizer / deferral state, rings, the "
+                         "pending annotation queue and the stats; "
+                         "resuming with --restore reproduces the "
+                         "uninterrupted run bitwise; 0 = off")
+    ap.add_argument("--checkpoint-path", default="",
+                    help="checkpoint directory for --checkpoint-every "
+                         "(written atomically; also what --restore "
+                         "takes)")
+    ap.add_argument("--restore", default="",
+                    help="resume serving from a live-state checkpoint "
+                         "(written by either package): the engine picks "
+                         "up at the saved tick")
+    ap.add_argument("--arrivals", default="none", choices=list(ARRIVALS),
+                    help="continuous-batching front-end (batched "
+                         "engine): requests arrive on this seeded "
+                         "schedule, claim a lane from the pool, run to "
+                         "their own length and retire; 'none' = classic "
+                         "lockstep serving, 'lockstep' = every request at "
+                         "t=0 (bitwise the classic run), 'poisson' / "
+                         "'burst' = open-loop staggered traffic")
+    ap.add_argument("--lane-budget", type=int, default=0,
+                    help="lane-pool capacity (concurrent streams); "
+                         "0 = --batch")
+    ap.add_argument("--admission", default="queue",
+                    choices=["queue", "shed"],
+                    help="overload policy for --arrivals serving: 'queue' "
+                         "waits arrivals FCFS without bound; 'shed' drops "
+                         "arrivals beyond --queue-limit waiting requests "
+                         "(recorded, never served)")
+    ap.add_argument("--queue-limit", type=int, default=0,
+                    help="waiting-request capacity under --admission shed "
+                         "(beyond the free lanes)")
+    ap.add_argument("--arrival-rate", type=float, default=1.0,
+                    help="offered load for --arrivals poisson / burst, in "
+                         "requests per tick")
+    ap.add_argument("--request-len", type=int, default=8,
+                    help="mean request length in items (geometric) for "
+                         "--arrivals poisson / burst")
+    ap.add_argument("--burst-size", type=int, default=8,
+                    help="requests per burst for --arrivals burst")
     ap.add_argument("--microbatch", type=int, default=16,
                     help="expert micro-batch size (sequential engine): "
                          "the probe/replay pass batches this many items' "
@@ -398,7 +542,17 @@ def main(argv=None):
                              per_lane=args.per_lane_commit,
                              expert_backend=args.expert_backend,
                              expert_timeout=args.expert_timeout,
-                             autoscale=parse_autoscale(args.autoscale))
+                             autoscale=parse_autoscale(args.autoscale),
+                             arrivals=args.arrivals,
+                             lane_budget=args.lane_budget,
+                             admission=args.admission,
+                             queue_limit=args.queue_limit,
+                             arrival_rate=args.arrival_rate,
+                             request_len=args.request_len,
+                             burst_size=args.burst_size,
+                             checkpoint_every=args.checkpoint_every,
+                             checkpoint_path=args.checkpoint_path,
+                             restore=args.restore)
     else:
         serve_stream(args.dataset, args.samples, args.mu,
                      microbatch=args.microbatch, expert_kind=args.expert,

@@ -18,8 +18,11 @@ zoo's smoke model must serve on the card as on the CPU.  The engine
 matrix: pipelined depth 2 routes as depth 0 with bitwise state, stage B
 waits for the level-0 copy's event (device work queued ahead of it with
 ``torch.cuda._sleep``), and the model expert's pool threads run on
-streams of their own.  Nothing here imports JAX (the GPU machine has
-none).
+streams of their own.  Occupancy and checkpoints: an empty tick on the
+kernel ladder launches nothing and a 1-lane tick pads to bucket 8; an
+engine resume is bitwise on the card; a checkpoint written on the card
+restores on the CPU and routes the same.  Nothing here imports JAX (the
+GPU machine has none).
 """
 import numpy as np
 import pytest
@@ -643,3 +646,101 @@ def test_pool_workers_run_on_their_own_streams(cuda):
         assert len({s.cuda_stream for s in streams}) == len(streams)
     finally:
         ex.close()
+
+
+# ---------------------------------------------------------------------------
+# occupancy ticks and live-state checkpoints on the card
+# ---------------------------------------------------------------------------
+def _kernel_counts():
+    return (flash_attention_cuda.launches, decode_attention_cuda.launches,
+            ssd_scan_cuda.launches)
+
+
+def test_empty_and_one_lane_ticks_on_the_kernel_ladder(cuda):
+    """An empty tick launches no kernel and raises no CUDA error; a
+    1-lane tick pads every level it reaches to bucket 8, and each kernel
+    launches as often as the layer forwards counted."""
+    from repro_torch.core import BatchedCascadeEngine, SimulatedExpert
+    from repro_torch.data import make_stream
+    stream = make_stream("imdb", seed=0, n_samples=16)
+    eng = BatchedCascadeEngine(_ci_ladder(), SimulatedExpert(stream),
+                               n_streams=16, max_delay=1, device=cuda)
+    eng.process_tick([0, 1], stream.docs[:2], lanes=[3, 9])
+    before = _kernel_counts()
+    fw = [lvl.forwards for lvl in eng.levels]
+    out = eng.process_tick([], [])              # commits tick 1, no route
+    torch.cuda.synchronize()
+    assert _kernel_counts() == before and out["lanes"].shape == (0,)
+    assert [lvl.forwards for lvl in eng.levels] == fw
+    for lvl in eng.levels:
+        lvl.forwards, lvl.forwards_by_batch = 0, {}
+    before = _kernel_counts()
+    eng.process_tick([2], stream.docs[2:3], lanes=[5], stream_ids=[7],
+                     stream_ticks=[1])
+    torch.cuda.synchronize()
+    tf, ssm = eng.levels[1], eng.levels[2]
+    assert set(tf.forwards_by_batch) | set(ssm.forwards_by_batch) <= {8}
+    got = [a - b for a, b in zip(_kernel_counts(), before)]
+    assert got == [tf.sspec.n_layers * tf.forwards, tf.forwards,
+                   ssm.sspec.n_layers * ssm.forwards]
+    assert eng.items_seen[5] == 1 and eng.items_seen.sum() == 3
+
+
+def _ckpt_engine(dev, stream, **opts):
+    from repro_torch.core import BatchedCascadeEngine, SimulatedExpert
+    return BatchedCascadeEngine(
+        _ci_ladder(), SimulatedExpert(stream, workers=2, latency=1),
+        n_streams=8, device=dev, **opts)
+
+
+def _serve_ticks(eng, stream, lo, hi):
+    S = eng.n_streams
+    for t in range(lo, hi):
+        idxs = list(range(t * S, (t + 1) * S))
+        eng.process_tick(idxs, [stream.docs[i] for i in idxs])
+
+
+def test_engine_resume_is_bitwise_on_the_card(cuda, tmp_path):
+    from repro_torch.core import STATE_ATTRS
+    from repro_torch.data import make_stream
+    from repro_torch.tree import tree_leaves
+    stream = make_stream("hatespeech", seed=0, n_samples=128)
+    opts = {"max_delay": 2, "per_lane": True}
+    full = _ckpt_engine(cuda, stream, **opts)
+    m_full = full.run(stream)
+    part = _ckpt_engine(cuda, stream, **opts)
+    _serve_ticks(part, stream, 0, 7)
+    part.save_state(str(tmp_path / "ck"))
+    res = _ckpt_engine(cuda, stream, **opts)
+    res.restore_state(str(tmp_path / "ck"))
+    assert all(t.device.type == "cuda" for t in res._cache_x)
+    m_res = res.run(stream)
+    assert np.array_equal(m_full["predictions"][56:],
+                          m_res["predictions"][56:])
+    assert full.commit_log == res.commit_log
+    for a, b in zip(full.levels, res.levels):
+        for attr in STATE_ATTRS:
+            for x, y in zip(tree_leaves(getattr(a, attr)),
+                            tree_leaves(getattr(b, attr))):
+                assert x.device.type == "cuda" and torch.equal(x, y), attr
+
+
+def test_card_checkpoint_restores_on_the_cpu(cuda, tmp_path):
+    """Saved on the card at tick 7, finished on the card and, from the
+    same checkpoint, on the CPU: identical routing."""
+    from repro_torch.data import make_stream
+    stream = make_stream("hatespeech", seed=0, n_samples=128)
+    opts = {"max_delay": 2, "per_lane": True}
+    part = _ckpt_engine(cuda, stream, **opts)
+    _serve_ticks(part, stream, 0, 7)
+    part.save_state(str(tmp_path / "ck"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = _ckpt_engine(dev, stream, **opts)
+        eng.restore_state(str(tmp_path / "ck"))
+        m = eng.run(stream)
+        runs[dev] = (m["predictions"][56:], m["expert_calls"],
+                     np.concatenate(eng.history["level"]))
+    assert np.array_equal(runs["cuda"][0], runs["cpu"][0])
+    assert runs["cuda"][1] == runs["cpu"][1]
+    assert np.array_equal(runs["cuda"][2], runs["cpu"][2])
