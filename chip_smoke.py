@@ -100,6 +100,32 @@ Phases (any failure exits non-zero and prints no result line):
      card and on the CPU: identical routing and records, else the first
      tick and lane that differ; then the launches over the phase, the
      flash calls by batch and the phase's seconds;
+  10. sanitize-distill: the runtime sanitizers
+     (``repro_torch.analysis.sanitize``) on the kernel ladder at full
+     width (imdb, seed 0, mu 3e-7, 64 lanes, simulated expert), each
+     served run's kernel launches counted from zero against its layer
+     forwards: (a) determinism traces of 2048 items at depth 0 and depth
+     2, ``diff_traces`` None with the state digests; (b) per-lane commits
+     at max_delay 2, W=1 against W=4 under an adversarial latency, 512
+     items: None; (c) 16 ticks, ``save_state``, a fresh engine restored
+     and run to the end: the two segments' ``concat_traces`` equal to
+     (a)'s uninterrupted trace; (d) 48 items at batch 8, card against
+     CPU: None on every field but the state digests, the per-lane RNG
+     digests equal (else the ``Divergence.describe()`` line); (f) under
+     ``retrace``, (a)'s depth-0 run: the signatures of each staged
+     function beside the launches and the forwards by bucket, at most 4
+     per ``route_pass[i]`` and ``retrace_check(limit=16)`` empty; (g)
+     items/s with the determinism trace off / on / on / off, and the ms
+     and bytes of one tick's state digests; (e) a ``ModelExpert``
+     (d_model 256, 4 layers, seeded weights) with a W=4 thread pool under
+     ``locks``, per-lane max_delay 2, 512 items: no raise, 0 order
+     violations; a bare ``ExpertTicket._shards`` read must raise
+     ``LockSanitizerError``; (h) ``distill_students`` on the card at
+     ``TinyTFSpec()`` widths, imdb, 2048 items, simulated expert, 3
+     epochs, budgets 106 and 1024: lr and tinytf accuracy and recall,
+     seconds, beside the cascade's accuracy from (a) on the same test
+     half; then 48 items on the card and the CPU: accuracies within one
+     test item;
   6. zoo-kernels: Mixtral-8x22B at full width (d_model 6144, 48/8 heads
      of 128, 8 experts of d_ff 16384, bf16), depth cut to 2 layers,
      weights from a seeded CUDA generator; prompts from
@@ -140,7 +166,8 @@ variant (decode attention: "single" / "split"), and ``paths`` has each
 path's own count, times, ``variant`` (the one its timed row took; the
 SSD scan has one scalar kernel, "simt") and ``launches_by_variant``,
 ``cascade_pipelined`` the launches of phase 8 (c)'s depth-2 run,
-``cascade_admission`` those of phase 9 (c)'s Poisson run at depth 0;
+``cascade_admission`` those of phase 9 (c)'s Poisson run at depth 0,
+``cascade_sanitized`` those of phase 10 (a)'s depth-0 run;
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -1212,10 +1239,12 @@ ADMIT_FE_TICKS = 16       # (e): serve 16 ticks, save, resume
 
 
 class _PhaseCounts:
-    """Kernel launches over phase 9, summed from runs each counted from
-    zero, and the flash calls by padded batch over the same runs."""
+    """Kernel launches over a phase (9 or 10, named ``phase``), summed
+    from runs each counted from zero, and the flash calls by padded batch
+    over the same runs."""
 
-    def __init__(self):
+    def __init__(self, phase):
+        self.phase = phase
         self.launches = dict.fromkeys(LAUNCHERS, 0)
         self.flash_by_batch = {}
 
@@ -1239,7 +1268,7 @@ class _PhaseCounts:
                 expect[n] += e[n]
             for b, c in fb.items():
                 flash_b[b] = flash_b.get(b, 0) + c
-        print(f"[checkpoint-admission] {tag}: launches {got} expected "
+        print(f"[{self.phase}] {tag}: launches {got} expected "
               f"{expect}; flash calls by batch {dict(sorted(flash_b.items()))}",
               flush=True)
         if got != expect or min(got.values()) <= 0:
@@ -1481,7 +1510,7 @@ def phase_checkpoint_admission():
                                   make_stream, poisson_requests)
     t_phase = time.time()
     stream = make_stream("imdb", seed=0, n_samples=MATRIX_ITEMS)
-    counts = _PhaseCounts()
+    counts = _PhaseCounts("checkpoint-admission")
     with tempfile.TemporaryDirectory() as tmp:
         e_classic, m_classic = _admit_resume(stream, counts, tmp)
         _admit_lane_resume(tmp)
@@ -1579,6 +1608,269 @@ def phase_checkpoint_admission():
           f"{dict(sorted(counts.flash_by_batch.items()))}; phase seconds "
           f"{time.time() - t_phase:.1f}", flush=True)
     return admission
+
+
+# ---------------------------------------------------------------------------
+# sanitize-distill: the runtime sanitizers on the kernel ladder at full
+# width (imdb, seed 0, mu 3e-7, 64 lanes) and the distillation baseline
+# ---------------------------------------------------------------------------
+SAN_LANE_ITEMS = 512      # (b) per-lane W=1 vs W=4, (e) the locked pool
+SAN_CUT = 16              # (c) checkpoint at tick 16, resume
+SAN_SMALL, SAN_SMALL_BATCH = 48, 8      # (d) card vs CPU; (h) CPU twin
+SAN_RETRACE_BUCKETS = 4   # buckets 8 / 16 / 32 / 64 at 64 lanes
+SAN_RETRACE_LIMIT = 16    # serve.py's retrace_check limit
+DISTILL_BUDGETS = (TABLE1_BUDGET, MATRIX_ITEMS // 2)
+DISTILL_EPOCHS = 3        # as benchmarks/common.py runs the reference
+
+
+def _san_run(counts, tag, eng, stream):
+    """Serve ``stream`` on ``eng`` with every kernel's launches counted
+    from zero against its layer forwards; prints items/s and wall s."""
+    t0 = time.time()
+    m, got, by_variant = counts.run(tag, lambda: [eng],
+                                    lambda: eng.run(stream))
+    wall = time.time() - t0
+    print(f"[sanitize-distill] {tag}: items_per_sec="
+          f"{m['items_per_sec']:.1f} wall_s={wall:.2f} accuracy="
+          f"{m['accuracy']:.4f} expert_calls={m['expert_calls']}",
+          flush=True)
+    return m, got, by_variant
+
+
+def _san_same(tag, a, b, state=True):
+    """Two determinism traces: ``diff_traces`` must be None (``state``
+    False strips the state digests first)."""
+    from repro_torch.analysis import sanitize as san
+    if not state:
+        a, b = ([{k: v for k, v in r.items() if k != "state"}
+                 for r in tr.ticks] for tr in (a, b))
+    d = san.diff_traces(a, b)
+    print(f"[sanitize-distill] {tag}: {len(a)} / {len(b)} tick records, "
+          f"state digests {'compared' if state else 'stripped'}: "
+          f"{'identical' if d is None else d.describe()}", flush=True)
+    if d is not None:
+        _fail(f"{tag}: {d.describe()}")
+
+
+def _san_retrace(eng, got):
+    """(f) the distinct signatures of each staged function over the
+    depth-0 run, beside the kernel launches and the flash calls by
+    bucket: every route pass at most one signature per bucket."""
+    from repro_torch.analysis import sanitize as san
+    rep = san.retrace_report()
+    _, flash_b = _layer_forwards(eng)
+    print(f"[sanitize-distill] (f) retrace signatures "
+          f"{dict(sorted(rep.items()))}; launches {got}; forwards by "
+          f"bucket {[dict(sorted(lv.forwards_by_batch.items())) for lv in eng.levels]}; "
+          f"flash calls by batch {flash_b}", flush=True)
+    routes = {k: v for k, v in rep.items() if k.startswith("route_pass")}
+    flagged = san.retrace_check(limit=SAN_RETRACE_LIMIT)
+    if len(routes) != len(eng.levels) \
+            or max(routes.values()) > SAN_RETRACE_BUCKETS or flagged:
+        _fail(f"(f) route-pass signatures {routes} (at most "
+              f"{SAN_RETRACE_BUCKETS} each) or past the limit {flagged}")
+
+
+def _san_cost(stream):
+    """(g) items/s with the determinism trace off and on, A B B A, and
+    the host ms of one tick's state digests."""
+    from repro_torch.analysis import sanitize as san
+    from repro_torch.core import SimulatedExpert
+    rates = {False: [], True: []}
+    for on in (False, True, True, False):
+        (san.enable if on else san.disable)({"determinism"})
+        eng = _admit_engine(SimulatedExpert(stream), history_limit=0)
+        t0 = time.time()
+        eng.run(stream)
+        _sync()
+        rates[on].append(len(stream) / (time.time() - t0))
+    nbytes = sum(x.numel() * x.element_size() for lvl in eng.levels
+                 for attr in ("params", "opt_state", "dparams", "dopt_state")
+                 for x in tree_leaves(getattr(lvl, attr)))
+    t0 = time.time()
+    for _ in range(10):
+        san.state_digests(eng.levels)
+    dig_ms = (time.time() - t0) / 10 * 1e3
+    off, on = (sum(rates[k]) / 2 for k in (False, True))
+    print(f"[sanitize-distill] (g) items_per_sec determinism off / on / on "
+          f"/ off: {rates[False][0]:.1f} / {rates[True][0]:.1f} / "
+          f"{rates[True][1]:.1f} / {rates[False][1]:.1f} (on / off "
+          f"{on / off:.4f}); state digests of one tick: {nbytes} bytes in "
+          f"{dig_ms:.3f} ms (host, one device-to-host copy)", flush=True)
+
+
+def _san_locks(stream):
+    """(e) the model expert's W=4 thread pool (one CUDA stream a thread)
+    under the lock sanitizer: clean, no order violation; then one
+    deliberate unguarded ticket read must raise."""
+    from repro_torch.analysis import sanitize as san
+    from repro_torch.core import ExpertTicket, ModelExpert
+    from repro_torch.models.students import TinyTFSpec, tinytf_init
+    spec = TinyTFSpec(d_model=256, n_layers=4, d_ff=1024, n_classes=2)
+    san.enable({"locks"})
+    try:
+        ex = ModelExpert(params=tinytf_init(torch.Generator().manual_seed(0),
+                                            spec, torch.device(MATRIX_DEVICE)),
+                         spec=spec, workers=4, device=MATRIX_DEVICE)
+        eng = _admit_engine(ex, max_delay=2, per_lane=True)
+        t0 = time.time()
+        try:
+            m = eng.run(stream)
+            _sync()
+            n_streams = len(ex.worker_streams())
+        finally:
+            eng.close()
+        violations = san.lock_order_violations()
+        ticket = ExpertTicket(labels=np.array([1, 0, 1]))
+        raised = False
+        try:
+            ticket._shards
+        except san.LockSanitizerError as e:
+            raised = True
+            msg = str(e)
+        print(f"[sanitize-distill] (e) W=4 thread pool under locks, "
+              f"{len(stream)} items, per-lane max_delay 2: "
+              f"{m['expert_calls']} expert calls in "
+              f"{time.time() - t0:.2f} s, {n_streams} pool "
+              f"streams, {len(violations)} order violations; a bare "
+              f"ExpertTicket._shards read raised LockSanitizerError "
+              f"{raised}" + (f" ({msg})" if raised else ""), flush=True)
+        if violations or not raised or not n_streams:
+            _fail("(e) the lock sanitizer saw an order violation or did "
+                  "not catch an unguarded read, or no pool stream ran")
+    finally:
+        san.disable({"locks"})
+
+
+def _san_distill(stream, cascade_preds):
+    """(h) distill_students on the card at TinyTFSpec() widths: the lr
+    and tinytf accuracy and recall at each budget, the seconds, the
+    cascade's accuracy on the same test half; then 48 items on the CPU
+    against the card (accuracies within one test item)."""
+    from repro_torch.core import SimulatedExpert, distill_students
+    from repro_torch.data import make_stream
+    half = len(stream) // 2
+    casc = float(np.mean(cascade_preds[half:] == stream.labels[half:]))
+    for budget in DISTILL_BUDGETS:
+        t0 = time.time()
+        r = distill_students(stream, SimulatedExpert(stream), budget,
+                             epochs=DISTILL_EPOCHS, seed=0,
+                             device=MATRIX_DEVICE)
+        _sync()
+        print(f"[sanitize-distill] (h) distill budget {budget}: lr "
+              f"{r['lr']}, tinytf {r['tinytf']} in {time.time() - t0:.2f} "
+              f"s; the cascade (a) on the same {len(stream) - half} test "
+              f"items: accuracy {casc:.4f}", flush=True)
+        for st in ("lr", "tinytf"):
+            if not 0.0 <= r[st]["accuracy"] <= 1.0:
+                _fail(f"(h) {st} accuracy {r[st]['accuracy']}")
+    small = make_stream("imdb", seed=0, n_samples=SAN_SMALL)
+    res = {dev: distill_students(small, SimulatedExpert(small),
+                                 SAN_SMALL // 2, epochs=DISTILL_EPOCHS,
+                                 seed=0, device=dev)
+           for dev in (MATRIX_DEVICE, "cpu")}
+    one = 1.0 / (SAN_SMALL - SAN_SMALL // 2)
+    gaps = {st: abs(res[MATRIX_DEVICE][st]["accuracy"]
+                    - res["cpu"][st]["accuracy"]) for st in ("lr", "tinytf")}
+    print(f"[sanitize-distill] (h) {SAN_SMALL} items, card vs CPU: "
+          f"{ {st: (res[MATRIX_DEVICE][st], res['cpu'][st]) for st in gaps} }",
+          flush=True)
+    if max(gaps.values()) > one + 1e-12:
+        _fail(f"(h) card and CPU distill accuracies differ by more than "
+              f"one test item: {gaps}")
+
+
+def phase_sanitize_distill():
+    """Phase 10: the runtime sanitizers on the kernel ladder at full
+    width, then the distillation baseline.  Returns (a)'s depth-0 run's
+    launches and launches by variant for the kernel record."""
+    import tempfile
+    from repro_torch.analysis import sanitize as san
+    from repro_torch.core import SimulatedExpert
+    from repro_torch.data import make_stream
+    t_phase = time.time()
+    stream = make_stream("imdb", seed=0, n_samples=MATRIX_ITEMS)
+    counts = _PhaseCounts("sanitize-distill")
+    try:
+        # (a) + (f): depth 0 and depth 2 under determinism and retrace
+        san.enable({"determinism", "retrace"})
+        traces = {}
+        for depth in (0, 2):
+            san.reset_retrace()
+            eng = _admit_engine(SimulatedExpert(stream),
+                                pipeline_depth=depth)
+            m, got, by_variant = _san_run(
+                counts, f"(a) determinism + retrace, pipeline_depth="
+                f"{depth}", eng, stream)
+            traces[depth] = san.trace_of(eng)
+            if depth == 0:
+                _san_retrace(eng, got)
+                sanitized, preds0 = (got, by_variant), m["predictions"]
+            del eng
+        san.disable({"retrace"})
+        _san_same("(a) depth 0 vs depth 2", traces[0], traces[2])
+
+        # (b) per-lane commits at max_delay 2, W=1 vs W=4
+        lane = make_stream("imdb", seed=0, n_samples=SAN_LANE_ITEMS)
+        lane_tr = {}
+        for w in (1, 4):
+            eng = _admit_engine(
+                SimulatedExpert(lane, workers=w,
+                                latency=_pool_latency if w > 1 else None),
+                per_lane=True, max_delay=2)
+            _san_run(counts, f"(b) per-lane max_delay 2, W={w}", eng, lane)
+            lane_tr[w] = san.trace_of(eng)
+            del eng
+        _san_same("(b) W=1 vs W=4", lane_tr[1], lane_tr[4])
+
+        # (c) checkpoint at tick 16, resumed in a fresh engine
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "live")
+            e_a = _admit_engine(SimulatedExpert(stream))
+            S = e_a.n_streams
+            for t in range(SAN_CUT):
+                idxs = list(range(t * S, (t + 1) * S))
+                e_a.process_tick(idxs, [stream.docs[i] for i in idxs])
+            e_a.save_state(path)
+            e_b = _admit_engine(SimulatedExpert(stream))
+            e_b.restore_state(path)
+            _san_run(counts, f"(c) resumed at tick {SAN_CUT}", e_b, stream)
+            joined = san.concat_traces(san.trace_of(e_a), san.trace_of(e_b))
+            del e_a, e_b
+        _san_same(f"(c) checkpoint at tick {SAN_CUT} + resume vs "
+                  "uninterrupted", joined, traces[0])
+        del traces, lane_tr
+
+        # (d) card against CPU, 48 items at batch 8
+        small = make_stream("imdb", seed=0, n_samples=SAN_SMALL)
+        small_tr = {}
+        for dev in (MATRIX_DEVICE, "cpu"):
+            eng = _admit_engine(SimulatedExpert(small), device=dev,
+                                n_streams=SAN_SMALL_BATCH)
+            eng.run(small)
+            small_tr[dev] = san.trace_of(eng)
+        rng_same = [r["rng"] for r in small_tr[MATRIX_DEVICE].ticks] == \
+            [r["rng"] for r in small_tr["cpu"].ticks]
+        print(f"[sanitize-distill] (d) card vs CPU: per-lane RNG digests "
+              f"equal {rng_same}", flush=True)
+        _san_same("(d) card vs CPU", small_tr[MATRIX_DEVICE],
+                  small_tr["cpu"], state=False)
+        if not rng_same:
+            _fail("(d) card and CPU RNG digests differ")
+
+        # (g) the trace's cost, A B B A
+        _san_cost(stream)
+    finally:
+        san.disable()
+    # (e) the lock sanitizer on the model expert's thread pool
+    _san_locks(lane)
+    # (h) the distillation baseline
+    _san_distill(stream, preds0)
+    print(f"[sanitize-distill] launches over the phase {counts.launches}; "
+          f"flash calls by batch "
+          f"{dict(sorted(counts.flash_by_batch.items()))}; phase seconds "
+          f"{time.time() - t_phase:.1f}", flush=True)
+    return sanitized
 
 
 # ---------------------------------------------------------------------------
@@ -1963,7 +2255,7 @@ def _record_row(rows, launches, by_variant):
 
 
 def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
-                  zoo_by_variant, pipelined, admission):
+                  zoo_by_variant, pipelined, admission, sanitized):
     """One entry per kernel: the top-level numbers are those of the path
     each kernel was first ported for (cascade at batch 64; moe_gmm: zoo
     prefill), ``launches`` and ``launches_by_variant`` the totals over the
@@ -1976,7 +2268,10 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
     ``cascade_pipelined`` the launches of phase 8 (c)'s pipelined run
     (kernel ladder, depth 2, counted from zero over that run);
     ``cascade_admission`` those of phase 9 (c)'s Poisson run through the
-    admission front-end (depth 0, counted from zero over that run)."""
+    admission front-end (depth 0, counted from zero over that run);
+    ``cascade_sanitized`` those of phase 10 (a)'s depth-0 run under the
+    determinism and retrace sanitizers (counted from zero over that
+    run)."""
     def split(counts, name, n):
         return counts.get(name, {"tc": 0, "simt": n})
 
@@ -2017,7 +2312,9 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
         if name in LAUNCHERS:
             for path, (counts, variants) in (("cascade_pipelined", pipelined),
                                              ("cascade_admission",
-                                              admission)):
+                                              admission),
+                                             ("cascade_sanitized",
+                                              sanitized)):
                 n = counts[name]
                 paths[path] = {"launches": n, "launches_by_variant":
                                split(variants, name, n)}
@@ -2041,6 +2338,7 @@ def main():
     phase_default_serve()
     pipelined = phase_engine_matrix(launches)
     admission = phase_checkpoint_admission()
+    sanitized = phase_sanitize_distill()
     cfg, params, prompts = zoo_model()
     zoo_results = phase_zoo_kernels(cfg, params, prompts)
     zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)
@@ -2048,7 +2346,7 @@ def main():
     phase_zoo_checks(cfg, params, prompts)
     print(json.dumps({"kernels": kernel_record(
         results, launches, by_variant, zoo_results, zoo_launches,
-        zoo_by_variant, pipelined, admission)}))
+        zoo_by_variant, pipelined, admission, sanitized)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

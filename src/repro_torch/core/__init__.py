@@ -7,8 +7,9 @@ live-state checkpoints), the continuous-batching front-end
 ``CascadeFrontEnd`` with its ``StreamRecord`` and ``serve_requests``,
 the paper's default and the kernel ladder's configurations, the
 deferral-gate math, the simulated and the model expert (and the
-fault-injecting ``FlakyExpert``), the MDP's cost terms and the
-online-ensemble baseline.
+fault-injecting ``FlakyExpert``), the MDP's cost terms, the
+online-ensemble baseline and the offline distillation baseline
+``distill_students``.
 """
 from repro_torch.core.admission import (CascadeFrontEnd, StreamRecord,
                                         serve_requests)
@@ -18,6 +19,7 @@ from repro_torch.core.cascade import (
     default_cascade_config, kernel_cascade_config)
 from repro_torch.core.deferral import (
     DeferralSpec, deferral_init, deferral_prob, reexploration_floor)
+from repro_torch.core.distill import distill_students
 from repro_torch.core.ensemble import OnlineEnsemble
 from repro_torch.core.experts import (
     ExpertShardError, ExpertShardTimeout, ExpertTicket, ExpertWorkerDied,
@@ -30,6 +32,7 @@ __all__ = ["BatchedCascadeEngine", "CascadeConfig", "CascadeFrontEnd",
            "ExpertWorkerDied", "FlakyExpert", "LEVEL_KINDS", "LevelSpec",
            "ModelExpert", "OnlineCascade", "OnlineEnsemble", "STATE_ATTRS",
            "SimulatedExpert", "StreamRecord", "default_cascade_config",
-           "deferral_init", "deferral_prob", "episode_cost",
+           "deferral_init", "deferral_prob", "distill_students",
+           "episode_cost",
            "kernel_cascade_config", "policy_value", "reexploration_floor",
            "serve_requests", "train_model_expert"]

@@ -100,8 +100,17 @@ the expert pool to replay its commits), then bumps the state version.
 The resumed run is bitwise the uninterrupted one from the checkpoint
 tick on; ``run`` on a restored engine resumes at item ``t * S``.
 
-Not ported yet (ROADMAP Queue 1): lane sharding over a mesh (item 11)
-and the determinism sanitizer's trace (item 9).
+Sanitizers (``repro_torch.analysis.sanitize``), as in the reference:
+under ``determinism`` every resolved tick appends one record (routing,
+per-lane RNG digests, ring mirrors, state digests) at the end of
+``_route_resolve``, after the tick's due commits — a point of the
+schedule that no worker count, pipeline depth or delay moves, so traces
+of such runs compare tick by tick; ``reset`` and ``restore_state`` drop
+it.  Under ``retrace`` the engine's route passes (``route_pass[i]``) and
+its ring scatter (``cache_scatter``) are probed, beside the levels' own
+steps.
+
+Not ported yet (ROADMAP Queue 1): lane sharding over a mesh (item 11).
 """
 from __future__ import annotations
 
@@ -113,6 +122,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.checkpoint import (CheckpointError, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.core.cascade import (
@@ -146,6 +156,26 @@ def lanes_due(k: int, age: int, max_delay: int, per_lane: bool) -> int:
     if not per_lane or age <= 0:
         return 0
     return (age * k) // max_delay
+
+
+def ring_scatter(cache_x: List[torch.Tensor], cache_y: List[torch.Tensor],
+                 feats: List[np.ndarray], y_full: np.ndarray,
+                 called: np.ndarray, ptr: List[int], upload) -> None:
+    """Insert a tick's demonstrations into every level's ring, in place:
+    the called lanes of the (S, ...) host rows ``feats[i]`` and labels
+    ``y_full`` take consecutive slots after ``ptr[i]``, in lane order; if
+    more lanes were called than a ring holds, only the last ``size``
+    survive (the sequential FIFO's overwrite order).  ``upload`` moves a
+    host array to the rings' device.  Its arguments have the reference's
+    jitted scatter's shapes, which its retrace probe counts."""
+    sel = np.flatnonzero(called)
+    k = sel.size
+    for i, (cx, cy) in enumerate(zip(cache_x, cache_y)):
+        size = cx.shape[0]
+        lo = max(k - size, 0)
+        slots = upload((ptr[i] + np.arange(lo, k)) % size)
+        cx.index_copy_(0, slots, upload(feats[i][sel[lo:]]))
+        cy.index_copy_(0, slots, upload(y_full[sel[lo:]]))
 
 
 @dataclass
@@ -200,6 +230,9 @@ class _InFlightTick:
     lane_cache: Optional[list] = None   # per-lane cache rngs (per_lane)
     lanes: Optional[np.ndarray] = None  # physical lane per tick position
                                         # (occupancy ticks; None = arange)
+    u_jump_raw: Optional[np.ndarray] = None  # (nlev, S) raw jump draws,
+                                             # kept only under the
+                                             # determinism sanitizer
 
 
 class BatchedCascadeEngine:
@@ -280,6 +313,12 @@ class BatchedCascadeEngine:
         nlev = len(self.levels)
         self._bs_list = [min(lvl.spec.batch_size, lvl.spec.cache_size)
                          for lvl in self.levels]
+        # the staged route passes and ring scatter, behind the retrace
+        # sanitizer's probes (the functions themselves when it is off)
+        self._route_pass = [
+            _san.trace_probe(f"route_pass[{i}]", lvl.route_pass)
+            for i, lvl in enumerate(self.levels)]
+        self._scatter = _san.trace_probe("cache_scatter", ring_scatter)
         self._staging = PinnedStaging(self.device)
         self._cache_x: List[torch.Tensor] = []
         self._cache_y: List[torch.Tensor] = []
@@ -359,6 +398,8 @@ class BatchedCascadeEngine:
         if self.autoscale is not None:
             self.expert.workers = self.autoscale[0]
         self.close()
+        # a recorded determinism trace belongs to the old stream
+        _san.drop_trace(self)
 
     def close(self) -> None:
         """Shut down the expert's worker pool, if it has one
@@ -544,7 +585,7 @@ class BatchedCascadeEngine:
         xb = np.zeros((B,) + fi.shape[1:], fi.dtype)
         xb[:sel.size] = fi[sel]
         xd = self._staging.upload(xb)
-        return lvl.route_pass(lvl.params, lvl.dparams, xd), xb
+        return self._route_pass[i](lvl.params, lvl.dparams, xd), xb
 
     def _route_dispatch(self, indices: Sequence[int], docs, *,
                         lanes=None, stream_ids=None,
@@ -630,7 +671,8 @@ class BatchedCascadeEngine:
             cache_rngs=cache_rngs, feats_cache=feats_cache, sel0=sel0,
             xb0=xb0, handles=handles, version=self._state_version,
             beta_after=list(self._route_beta), lane_cache=lane_cache,
-            lanes=lanes)
+            lanes=lanes,
+            u_jump_raw=u_jump if _san.determinism_on() else None)
 
     def _route_resolve(self, rec: _InFlightTick) -> dict:
         """Stage B: the vectorised walk, the expert submit, due commits,
@@ -656,7 +698,7 @@ class BatchedCascadeEngine:
             # state (the featurized batch is reused)
             self.pipeline_stats["refetches"] += 1
             lvl = self.levels[0]
-            handles = HostPrefetch(lvl.route_pass(
+            handles = HostPrefetch(self._route_pass[0](
                 lvl.params, lvl.dparams, self._staging.upload(rec.xb0)))
 
         alive = np.ones(S, bool)            # walking, not yet exited
@@ -714,7 +756,7 @@ class BatchedCascadeEngine:
             # jumped too), costed as an evaluation of the last level
             x = self._staging.upload(feats(nlev - 1)[s])
             predictions[s] = int(np.argmax(
-                last.predict(last.params, x).cpu().numpy()))
+                last._predict(last, last.params, x).cpu().numpy()))
 
         levels_out = np.where(called, nlev,
                               np.where(overflow, nlev - 1, exit_level))
@@ -801,6 +843,14 @@ class BatchedCascadeEngine:
             self.history["expert_called"].append(called.copy())
             self.history["cost"].append(cost_out.copy())
             self.history["J"].append(J_t.copy())
+        if _san.determinism_on() and rec.u_jump_raw is not None:
+            # one record per resolved tick, after its due commits: traces
+            # of any worker count, pipeline depth or delay line up
+            _san.record_tick(
+                self, t=t, level=levels_out, called=called,
+                pred=predictions, u_jump=rec.u_jump_raw, u_act=rec.u_act,
+                cache_n=self._cache_n, cache_ptr=self._cache_ptr,
+                levels=self.levels)
         return {
             "indices": np.asarray(rec.indices, np.int64),
             "tick": t,
@@ -867,21 +917,6 @@ class BatchedCascadeEngine:
                     else [rec.lanes[int(s)] for s in lanes])
             self.commit_log.extend((rec.t, int(s), t) for s in phys)
 
-    def _ring_insert(self, ptr: List[int], rows: List[np.ndarray],
-                     ys: np.ndarray) -> None:
-        """Scatter k demonstrations into every level's ring: consecutive
-        slots after ``ptr[i]``, in order; if k > size only the last
-        ``size`` survive (the sequential FIFO's overwrite order)."""
-        up = self._staging.upload
-        k = ys.shape[0]
-        order = np.arange(k)
-        for i, lvl in enumerate(self.levels):
-            size = lvl.spec.cache_size
-            keep = order >= k - size
-            slots = up((ptr[i] + order[keep]) % size)
-            self._cache_x[i].index_copy_(0, slots, up(rows[i][keep]))
-            self._cache_y[i].index_copy_(0, slots, up(ys[keep]))
-
     def _advance_ring(self, k: int, rngs: list) -> list:
         """Host fill / ptr mirrors after inserting k demonstrations, and
         each level's mini-batch indices over the post-insert fill, drawn
@@ -913,11 +948,14 @@ class BatchedCascadeEngine:
             return
         S = rec.called.shape[0]
         sel_ok = sel_c[ok]
+        called_ok = np.zeros(S, bool)
+        called_ok[sel_ok] = True
+        y_full = np.zeros(S, np.int32)
+        y_full[sel_c] = np.maximum(y_sel, 0)
         ptr_pre = list(self._cache_ptr)
         idx_t = self._advance_ring(k_ok, rec.cache_rngs)
-        self._ring_insert(ptr_pre,
-                          [rec.feats[i][sel_ok] for i in range(nlev)],
-                          y_sel[ok])
+        self._scatter(self._cache_x, self._cache_y, rec.feats, y_full,
+                      called_ok, ptr_pre, self._staging.upload)
 
         # reach[l] = prod_{k<l} dprob[k], float32 left fold like the
         # sequential reference's running product
@@ -959,18 +997,22 @@ class BatchedCascadeEngine:
         and a single-item deferral update.  Blocks only on the ticket
         shard holding item ``j``."""
         cfg = self.cfg
-        nlev = len(self.levels)
         s = int(rec.sel_c[j])
         y = self._resolve_labels(rec, j, j + 1)
         if y[0] < 0:
             # annotation dropped past max_requeues: no demonstration
             rec.committed = j + 1
             return
+        S = rec.called.shape[0]
+        called_one = np.zeros(S, bool)
+        called_one[s] = True
+        y_full = np.zeros(S, np.int32)
+        y_full[s] = y[0]
         ptr_pre = list(self._cache_ptr)
         rngs = rec.lane_cache_rngs[j]
         idx_t = self._advance_ring(1, rngs)
-        self._ring_insert(ptr_pre,
-                          [rec.feats[i][s:s + 1] for i in range(nlev)], y)
+        self._scatter(self._cache_x, self._cache_y, rec.feats, y_full,
+                      called_one, ptr_pre, self._staging.upload)
         reach = np.float32(1.0)
         B_c = self._bucket(1)
         for i, lvl in enumerate(self.levels):
@@ -1168,6 +1210,7 @@ class BatchedCascadeEngine:
                           for lo, n in pm["requeues"].items()}))
         # restored params invalidate anything dispatched before
         self._state_version += 1
+        _san.drop_trace(self)
 
     # -- per-stream metrics ---------------------------------------------
     def stream_metrics(self) -> dict:

@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.checkpoint import (CheckpointError, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.core.deferral import (
@@ -271,6 +272,7 @@ class _Level:
         # Adam at the paper's per-level rate x20, as the reference
         self.dopt = adam(spec.deferral_lr * 20)
         self.dopt_state = self.dopt.init(self.dparams)
+        self._stage_steps()
 
         self.beta = cfg.beta0
         # FIFO cache D of expert-labeled items (host, as the reference)
@@ -288,6 +290,51 @@ class _Level:
         # write in place, so keeping the references is enough
         self._init_state = (self.params, self.opt_state,
                             self.dparams, self.dopt_state)
+
+    def _stage_steps(self) -> None:
+        """The level's staged functions, each behind the retrace
+        sanitizer's probe under the reference's name (the function itself
+        unless the mode was on when the level was built).  The forwards
+        are probed unbound and take the level first, and the steps close
+        over the optimizers and the loss, so the level holds no reference
+        to itself."""
+        probe = _san.trace_probe
+        kind = self.spec.kind
+        opt, dopt, loss = self.opt, self.dopt, self._loss
+        mu_c, calib = self.mu_defer_cost, self.spec.calibration_factor
+
+        def student_step(params, opt_state, xb, yb, w):
+            return opt.step(params, _grads(loss, params, xb, yb, w),
+                            opt_state)
+
+        def student_step_k(params, opt_state, xb, yb, w, k):
+            return opt.step_k(params, _grads(loss, params, xb, yb, w),
+                              opt_state, k)
+
+        def deferral_grads(dparams, probs, y, reach, w):
+            z, mcl = deferral_update_terms(probs, y, mu_c)
+            return deferral_grads_weighted(dparams, probs, z, reach, mcl,
+                                           w, calib)
+
+        def deferral_step(dparams, dopt_state, probs, y, reach, w):
+            return dopt.step(dparams,
+                             deferral_grads(dparams, probs, y, reach, w),
+                             dopt_state)
+
+        def deferral_step_k(dparams, dopt_state, probs, y, reach, w, k):
+            return dopt.step_k(dparams,
+                               deferral_grads(dparams, probs, y, reach, w),
+                               dopt_state, k)
+
+        self._predict_and_defer = probe(f"{kind}.predict_and_defer",
+                                        _Level.route_pass)
+        self._predict = probe(f"{kind}.predict", _Level.predict)
+        self._student_step = probe(f"{kind}.student_step", student_step)
+        self._student_step_k = probe(f"{kind}.student_step_k",
+                                     student_step_k)
+        self._deferral_step = probe(f"{kind}.deferral_step", deferral_step)
+        self._deferral_step_k = probe(f"{kind}.deferral_step_k",
+                                      deferral_step_k)
 
     def reset(self):
         """Restore the freshly-initialized state (a new stream)."""
@@ -362,26 +409,22 @@ class _Level:
     def apply_student_update(self, xb, yb, w, k=None):
         """One weighted imitation step (gradient of the plain path); ``k``
         (a 0-d float32 tensor) selects the lr-scaled ``step_k`` variant."""
-        grads = _grads(self._loss, self.params, xb, yb, w)
         if k is None:
-            self.params, self.opt_state = self.opt.step(
-                self.params, grads, self.opt_state)
+            self.params, self.opt_state = self._student_step(
+                self.params, self.opt_state, xb, yb, w)
         else:
-            self.params, self.opt_state = self.opt.step_k(
-                self.params, grads, self.opt_state, k)
+            self.params, self.opt_state = self._student_step_k(
+                self.params, self.opt_state, xb, yb, w, k)
 
     @torch.no_grad()
     def apply_deferral_update(self, probs, y, reach, w, k=None):
         """One weighted deferral-gate step from Eq. (1)/Eq. (5) terms."""
-        z, mcl = deferral_update_terms(probs, y, self.mu_defer_cost)
-        grads = deferral_grads_weighted(self.dparams, probs, z, reach, mcl,
-                                        w, self.spec.calibration_factor)
         if k is None:
-            self.dparams, self.dopt_state = self.dopt.step(
-                self.dparams, grads, self.dopt_state)
+            self.dparams, self.dopt_state = self._deferral_step(
+                self.dparams, self.dopt_state, probs, y, reach, w)
         else:
-            self.dparams, self.dopt_state = self.dopt.step_k(
-                self.dparams, grads, self.dopt_state, k)
+            self.dparams, self.dopt_state = self._deferral_step_k(
+                self.dparams, self.dopt_state, probs, y, reach, w, k)
 
     def featurize(self, doc: np.ndarray) -> np.ndarray:
         """Map a raw doc to this level's input (hashed BoW or token ids)."""
@@ -447,6 +490,8 @@ class OnlineCascade:
         if self.history is not None:
             for v in self.history.values():
                 v.clear()
+        # a recorded determinism trace belongs to the old stream
+        _san.drop_trace(self)
 
     def close(self) -> None:
         """Shut down the expert's worker pool, if it has one."""
@@ -501,11 +546,13 @@ class OnlineCascade:
         self.expert_calls = int(meta["expert_calls"])
         self.total_cost = float(meta["total_cost"])
         self.J_cum = float(meta["J_cum"])
+        _san.drop_trace(self)
 
     def _predict_and_defer(self, i: int, x: np.ndarray):
         lvl = self.levels[i]
         xb = torch.from_numpy(np.ascontiguousarray(x[None])).to(self.device)
-        probs, dprob = lvl.route_pass(lvl.params, lvl.dparams, xb)
+        probs, dprob = lvl._predict_and_defer(lvl, lvl.params, lvl.dparams,
+                                              xb)
         return probs.cpu().numpy()[0], float(dprob.cpu().numpy()[0])
 
     # -- cost of deferring FROM level i (to i+1) -----------------------
@@ -526,8 +573,10 @@ class OnlineCascade:
         rngs = tick_rngs(cfg.seed, self.stream_id, self.t, n_levels)
         u_jump = rngs.jump.random(n_levels)
         # the action draws use the tick's own `action` generator, so jump
-        # and cache draws are the same with or without them
-        u_act = rngs.action.random(n_levels) if cfg.sample_actions else None
+        # and cache draws are the same with or without them; they also
+        # feed the determinism trace
+        u_act = (rngs.action.random(n_levels)
+                 if cfg.sample_actions or _san.determinism_on() else None)
         feat_cache: Dict[int, np.ndarray] = {}
 
         def feat(i):
@@ -575,7 +624,7 @@ class OnlineCascade:
             # lanes are where the same rule runs
             lvl = self.levels[-1]
             x = torch.from_numpy(feat(n_levels - 1)).to(self.device)
-            probs = lvl.predict(lvl.params, x).cpu().numpy()
+            probs = lvl._predict(lvl, lvl.params, x).cpu().numpy()
             prediction = int(np.argmax(probs))
             chosen_level = n_levels - 1
             expert_called = False
@@ -628,6 +677,19 @@ class OnlineCascade:
             self.history["expert_called"].append(expert_called)
             self.history["cost"].append(episode_cost_units)
             self.history["J"].append(J_t)
+        if _san.determinism_on():
+            # one 1-lane record per item: the sequential engine is lane 0
+            # of a batched engine, and its trace aligns with a batched
+            # n_streams=1 trace tick for tick
+            _san.record_tick(
+                self, t=self.t,
+                level=[n_levels if expert_called else chosen_level],
+                called=[expert_called], pred=[prediction],
+                u_jump=u_jump.reshape(n_levels, 1),
+                u_act=u_act.reshape(n_levels, 1),
+                cache_n=[lvl.cache_n for lvl in self.levels],
+                cache_ptr=[lvl.cache_ptr for lvl in self.levels],
+                levels=self.levels)
         return {
             "prediction": prediction,
             "level": chosen_level,

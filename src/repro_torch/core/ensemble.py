@@ -71,8 +71,8 @@ class OnlineEnsemble:
         self.t += 1
         feats = [lvl.featurize(doc) for lvl in self.levels]
         probs = np.stack([
-            lvl.predict(lvl.params,
-                        torch.from_numpy(x).to(self.device)).cpu().numpy()
+            lvl._predict(lvl, lvl.params,
+                         torch.from_numpy(x).to(self.device)).cpu().numpy()
             for lvl, x in zip(self.levels, feats)])
         w = torch.softmax(torch.from_numpy(_f32(self.theta)), dim=0).numpy()
         mix = w @ probs

@@ -41,9 +41,10 @@ the tree on its ``device``, opening its own CUDA context on the card); a
 broken pool is rebuilt on the next submit.
 
 The ticket's and the experts' ``# guarded-by:`` lock annotations are
-checked by cascade-lint.  The whole expert surface of the reference is
-ported; only the determinism sanitizer's trace probe around the expert's
-forward is not (the sanitizer is ROADMAP Queue 1 item 9).
+checked statically by cascade-lint and at runtime by the port's lock
+sanitizer (``repro_torch.analysis.sanitize``, mode ``locks``), which
+instruments this module.  The model expert's forward runs behind the
+retrace sanitizer's probe (``expert.predict``), as in the reference.
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.core.cascade import _grads
 from repro_torch.data.features import hash_ids
 from repro_torch.data.streams import Stream
@@ -618,6 +620,9 @@ class ModelExpert:
         self.workers = 1 if self.auto_workers else max(int(self.workers), 1)
         self.device = resolve_device(self.device)
         self._lock = threading.RLock()
+        spec = self.spec
+        self._predict = _san.trace_probe(
+            "expert.predict", lambda p, ids: tinytf_predict(p, ids, spec))
         # the parameters are complete once the work queued so far on the
         # constructing thread's stream is: every pool stream waits on
         # this event once, when it is made
@@ -628,9 +633,8 @@ class ModelExpert:
 
     @torch.no_grad()
     def _argmax(self, ids: np.ndarray) -> np.ndarray:
-        probs = tinytf_predict(self.params,
-                               torch.from_numpy(ids).to(self.device),
-                               self.spec)
+        probs = self._predict(self.params,
+                              torch.from_numpy(ids).to(self.device))
         return torch.argmax(probs, dim=-1).cpu().numpy().astype(np.int32)
 
     def label(self, idx: int, doc: np.ndarray) -> int:
@@ -762,30 +766,37 @@ class ModelExpert:
             pass
 
 
+def fit_epochs(params, opt, loss, x: torch.Tensor, y: torch.Tensor,
+               epochs: int, batch: int, rng: np.random.Generator):
+    """Offline minibatch training from ``params`` (on ``x``'s device): per
+    epoch a ``rng`` permutation cut into full batches, one ``opt`` step
+    on ``loss(params, xb, yb)`` each.  Returns the trained params."""
+    state = opt.init(params)
+    n = x.shape[0]
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        for s in range(0, n - batch + 1, batch):
+            sel = torch.from_numpy(order[s:s + batch]).to(x.device)
+            grads = _grads(loss, params, x[sel], y[sel])
+            params, state = opt.step(params, grads, state)
+    return params
+
+
 def train_tinytf(params: dict, spec: TinyTFSpec, ids: np.ndarray,
                  labels: np.ndarray, epochs: int, batch: int, lr: float,
                  seed: int) -> dict:
     """The expert's offline training loop, from ``params`` (on their
-    device): per epoch a ``np.random.default_rng(seed)`` permutation cut
-    into full batches, one ``adam(lr)`` step on the mean xent each."""
+    device): ``fit_epochs`` with ``adam(lr)`` on the mean xent, its
+    permutations from ``np.random.default_rng(seed)``."""
     dev = params["embed"].device
-    opt = adam(lr)
-    state = opt.init(params)
     x_all = torch.from_numpy(np.ascontiguousarray(ids)).to(dev)
     y_all = torch.from_numpy(np.asarray(labels, np.int32)).to(dev)
-    n = len(ids)
 
     def loss(p, xb, yb):
         return tinytf_loss(p, xb, yb, spec)
 
-    rng = np.random.default_rng(seed)
-    for _ in range(epochs):
-        order = rng.permutation(n)
-        for s in range(0, n - batch + 1, batch):
-            sel = torch.from_numpy(order[s:s + batch]).to(dev)
-            grads = _grads(loss, params, x_all[sel], y_all[sel])
-            params, state = opt.step(params, grads, state)
-    return params
+    return fit_epochs(params, adam(lr), loss, x_all, y_all, epochs, batch,
+                      np.random.default_rng(seed))
 
 
 def train_model_expert(stream: Stream, n_classes: int,

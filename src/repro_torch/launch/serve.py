@@ -21,6 +21,13 @@ Two engines:
   (``OnlineCascade``), with micro-batched expert calls via a probe/replay
   pass.
 
+Sanitizers (``repro_torch.analysis.sanitize``, either engine):
+``--sanitize determinism,locks,retrace`` serves under the named runtime
+sanitizers, enabled before the engine is built, and reports on them
+after the run; ``--trace-out PATH`` writes the determinism trace as
+JSON-lines, which ``Trace.load`` / ``diff_traces`` of either package
+read.
+
 Ladders: ``--ladder default`` is the paper's ``lr -> tinytf`` (dense
 students); ``kernel`` is ``lr -> tinytf_flash -> ssm`` at the default
 widths, whose upper levels launch the CUDA kernels; ``kernel-ci`` is the
@@ -44,6 +51,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --expert simulated \
       --samples 320 --batch 16 --checkpoint-every 8 \
       --checkpoint-path build/live     # then the same with --restore build/live
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --ladder kernel-ci --expert simulated --samples 64 --batch 8 \
+      --sanitize determinism --trace-out build/a.jsonl
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ import time
 
 import numpy as np
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.core import (BatchedCascadeEngine, CascadeFrontEnd,
                               OnlineCascade, SimulatedExpert,
                               default_cascade_config, kernel_cascade_config,
@@ -179,9 +190,45 @@ def _report(metrics: dict, n: int, dt: float, lanes: str,
           f"{[round(float(f), 3) for f in metrics['level_fractions']]}")
 
 
+def _save_trace(engine, trace_out: str) -> None:
+    """Write the engine's determinism trace to ``trace_out``, if both
+    exist.  Two runs' saved traces (``--expert-workers 1`` against ``4``,
+    ``--pipeline-depth 0`` against ``2``, the card against the CPU, or
+    either package's engine) feed ``Trace.load`` / ``diff_traces`` for a
+    first-divergence report at (tick, lane, level, attr) granularity."""
+    if not trace_out:
+        return
+    tr = _san.trace_of(engine)
+    if tr is None:
+        print("--trace-out set but no determinism trace was recorded "
+              "(enable with --sanitize determinism)")
+        return
+    tr.save(trace_out)
+    print(f"determinism trace: {len(tr)} tick record(s) -> {trace_out}")
+
+
+def _sanitizer_reports(modes) -> None:
+    """Post-run reports of the enabled runtime sanitizers."""
+    if "retrace" in modes:
+        rep = _san.retrace_report()
+        print(f"retrace sanitizer: {sum(rep.values())} signature(s) across "
+              f"{len(rep)} staged function(s): {dict(sorted(rep.items()))}")
+        flagged = _san.retrace_check(limit=16)
+        for name, n in sorted(flagged.items()):
+            print(f"  UNEXPECTED RETRACES: {name} saw {n} signatures — a "
+                  "shape/dtype is leaking into its signature")
+    if "locks" in modes:
+        violations = _san.lock_order_violations()
+        print(f"lock sanitizer: clean run, "
+              f"{len(violations)} order violation(s)")
+        for v in violations:
+            print(f"  {v}")
+
+
 def _serve_frontend(engine, stream, arrivals: str, *, admission: str,
                     queue_limit: int, arrival_rate: float,
-                    request_len: int, burst_size: int, seed: int) -> dict:
+                    request_len: int, burst_size: int, seed: int,
+                    trace_out: str = "") -> dict:
     """The continuous-batching path: a seeded arrival schedule through
     the admission front-end, with a per-stream latency report.  Returns
     the front-end's ``metrics()`` plus accuracy over the served items,
@@ -200,6 +247,7 @@ def _serve_frontend(engine, stream, arrivals: str, *, admission: str,
     fe.serve(requests)
     sync(engine.device)
     dt = time.time() - t0
+    _save_trace(engine, trace_out)
     m = fe.metrics()
     served = m["predictions"] >= 0
     acc = (float(np.mean(m["predictions"][served]
@@ -242,7 +290,8 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
                          admission: str = "queue", queue_limit: int = 0,
                          arrival_rate: float = 1.0, request_len: int = 8,
                          burst_size: int = 8, checkpoint_every: int = 0,
-                         checkpoint_path: str = "", restore: str = ""):
+                         checkpoint_path: str = "", restore: str = "",
+                         trace_out: str = ""):
     """Default serving path: the batched multi-stream engine, with the
     engine matrix's options (``async_delay`` = the engine's
     ``max_delay``; ``autoscale`` = (lo, hi) fleet bounds, the expert
@@ -251,7 +300,9 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
     resumes from such a checkpoint at its tick.  ``arrivals`` other than
     "none" serves a seeded arrival schedule through the admission
     front-end over a pool of ``lane_budget`` lanes (default ``batch``)
-    under ``admission`` "queue" or "shed" (``queue_limit``).  Returns the
+    under ``admission`` "queue" or "shed" (``queue_limit``).
+    ``trace_out`` writes the determinism trace (``--sanitize
+    determinism``) after the run.  Returns the
     engine's ``run`` metrics (or, with arrivals, the front-end's) plus
     the engine itself (``"engine"``: its levels' forward counts,
     per-stream accounting, its expert, its pipeline / commit / fault
@@ -289,7 +340,8 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
             metrics = _serve_frontend(
                 engine, stream, arrivals, admission=admission,
                 queue_limit=queue_limit, arrival_rate=arrival_rate,
-                request_len=request_len, burst_size=burst_size, seed=seed)
+                request_len=request_len, burst_size=burst_size, seed=seed,
+                trace_out=trace_out)
             metrics["engine"] = engine
             metrics["expert_train_s"] = train_s
             return metrics
@@ -300,6 +352,7 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
         engine.close()
     sync(dev)
     dt = time.time() - t0
+    _save_trace(engine, trace_out)
     lanes = (f"batch={batch} ladder={ladder} expert={expert_kind} "
              f"device={dev}")
     if async_delay:
@@ -339,9 +392,10 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
 def serve_stream(dataset: str, samples: int, mu: float,
                  microbatch: int = 16, expert_kind: str = "model",
                  seed: int = 0, log_every: int = 500,
-                 ladder: str = "default", device: DeviceLike = None):
+                 ladder: str = "default", device: DeviceLike = None,
+                 trace_out: str = ""):
     """Sequential Algorithm-1 loop (``OnlineCascade``) with probe/replay
-    expert micro-batching."""
+    expert micro-batching; ``trace_out`` as ``serve_stream_batched``'s."""
     dev = resolve_device(device)
     stream = make_stream(dataset, seed=seed, n_samples=samples)
     expert, _ = _make_expert(stream, stream.spec.n_classes, expert_kind,
@@ -383,6 +437,7 @@ def serve_stream(dataset: str, samples: int, mu: float,
                   f"expert_calls={cascade.expert_calls}", flush=True)
     sync(dev)
     dt = time.time() - t0
+    _save_trace(cascade, trace_out)
     metrics = {"accuracy": float(np.mean(preds == stream.labels)),
                "expert_calls": cascade.expert_calls,
                "level_fractions": (cascade.level_counts
@@ -529,7 +584,33 @@ def main(argv=None):
                          "a card) or 'cpu'")
     ap.add_argument("--log-every", type=int, default=500,
                     help="print running accuracy every N items (0 = off)")
+    ap.add_argument("--sanitize", default="",
+                    help="comma list of runtime sanitizers to serve under "
+                         "(repro_torch.analysis.sanitize): 'determinism' "
+                         "records the per-tick trace (save it with "
+                         "--trace-out, diff two runs with diff_traces), "
+                         "'locks' enforces the expert pool's # guarded-by: "
+                         "annotations at runtime and catches lock-order "
+                         "cycles, 'retrace' counts the distinct call "
+                         "signatures of each staged function")
+    ap.add_argument("--trace-out", default="",
+                    help="write the determinism trace to this JSON-lines "
+                         "path after serving (needs --sanitize "
+                         "determinism)")
     args = ap.parse_args(argv)
+    modes = {m.strip() for m in args.sanitize.split(",") if m.strip()}
+    newly = modes - _san.active_modes()
+    # before the engine is built: the levels probe their steps at build
+    _san.enable(modes)
+    try:
+        _serve(args)
+        if modes:
+            _sanitizer_reports(modes)
+    finally:
+        _san.disable(newly)
+
+
+def _serve(args) -> None:
     if args.engine == "batched":
         serve_stream_batched(args.dataset, args.samples, args.mu,
                              batch=args.batch, expert_kind=args.expert,
@@ -552,12 +633,13 @@ def main(argv=None):
                              burst_size=args.burst_size,
                              checkpoint_every=args.checkpoint_every,
                              checkpoint_path=args.checkpoint_path,
-                             restore=args.restore)
+                             restore=args.restore, trace_out=args.trace_out)
     else:
         serve_stream(args.dataset, args.samples, args.mu,
                      microbatch=args.microbatch, expert_kind=args.expert,
                      seed=args.seed, log_every=args.log_every,
-                     ladder=args.ladder, device=args.device)
+                     ladder=args.ladder, device=args.device,
+                     trace_out=args.trace_out)
 
 
 if __name__ == "__main__":

@@ -21,8 +21,12 @@ waits for the level-0 copy's event (device work queued ahead of it with
 streams of their own.  Occupancy and checkpoints: an empty tick on the
 kernel ladder launches nothing and a 1-lane tick pads to bucket 8; an
 engine resume is bitwise on the card; a checkpoint written on the card
-restores on the CPU and routes the same.  Nothing here imports JAX (the
-GPU machine has none).
+restores on the CPU and routes the same.  Sanitizers: the determinism
+trace at depth 2 equals depth 0's on the card, state digests included,
+and the card's equals the CPU's on every field but the state; the model
+expert's W=4 pool runs clean under the lock sanitizer, which catches an
+unguarded ticket read.  Nothing here imports JAX (the GPU machine has
+none).
 """
 import numpy as np
 import pytest
@@ -744,3 +748,74 @@ def test_card_checkpoint_restores_on_the_cpu(cuda, tmp_path):
     assert np.array_equal(runs["cuda"][0], runs["cpu"][0])
     assert runs["cuda"][1] == runs["cpu"][1]
     assert np.array_equal(runs["cuda"][2], runs["cpu"][2])
+
+
+# ---------------------------------------------------------------------------
+# the runtime sanitizers on the card (chip_smoke.py phase 10 (a), (d), (e)
+# at small size)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def sanitizers():
+    from repro_torch.analysis import sanitize as san
+    prior = san.active_modes()
+    san.disable()
+    yield san
+    san.disable()
+    if prior:
+        san.enable(prior)
+
+
+def _traced_run(san, dev, stream, **opts):
+    from repro_torch.core import BatchedCascadeEngine, SimulatedExpert
+    eng = BatchedCascadeEngine(_ci_ladder(), SimulatedExpert(stream),
+                               n_streams=8, device=dev, **opts)
+    with san.determinism_trace():
+        eng.run(stream)
+    return san.trace_of(eng)
+
+
+def test_determinism_trace_depth2_equals_depth0_on_the_card(cuda,
+                                                            sanitizers):
+    from repro_torch.data import make_stream
+    stream = make_stream("imdb", seed=0, n_samples=128)
+    a = _traced_run(sanitizers, cuda, stream)
+    b = _traced_run(sanitizers, cuda, stream, pipeline_depth=2)
+    assert len(a) == 16
+    d = sanitizers.diff_traces(a, b)
+    assert d is None, d.describe()
+
+
+def test_determinism_trace_on_the_card_equals_the_cpus(cuda, sanitizers):
+    """Every field but the state digests (fp32 sums differ in the last
+    bits between the card and the CPU), the RNG digests included."""
+    from repro_torch.data import make_stream
+    stream = make_stream("imdb", seed=0, n_samples=48)
+    a, b = (_traced_run(sanitizers, dev, stream) for dev in (cuda, "cpu"))
+    strip = [[{k: v for k, v in r.items() if k != "state"}
+              for r in tr.ticks] for tr in (a, b)]
+    d = sanitizers.diff_traces(*strip)
+    assert d is None, d.describe()
+    assert [r["rng"] for r in a.ticks] == [r["rng"] for r in b.ticks]
+
+
+def test_lock_sanitizer_on_the_card_pool(cuda, sanitizers):
+    from repro_torch.core import (BatchedCascadeEngine, ExpertTicket,
+                                  ModelExpert)
+    from repro_torch.data import make_stream
+    from repro_torch.models.students import TinyTFSpec, tinytf_init
+    stream = make_stream("imdb", seed=0, n_samples=64)
+    spec = TinyTFSpec(d_model=32, n_layers=1, d_ff=128, n_classes=2)
+    sanitizers.enable({"locks"})
+    ex = ModelExpert(params=tinytf_init(torch.Generator().manual_seed(0),
+                                        spec, cuda),
+                     spec=spec, workers=4, device=cuda)
+    eng = BatchedCascadeEngine(_ci_ladder(), ex, n_streams=8, max_delay=2,
+                               per_lane=True, device=cuda)
+    try:
+        eng.run(stream)
+        assert ex.worker_streams()
+    finally:
+        eng.close()
+    assert sanitizers.lock_order_violations() == []
+    with pytest.raises(sanitizers.LockSanitizerError):
+        ExpertTicket(labels=np.array([1]))._shards
