@@ -22,7 +22,8 @@ Phases (any failure exits non-zero and prints no result line):
      rows the scalar ("simt") one, and one row at the path shape forces
      "simt" so that each variant stays checked; every decode row takes
      the variant ``decode_attention.kernel.select_variant`` names
-     ("single" on the cascade's 128 slots, "split" on the zoo's 2048);
+     ("single" on the cascade's 128 slots, "split" on the zoo's 2048),
+     and every SSD row the whole-chunk one ("whole", chunk 64);
   4. ``serve_stream_batched`` on the ``kernel`` ladder (lr ->
      tinytf_flash -> ssm at the default widths), imdb, batch 64, 2048
      items, simulated expert: every kernel's launch count over this run
@@ -158,16 +159,47 @@ Phases (any failure exits non-zero and prints no result line):
      device time by kernel group).  Then (a) prefill/decode
      consistency at full width (S=256, a capacity that drops no token)
      and (b) card (kernels) vs CPU (plain twins) at the smoke config in
-     fp32, from the same weights.
+     fp32, from the same weights;
+  11. zoo-archs: the zoo's seven other decoder-only architectures, one at
+     a time, each at full width with weights from a seeded CUDA
+     generator and freed before the next: mamba2-370m (48 layers),
+     internlm2-1.8b (24), h2o-danube-3-4b (24) and qwen3-8b (36) at full
+     depth, llama3-405b and dbrx-132b cut to 2 layers, and
+     jamba-1.5-large-398b cut to the first half of its period (MAMBA,
+     MAMBA, MAMBA, ATTN; MoE at 1 and 3; 4 layers: a whole period needs
+     about 90 GB).  Each: a warm-up prefill and decode step that captures
+     the first layer's SSD / flash / decode-attention inputs; one prefill
+     of ``lm_batches(seed=0)``'s 2 x 2048 prompts and 16 greedy decode
+     steps (prefill ms, decode ms/step, peak GB; every kernel's launches
+     and variants counted from zero and equal to what the layers imply:
+     one SSD scan per MAMBA layer in the prefill, all "subtile", none in
+     decode; one flash call per ATTN layer, "tc" or, at Danube's head dim
+     120, "simt"; decode attention ATTN layers x steps, "split";
+     moe_gmm 3 per group and MoE layer, "tc"); the captured inputs held
+     against the plain versions (the SSD scan's y and final state, also
+     on O(1) random inputs at the shape, there held to the recurrence
+     in float64 per element within 2e-3 x (1 + |f64|)), with
+     mamba2-370m's and Jamba's SSD,
+     Llama-3-405B's decode attention (16 query heads a kv head; also on
+     O(1) random inputs with 300 empty slots) and Danube's flash prefill
+     timed beside the library call and the bound; (a) prefill(S) against
+     prefill(S - 1) + ``decode_step`` at S = 256, and with MAMBA blocks
+     also S = 300 (a chunk and a padded tail), MoE at a no-drop
+     capacity; (b) the smoke config in fp32, card against CPU, every
+     kernel the model runs launched; then the phase's seconds.
 The line before the last is the per-kernel JSON record (all four
-kernels; ``launches`` is the total over the cascade and zoo serving
-runs, each counted from zero, ``launches_by_variant`` its split by
-variant (decode attention: "single" / "split"), and ``paths`` has each
-path's own count, times, ``variant`` (the one its timed row took; the
-SSD scan has one scalar kernel, "simt") and ``launches_by_variant``,
-``cascade_pipelined`` the launches of phase 8 (c)'s depth-2 run,
-``cascade_admission`` those of phase 9 (c)'s Poisson run at depth 0,
-``cascade_sanitized`` those of phase 10 (a)'s depth-0 run;
+kernels; ``launches`` is the total over the cascade, Mixtral and
+zoo-archs serving runs, each counted from zero, ``launches_by_variant``
+its split by variant (decode attention: "single" / "split"; the SSD
+scan: "whole" / "subtile"), and ``paths`` has each path's own count,
+times, ``variant`` (the one its timed row took) and
+``launches_by_variant``, ``cascade_pipelined`` the launches of phase 8
+(c)'s depth-2 run, ``cascade_admission`` those of phase 9 (c)'s Poisson
+run at depth 0, ``cascade_sanitized`` those of phase 10 (a)'s depth-0
+run, ``zoo_<model>_prefill`` / ``zoo_<model>_decode`` phase 11's runs
+(with times where the model's row is timed: ``zoo_mamba2_prefill`` and
+``zoo_jamba_prefill`` for the SSD scan, ``zoo_llama3_decode`` for decode
+attention, ``zoo_danube_prefill`` for flash attention);
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -202,6 +234,17 @@ LOGIT_TOL = {"tinytf_flash": 1e-4, "ssm": 2e-3}
 # its own prefill/decode paths in bf16 (tests/test_archs_smoke.py), (b)
 # fp32 on the card vs the CPU
 ZOO_TOL = {"bf16": 1e-2, "fp32": 1e-5}
+# the zoo's SSD rows (chunk 256, N 128): x min(1, max|plain|), fp32 sums
+# over a 256-token chunk and 128 states in another order
+ZOO_SSD_TOL = 2e-3
+# the zoo's SSD rows on O(1) random inputs, held to a float64 evaluation
+# per element, |kernel - f64| <= tol (1 + |f64|) (atol = rtol, as the
+# tests hold the twin): with A = -(1 .. H), |cum A dt| reaches ~1e3
+# (mamba2) to ~8e3 (Jamba) in a chunk, so exp(cum_i - cum_j) carries
+# their fp32 rounding and the fp32 twin itself is ~5e-3 from float64 at
+# |y| ~ 150: an absolute 2e-3 would hold the kernel to the twin's
+# rounding, not to the function
+ZOO_SSD_F64_TOL = 2e-3
 ZOO_LOGIT_TOL = {"consistency": 6e-2, "card_vs_cpu": 1e-4}
 # default-serve: the stream length, and Table 1's imdb budget (N = 1300
 # of 25 000 items, benchmarks/table1.py) scaled to it
@@ -273,10 +316,13 @@ ZOO_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
 # moe_gmm and flash "tc" (bf16 wgmma fed by TMA) and "simt" (the scalar
 # kernel), flash also "tiled" (fp32 register tiles); decode attention
 # "single" (one block per (b, kv head), one launch) and "split" (the
-# cache split across blocks, then a combine)
+# cache split across blocks, then a combine); the SSD scan "whole" (a
+# chunk of up to 64 tokens held whole) and "subtile" (the zoo's chunk 256
+# in sub-tiles of 64)
 VARIANT_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
                      "flash_attention": flash_attention_cuda,
-                     "decode_attention": decode_attention_cuda}
+                     "decode_attention": decode_attention_cuda,
+                     "ssd_scan": ssd_scan_cuda}
 TC_LAUNCHERS = ("moe_gmm", "flash_attention")
 
 
@@ -360,12 +406,15 @@ def decode_bound(q, k, v, pos):
 
 
 def ssd_bound(x, adt, dt, B, C, chunk):
+    """B and C are shared by the heads: C B^T once per (batch, chunk);
+    per head the decay-masked scores times x, the inter-chunk read and
+    the state update."""
     Bsz, S, H, hp = x.shape
     N = B.shape[-1]
     L = chunk
     tri = L * (L + 1) // 2
-    per_chunk = 2 * tri * N + 2 * tri * hp + 2 * L * hp * N + 2 * hp * N * L
-    flops = Bsz * H * (S // L) * per_chunk
+    per_head = 2 * tri * hp + 2 * L * hp * N + 2 * hp * N * L
+    flops = Bsz * (S // L) * (2 * tri * N + H * per_head)
     return _bound(_nbytes(x, adt, dt, B, C, x), flops)
 
 
@@ -396,6 +445,22 @@ def time_ms(fn, reps=20, warmup=3):
 
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def ssd_float64(x, adt, dt, B, C):
+    """The SSD recurrence token by token in float64 (``ssd_scan_ref``'s
+    semantics): (y, the final state), the ground truth of the zoo's
+    random SSD rows."""
+    Bsz, S, H, hp = x.shape
+    x, adt, dt, B, C = (t.double() for t in (x, adt, dt, B, C))
+    h = torch.zeros((Bsz, H, hp, B.shape[-1]), dtype=torch.float64,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(adt[:, t])[:, :, None, None] + torch.einsum(
+            "bh,bn,bhp->bhpn", dt[:, t], B[:, t], x[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", C[:, t], h))
+    return torch.stack(ys, dim=1), h
 
 
 # ---------------------------------------------------------------------------
@@ -495,9 +560,10 @@ def _layer_forwards(eng):
 
 def check(name, label, kernel_fn, plain_fn, tol, results, library_fn=None,
           bound=None, timed=False, scaled=False, relative=False, reps=20,
-          variant=None):
+          variant=None, per_element=False):
     """Kernel vs plain on the same inputs.  ``scaled``: tol x min(1,
-    max|plain|); ``relative``: tol x max|plain|.  For a kernel with two
+    max|plain|); ``relative``: tol x max|plain|; ``per_element``: every
+    element within tol x (1 + |plain|).  For a kernel with two
     variants the row records the one its call took and, when ``variant``
     is given, fails unless it is that one."""
     torch.cuda.synchronize()
@@ -524,6 +590,9 @@ def check(name, label, kernel_fn, plain_fn, tol, results, library_fn=None,
     if relative:
         tol = tol * ref_max
     row = {"max_abs_err": err, "tol": tol, "max_abs_ref": ref_max}
+    if per_element:
+        row["max_err_over_1_plus_ref"] = float(
+            ((out - ref).abs() / (1 + ref.abs())).max())
     if took is not None:
         row["variant"] = took
     if timed:
@@ -534,7 +603,10 @@ def check(name, label, kernel_fn, plain_fn, tol, results, library_fn=None,
     print(f"[check] {name:16s} {label:28s} " + " ".join(
         f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in row.items()), flush=True)
-    if err > tol:
+    if per_element and row["max_err_over_1_plus_ref"] > tol:
+        _fail(f"{name} [{label}]: max |out - plain| / (1 + |plain|) "
+              f"{row['max_err_over_1_plus_ref']} > tol {tol}")
+    if not per_element and err > tol:
         _fail(f"{name} [{label}]: max_abs_err {err} > tol {tol}")
     results.setdefault(name, []).append((label, row))
     return row
@@ -556,7 +628,8 @@ def phase_kernels(tokens):
               lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, **kw),
               lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, kw["chunk"]),
               TOL["ssd_scan"], results, None,
-              ssd_bound(x, adt, dt, B, C, kw["chunk"]), True, scaled=True)
+              ssd_bound(x, adt, dt, B, C, kw["chunk"]), True, scaled=True,
+              variant="whole")
         if batch == 16:
             continue
         (q, k, v), kw = got["flash_attention"]
@@ -625,7 +698,8 @@ def phase_kernels(tokens):
               lambda: ssd_ops.ssd_scan(xr, adtr, dtr, Br, Cr, chunk=chunk),
               lambda: ssd_scan_chunked_ref(xr, adtr, dtr, Br, Cr, chunk),
               TOL["ssd_scan"], results, None,
-              ssd_bound(xr, adtr, dtr, Br, Cr, chunk), True, scaled=True)
+              ssd_bound(xr, adtr, dtr, Br, Cr, chunk), True, scaled=True,
+              variant="whole")
 
     # decode edge cases
     B, W, H, hd = 8, 128, 4, 32
@@ -692,6 +766,10 @@ def phase_serve():
             "tc": 0, "simt": 0, "tiled": launches["flash_attention"]}:
         _fail(f"the cascade's fp32 flash launches must all take the "
               f"register-tiled variant: {by_variant['flash_attention']}")
+    if by_variant["ssd_scan"] != {"whole": launches["ssd_scan"],
+                                  "subtile": 0}:
+        _fail(f"the cascade's SSD launches (chunk 64) must all take the "
+              f"whole-chunk variant: {by_variant['ssd_scan']}")
     for n in LAUNCHERS:
         if launches[n] <= 0:
             _fail(f"{n} was never launched on the serving path")
@@ -1118,6 +1196,8 @@ def _matrix_pipeline(stream, phase4_launches):
             if by_variant["flash_attention"]["tiled"] != \
                     launches["flash_attention"]:
                 _fail(f"{tag}: a flash launch left the tiled variant")
+            if by_variant["ssd_scan"]["whole"] != launches["ssd_scan"]:
+                _fail(f"{tag}: an SSD launch left the whole-chunk variant")
             runs[P] = (eng, m, launches, by_variant)
         _same_run(f"(c) max_delay={D}: depth 0 vs 2", runs[0][0], runs[0][1],
                   runs[2][0], runs[2][1])
@@ -1275,6 +1355,8 @@ class _PhaseCounts:
             _fail(f"{tag}: launches {got} != the layer forwards {expect}")
         if by_variant["flash_attention"]["tiled"] != got["flash_attention"]:
             _fail(f"{tag}: a flash launch left the tiled variant")
+        if by_variant["ssd_scan"]["whole"] != got["ssd_scan"]:
+            _fail(f"{tag}: an SSD launch left the whole-chunk variant")
         for n in got:
             self.launches[n] += got[n]
         for b, c in flash_b.items():
@@ -2045,15 +2127,22 @@ def phase_zoo_kernels(cfg, params, tokens):
 
 def _zoo_expected(cfg, n_tokens, n_decode):
     """Launches each zoo phase implies: the prefill runs 3 grouped
-    products per MoE group and one flash call per layer, each decode step
-    3 grouped products and one decode-attention call per layer."""
+    products per MoE group and MoE layer, one flash call per ATTN layer
+    and one SSD scan per MAMBA layer; each decode step 3 grouped products
+    per MoE layer and one decode-attention call per ATTN layer (a MAMBA
+    layer's step is plain PyTorch)."""
+    from repro_torch.configs import ATTN, MAMBA
     from repro_torch.models.moe import MOE_GROUP
-    L = cfg.n_layers
+    P = cfg.n_periods
+    n_attn, n_mamba = P * cfg.period.count(ATTN), P * cfg.period.count(MAMBA)
+    n_moe = P * len(cfg.moe_period_idx) if cfg.moe is not None else 0
     groups = n_tokens // MOE_GROUP if n_tokens % MOE_GROUP == 0 else 1
-    return {"prefill": {"moe_gmm": 3 * groups * L, "flash_attention": L,
-                        "decode_attention": 0},
-            "decode": {"moe_gmm": 3 * L * n_decode, "flash_attention": 0,
-                       "decode_attention": L * n_decode}}
+    return {"prefill": {"moe_gmm": 3 * groups * n_moe,
+                        "flash_attention": n_attn, "decode_attention": 0,
+                        "ssd_scan": n_mamba},
+            "decode": {"moe_gmm": 3 * n_moe * n_decode, "flash_attention": 0,
+                       "decode_attention": n_attn * n_decode,
+                       "ssd_scan": 0}}
 
 
 def _zero_zoo_counts():
@@ -2241,21 +2330,383 @@ def phase_zoo_checks(cfg, params, tokens):
         _fail(f"the card run of (b) skipped a kernel: {moved}")
 
 
+# ---------------------------------------------------------------------------
+# zoo-archs: the zoo's other decoder-only architectures at full width
+# ---------------------------------------------------------------------------
+ARCH_LAUNCHERS = {**ZOO_LAUNCHERS, "ssd_scan": ssd_scan_cuda}
+# (name, short name for the record's paths, depth: None = full, "half" =
+# the first half of Jamba's 8-block period)
+ZOO_ARCHS = (
+    ("mamba2-370m", "mamba2", None),
+    ("internlm2-1.8b", "internlm2", None),
+    ("h2o-danube-3-4b", "danube", None),
+    ("qwen3-8b", "qwen3", None),
+    ("llama3-405b", "llama3", 2),
+    ("dbrx-132b", "dbrx", 2),
+    ("jamba-1.5-large-398b", "jamba", "half"),
+)
+# the rows each architecture times (kernel -> the path it stands for)
+ARCH_TIMED = {"mamba2": ("ssd_scan", "prefill"),
+              "jamba": ("ssd_scan", "prefill"),
+              "llama3": ("decode_attention", "decode"),
+              "danube": ("flash_attention", "prefill")}
+
+
+def _arch_config(name, depth):
+    """The full config, its depth cut (widths never change), and the cut
+    in words."""
+    from repro_torch.configs import get_config
+    full = get_config(name)
+    if depth is None:
+        return full, f"full depth, {full.n_layers} layers"
+    if depth == "half":
+        half = len(full.period) // 2
+        cfg = dataclasses.replace(
+            full, n_layers=half, period=full.period[:half],
+            moe_period_idx=tuple(i for i in full.moe_period_idx if i < half))
+        return cfg, (f"CUT to the first half of its period {cfg.period} "
+                     f"(MoE at {cfg.moe_period_idx}), {half} of "
+                     f"{full.n_layers} layers: a whole period needs about "
+                     f"90 GB")
+    return (dataclasses.replace(full, n_layers=depth),
+            f"depth cut to {depth} of {full.n_layers} layers")
+
+
+def _arch_variants(cfg):
+    """The variant every launch of each kernel must take on this model's
+    serving path: moe_gmm and flash bf16 on the tensor cores (flash at a
+    head dim other than 64 / 128 on the scalar kernel), decode attention
+    split across its 2048-slot ring, the SSD scan sub-tiled (chunk 256)."""
+    from repro_torch.kernels.flash_attention.kernel import TC_HEAD_DIMS
+    hd = cfg.attn.head_dim if cfg.attn is not None else None
+    return {"moe_gmm": "tc",
+            "flash_attention": "tc" if hd in TC_HEAD_DIMS else "simt",
+            "decode_attention": "split", "ssd_scan": "subtile"}
+
+
+def _capture_arch_inputs(cfg, params, tokens):
+    """One prefill and one decode step (also the warm-up): the inputs the
+    SSD scan, flash and decode attention get in their first layer."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tfm
+    got = {}
+    real = {"ssd_scan": (ssm_mod, ssm_mod.ssd_scan),
+            "flash_attention": (attn_mod, attn_mod.flash_attention),
+            "decode_attention": (attn_mod, attn_mod.decode_attention)}
+
+    def rec(name, fn):
+        def f(*args, **kw):
+            got.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return f
+
+    try:
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, rec(name, fn))
+        with torch.no_grad():
+            last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
+            tfm.decode_step(params, cache, last.argmax(-1)[:, None],
+                            tokens.shape[1], cfg)
+    finally:
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+    torch.cuda.synchronize()
+    return got
+
+
+def _arch_kernel_rows(short, cfg, got, results):
+    """Each kernel held against its plain version on the captured layer
+    inputs and on O(1) random inputs at the same shapes; the architecture's
+    own path row (ARCH_TIMED) timed beside the library call and the
+    bound.  Every row asserts its variant."""
+    want = _arch_variants(cfg)
+    timed = ARCH_TIMED.get(short, (None, None))[0]
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    if "ssd_scan" in got:
+        (x, adt, dt, B, C), kw = got["ssd_scan"]
+        L = kw["chunk"]
+        label = f"path zoo {short} prefill chunk {L} N{B.shape[-1]}"
+        check("ssd_scan", label,
+              lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, chunk=L),
+              lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, L),
+              ZOO_SSD_TOL, results, None, ssd_bound(x, adt, dt, B, C, L),
+              timed == "ssd_scan", scaled=True, reps=5,
+              variant=want["ssd_scan"])
+        check("ssd_scan", f"path zoo {short} prefill h_final",
+              lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, chunk=L,
+                                       return_state=True)[1],
+              lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, L,
+                                           return_state=True)[1],
+              ZOO_SSD_TOL, results, scaled=True, variant=want["ssd_scan"])
+        # O(1) inputs with the model's A = -(1 .. H), held to the
+        # recurrence in float64 per element (ZOO_SSD_F64_TOL)
+        H = x.shape[2]
+        xr, Br, Cr = rnd(*x.shape), rnd(*B.shape), rnd(*C.shape)
+        dtr = F.softplus(rnd(*dt.shape) - 2.0)
+        adtr = -torch.arange(1, H + 1, device="cuda").float() * dtr
+        f64 = ssd_float64(xr, adtr, dtr, Br, Cr)
+        twin = ssd_scan_chunked_ref(xr, adtr, dtr, Br, Cr, L,
+                                    return_state=True)
+        for i, what in ((0, "y"), (1, "h_final")):
+            check("ssd_scan", f"random O(1) zoo {short} {what} vs float64",
+                  lambda: ssd_ops.ssd_scan(xr, adtr, dtr, Br, Cr, chunk=L,
+                                           return_state=True)[i],
+                  lambda: f64[i].float(), ZOO_SSD_F64_TOL, results,
+                  variant=want["ssd_scan"], per_element=True)
+            print(f"[zoo-archs] ssd_scan random O(1) {short} {what}: the "
+                  f"fp32 twin is {max_err(twin[i], f64[i]):.4g} from "
+                  f"float64 (max {float(f64[i].abs().max()):.4g})",
+                  flush=True)
+        del twin, f64
+    if "flash_attention" in got:
+        (q, k, v), kw = got["flash_attention"]
+        check("flash_attention", f"path zoo {short} prefill "
+              f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
+              lambda: fl_ops.flash_attention(q, k, v, **kw),
+              lambda: flash_plain(q, k, v, **kw), ZOO_TOL["bf16"], results,
+              lambda: flash_library(q, k, v, **kw),
+              flash_bound(q, k, v, **kw), timed == "flash_attention",
+              relative=True, reps=5, variant=want["flash_attention"])
+    if "decode_attention" in got:
+        (q, k, v, pos), kw = got["decode_attention"]
+        check("decode_attention", f"path zoo {short} decode "
+              f"W={k.shape[1]} H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
+              lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
+              lambda: decode_plain(q, k, v, pos), ZOO_TOL["bf16"], results,
+              lambda: decode_library(q, k, v, pos),
+              decode_bound(q, k, v, pos), timed == "decode_attention",
+              relative=True, reps=20, variant=want["decode_attention"])
+        if timed == "decode_attention":
+            bf = q.dtype
+            qr, kr, vr = (rnd(*t.shape, dtype=bf) for t in (q, k, v))
+            W = k.shape[1]
+            posr = torch.where(torch.arange(W) < W - 300, torch.arange(W),
+                               torch.full((W,), -1)).to("cuda", torch.int32)
+            check("decode_attention",
+                  f"random O(1) zoo {short} decode, 300 empty slots",
+                  lambda: dec_ops.decode_attention(qr, kr, vr, posr),
+                  lambda: decode_plain(qr, kr, vr, posr), ZOO_TOL["bf16"],
+                  results, relative=True, variant=want["decode_attention"])
+
+
+def _arch_serve(cfg, params, tokens):
+    """prefill + ZOO_DECODE greedy steps, each phase's launches and
+    variants counted from zero; they must equal what the layers imply and
+    take the model's variants."""
+    from repro_torch.models import transformer as tfm
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out_tokens, launches, by_variant = [], {}, {}
+
+    def zero():
+        for fn in ARCH_LAUNCHERS.values():
+            fn.launches = 0
+        _zero_variant_counts()
+
+    def read(phase):
+        launches[phase] = {n: fn.launches for n, fn in ARCH_LAUNCHERS.items()}
+        by_variant[phase] = {n: c for n, c in _variant_counts().items()
+                             if n in ARCH_LAUNCHERS}
+
+    with torch.no_grad():
+        zero()
+        t0 = time.perf_counter()
+        last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        read("prefill")
+        zero()
+        tok = last.argmax(-1)
+        for step in range(ZOO_DECODE):
+            out_tokens.append(tok)
+            logits, cache = tfm.decode_step(params, cache, tok[:, None],
+                                            S + step, cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        read("decode")
+    expect = _zoo_expected(cfg, B * S, ZOO_DECODE)
+    m = {"prefill_ms": (t1 - t0) * 1e3,
+         "decode_ms_per_step": (t2 - t1) * 1e3 / ZOO_DECODE,
+         "decode_tokens_per_s": B * ZOO_DECODE / (t2 - t1),
+         "prefill_tokens_per_s": B * S / (t1 - t0),
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    gen = torch.stack(out_tokens, 1)
+    print(f"[zoo-archs] {cfg.name} serve: " + " ".join(
+        f"{k}={v:.6g}" for k, v in m.items()))
+    print(f"[zoo-archs] {cfg.name} launches {launches} expected {expect}; "
+          f"by variant {by_variant}; greedy tokens row 0: "
+          f"{gen[0].tolist()}", flush=True)
+    want = _arch_variants(cfg)
+    for phase in ("prefill", "decode"):
+        for n in ARCH_LAUNCHERS:
+            if launches[phase][n] != expect[phase][n]:
+                _fail(f"{cfg.name} {n}: {launches[phase][n]} launches in "
+                      f"the {phase} != {expect[phase][n]} implied by its "
+                      f"layers, groups and steps")
+            v_want = {v: expect[phase][n] if v == want[n] else 0
+                      for v in by_variant[phase][n]}
+            if by_variant[phase][n] != v_want:
+                _fail(f"{cfg.name} {n}: {phase} launches by variant "
+                      f"{by_variant[phase][n]} != {v_want}")
+    from repro_torch.models.layers import padded_vocab
+    if not bool(torch.isfinite(logits).all()) or \
+            logits.shape != (B, padded_vocab(cfg)):
+        _fail(f"{cfg.name} decode logits {tuple(logits.shape)} not finite "
+              f"or not (B, padded vocab)")
+    if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
+        _fail(f"{cfg.name} greedy tokens outside the vocabulary")
+    return launches, by_variant, m
+
+
+def _arch_consistency(cfg, params, tokens):
+    """(a) prefill(S) against prefill(S - 1) + decode_step at full width:
+    S = 256 (one chunk of 255 before the step, not a multiple of the
+    64-token sub-tile) and, with MAMBA blocks, S = 300 (a chunk of 256
+    and a 44-token tail the adapter pads); MoE at a capacity that drops
+    no token."""
+    from repro_torch.configs import MAMBA
+    from repro_torch.models import transformer as tfm
+    if cfg.moe is not None:
+        m = cfg.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+    tol = ZOO_LOGIT_TOL["consistency"]
+    for S in (256, 300) if MAMBA in cfg.period else (256,):
+        tok = tokens[:, :S]
+        with torch.no_grad():
+            full, _ = tfm.prefill(params, {"tokens": tok}, cfg)
+            _, cache = tfm.prefill(params, {"tokens": tok[:, :S - 1]}, cfg,
+                                   cache_len=S)
+            dec, _ = tfm.decode_step(params, cache, tok[:, S - 1:], S - 1,
+                                     cfg)
+        torch.cuda.synchronize()
+        # the vocabulary's columns (the padding's are masked at -1e9)
+        dec, full = dec[:, :cfg.vocab], full[:, :cfg.vocab]
+        err = max_err(dec, full)
+        bad = float(((dec - full).abs() - tol * (1 + full.abs())).max())
+        print(f"[zoo-archs] {cfg.name} (a) prefill(S={S}) vs "
+              f"prefill(S-1)+decode_step: max|diff| {err:.4g}, max|logit| "
+              f"{float(full.abs().max()):.4g} (atol=rtol={tol}); argmax "
+              f"equal: {bool((dec.argmax(-1) == full.argmax(-1)).all())}",
+              flush=True)
+        if not math.isfinite(err) or bad > 0:
+            _fail(f"{cfg.name} prefill/decode disagree at S={S}: "
+                  f"max|diff| {err}")
+
+
+def _arch_card_vs_cpu(name):
+    """(b) the smoke config in fp32: kernels on the card against twins on
+    the CPU from the same weights; every kernel the model runs launched."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_smoke_config(name), dtype="float32")
+    p_cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.from_numpy(next(lm_batches(cfg.vocab, 2, 64, 1,
+                                            seed=0))["tokens"])
+    tol = ZOO_LOGIT_TOL["card_vs_cpu"]
+    n0 = {n: fn.launches for n, fn in ARCH_LAUNCHERS.items()}
+    with torch.no_grad():
+        lc, cc = tfm.prefill(p_cpu, {"tokens": toks}, cfg)
+        lg, cg = tfm.prefill(p_gpu, {"tokens": toks.cuda()}, cfg)
+        errs = [max_err(lg.cpu(), lc)]
+        same = [bool((lg.argmax(-1).cpu() == lc.argmax(-1)).all())]
+        for step in range(4):
+            nxt = lc.argmax(-1)[:, None]
+            lc, cc = tfm.decode_step(p_cpu, cc, nxt, 64 + step, cfg)
+            lg, cg = tfm.decode_step(p_gpu, cg, nxt.cuda(), 64 + step, cfg)
+            errs.append(max_err(lg.cpu(), lc))
+            same.append(bool((lg.argmax(-1).cpu() == lc.argmax(-1)).all()))
+    torch.cuda.synchronize()
+    moved = {n: fn.launches - n0[n] for n, fn in ARCH_LAUNCHERS.items()}
+    expect = _zoo_expected(cfg, 2 * 64, 4)
+    runs = [n for n in ARCH_LAUNCHERS
+            if expect["prefill"][n] + expect["decode"][n] > 0]
+    print(f"[zoo-archs] {cfg.name} (b) fp32, card vs CPU: max|diff| per "
+          f"step {[f'{e:.3g}' for e in errs]} (tol {tol}); greedy equal "
+          f"{same}; card launches {moved}", flush=True)
+    if not all(same) or max(errs) > tol or not all(map(math.isfinite, errs)):
+        _fail(f"{cfg.name}: card and CPU disagree at the smoke config")
+    if any(moved[n] <= 0 for n in runs):
+        _fail(f"{cfg.name}: the card run of (b) skipped a kernel: {moved}")
+
+
+def phase_zoo_archs():
+    """The zoo's seven other decoder-only architectures, one at a time at
+    full width (each freed before the next): serve, kernel rows,
+    consistency (a) and card vs CPU (b).  Returns each kernel's rows and
+    the record's ``paths`` entries of every model."""
+    import gc
+    from repro_torch.data import lm_batches
+    from repro_torch.models import transformer as tfm
+    t_phase = time.time()
+    results, paths = {}, {}
+    for name, short, depth in ZOO_ARCHS:
+        t_arch = time.time()
+        cfg, cut = _arch_config(name, depth)
+        params = tfm.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        batch = next(lm_batches(cfg.vocab, ZOO_BATCH, ZOO_PROMPT, 1, seed=0))
+        tokens = torch.from_numpy(batch["tokens"]).cuda()
+        n = sum(t.numel() for t in tree_leaves(params))
+        print(f"[zoo-archs] {name} at full width (d_model {cfg.d_model}), "
+              f"{cut}: {n / 1e9:.3f} B parameters, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+              f"built in {time.time() - t_arch:.2f} s", flush=True)
+        got = _capture_arch_inputs(cfg, params, tokens)
+        launches, by_variant, m = _arch_serve(cfg, params, tokens)
+        rows = {}
+        _arch_kernel_rows(short, cfg, got, rows)
+        del got
+        _arch_consistency(cfg, params, tokens)
+        _arch_card_vs_cpu(name)
+        timed = ARCH_TIMED.get(short)
+        for phase in ("prefill", "decode"):
+            for k in ARCH_LAUNCHERS:
+                if launches[phase][k] == 0:
+                    continue
+                rec = {"launches": launches[phase][k],
+                       "launches_by_variant": by_variant[phase][k]}
+                if timed == (k, phase):
+                    rec = _record_row(
+                        [x for x in rows[k] if x[0].startswith("path")],
+                        launches[phase][k], by_variant[phase][k])
+                paths.setdefault(k, {})[f"zoo_{short}_{phase}"] = rec
+        for k, r in rows.items():
+            results.setdefault(k, []).extend(r)
+        del params, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[zoo-archs] {name}: {time.time() - t_arch:.1f} s",
+              flush=True)
+    print(f"[zoo-archs] phase seconds {time.time() - t_phase:.1f}",
+          flush=True)
+    return results, paths
+
+
 def _record_row(rows, launches, by_variant):
-    """A path's numbers; ``variant`` is the one its timed row took (the
-    SSD scan has one scalar kernel: "simt")."""
+    """A path's numbers; ``variant`` is the one its timed row took."""
     timed = [r for _, r in rows if "kernel_ms" in r][0]
     return {"launches": launches,
             "max_abs_err": max(r["max_abs_err"] for _, r in rows),
             "ms": timed["kernel_ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": timed["library_ms"],
-            "variant": timed.get("variant", "simt"),
+            "library_ms": timed["library_ms"], "variant": timed["variant"],
             "launches_by_variant": by_variant}
 
 
 def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
-                  zoo_by_variant, pipelined, admission, sanitized):
+                  zoo_by_variant, pipelined, admission, sanitized,
+                  arch_paths):
     """One entry per kernel: the top-level numbers are those of the path
     each kernel was first ported for (cascade at batch 64; moe_gmm: zoo
     prefill), ``launches`` and ``launches_by_variant`` the totals over the
@@ -2271,9 +2722,12 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
     admission front-end (depth 0, counted from zero over that run);
     ``cascade_sanitized`` those of phase 10 (a)'s depth-0 run under the
     determinism and retrace sanitizers (counted from zero over that
-    run)."""
+    run); ``zoo_<model>_prefill`` / ``zoo_<model>_decode`` the zoo-archs
+    phase's serving runs of each other architecture (``arch_paths``,
+    counted from zero over each; the timed ones with their numbers),
+    whose launches the totals include."""
     def split(counts, name, n):
-        return counts.get(name, {"tc": 0, "simt": n})
+        return counts[name]
 
     record = []
     for name in REPLACES:
@@ -2299,13 +2753,15 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
                     n = zoo_launches[phase][name]
                     paths[f"zoo_{phase}"] = _record_row(
                         rows, n, split(zoo_by_variant[phase], name, n))
+        paths.update(arch_paths.get(name, {}))
         top = dict(next(iter(paths.values())))
         runs = [paths[p] for p in ("cascade", "zoo_prefill", "zoo_decode")
                 if p in paths]
+        runs += [r for p, r in arch_paths.get(name, {}).items()]
         top["launches"] = sum(r["launches"] for r in runs)
         top["launches_by_variant"] = {
             v: sum(r["launches_by_variant"].get(v, 0) for r in runs)
-            for v in runs[0]["launches_by_variant"]}
+            for v in VARIANT_LAUNCHERS[name].launches_by_variant}
         if name in VARIANT_LAUNCHERS:
             top["variants"] = list(VARIANT_LAUNCHERS[name]
                                    .launches_by_variant)
@@ -2344,9 +2800,12 @@ def main():
     zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)
     phase_zoo_profile(cfg, params, prompts)
     phase_zoo_checks(cfg, params, prompts)
+    del params, prompts
+    torch.cuda.empty_cache()
+    _, arch_paths = phase_zoo_archs()
     print(json.dumps({"kernels": kernel_record(
         results, launches, by_variant, zoo_results, zoo_launches,
-        zoo_by_variant, pipelined, admission, sanitized)}))
+        zoo_by_variant, pipelined, admission, sanitized, arch_paths)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Model configurations (port of ``repro.configs``; only Mixtral-8x22B
-is registered so far)."""
+"""Model configurations (port of ``repro.configs``; the eight
+decoder-only architectures are registered)."""
 from repro_torch.configs.base import (
     ATTN, CROSS, MAMBA,
     AttnConfig, ModelConfig, MoEConfig, SSMConfig,

@@ -2,11 +2,12 @@
 
 Every architecture is a ``ModelConfig``: a repeating ``period`` of block
 kinds, applied ``n_periods`` times, with optional attention, MoE and
-Mamba2 settings.  The ported zoo serves ``ATTN`` blocks with dense-MLP
-or MoE FFNs; ``CROSS`` / ``MAMBA`` blocks, the encoder and the vision
-stub wait (ROADMAP Queue 1 item 15), so ``EncoderConfig`` and its fields
-are not here yet.  The kernel ladder's ``ssm`` student drives
-``models/ssm.py`` through the same class.
+Mamba2 settings.  The ported zoo serves the decoder-only architectures:
+``ATTN`` and ``MAMBA`` blocks with dense-MLP or MoE FFNs; ``CROSS``
+blocks, the encoder and the vision stub wait (ROADMAP Queue 1 item 10),
+so ``EncoderConfig`` and its fields are not here yet.  The kernel
+ladder's ``ssm`` student drives ``models/ssm.py`` through the same
+class.
 """
 from __future__ import annotations
 
@@ -128,8 +129,13 @@ def list_architectures() -> list:
     return sorted(_REGISTRY.keys())
 
 
-# The other nine zoo architectures wait for their blocks (ROADMAP).
-_ARCH_MODULES = ["mixtral_8x22b"]
+# The zoo's decoder-only architectures; seamless-m4t-medium and
+# llama-3.2-vision-11b wait for CROSS blocks (ROADMAP Queue 1 item 10).
+_ARCH_MODULES = [
+    "mixtral_8x22b", "jamba_1_5_large_398b", "internlm2_1_8b",
+    "h2o_danube_3_4b", "qwen3_8b", "llama3_405b", "mamba2_370m",
+    "dbrx_132b",
+]
 
 
 def _load_all():

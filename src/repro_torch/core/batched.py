@@ -110,7 +110,7 @@ it.  Under ``retrace`` the engine's route passes (``route_pass[i]``) and
 its ring scatter (``cache_scatter``) are probed, beside the levels' own
 steps.
 
-Not ported yet (ROADMAP Queue 1): lane sharding over a mesh (item 11).
+Not ported yet (ROADMAP Queue 1): lane sharding over a mesh (item 13).
 """
 from __future__ import annotations
 

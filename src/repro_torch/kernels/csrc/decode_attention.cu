@@ -26,10 +26,14 @@
 //     first store; element by element through the strides otherwise;
 //   * scores: a group of lanes per slot (a warp at head dim 128, a quarter
 //     warp at 32) reads the key as float4s; each lane holds its float4 of
-//     the G scaled query rows in registers (G <= 8), and a shuffle
-//     reduction that spreads the G sums across the group's lanes
+//     up to GREG = 8 scaled query rows in registers, and a shuffle
+//     reduction that spreads the sums across the group's lanes
 //     (spread_sum) takes 9 shuffles for 8 heads where one reduction per
-//     head takes 40;
+//     head takes 40.  A group of more than 8 heads (Llama-3-405B's 16 at
+//     head dim 128) is scored 8 heads at a time from the same staged K
+//     tile, each pass loading its heads' float4s from shared memory: K and
+//     V still leave memory once, where splitting the heads across blocks
+//     would read them once per block, and the bound counts them once;
 //   * softmax: a warp per query head takes the tile max, exp and sum;
 //   * p.v: each thread owns (g, 4 dims) outputs and reads V as float4s;
 //     when there are fewer such quads than threads the tile's slots are
@@ -105,14 +109,15 @@ __device__ __forceinline__ void spread_sum(float* v, int li, int& g0) {
   }
 }
 
-// Scores of tl slots for up to GREG query heads: LPS lanes per slot, lane
-// li holding float4 chunk li of the scaled query rows in qreg (the row
-// has at most LPS chunks), masked slots at -1e30.
+// Scores of tl slots for up to GREG query heads (G of them, rows g_lo ..
+// g_lo + G - 1 of ss): LPS lanes per slot, lane li holding float4 chunk li
+// of the scaled query rows in qreg (the row has at most LPS chunks),
+// masked slots at -1e30.
 template <int LPS>
 __device__ __forceinline__ void score_tile(const float4 (&qreg)[GREG],
                                            const float4* ks4, const int* ps,
                                            float* ss, int nch, int ts, int tl,
-                                           int G, int tid) {
+                                           int G, int g_lo, int tid) {
   constexpr int SPP = THREADS / LPS, KEEP = LPS >= GREG ? 1 : GREG / LPS;
   constexpr int DUP = LPS > GREG ? LPS / GREG : 1;  // lanes with one total
   const int li = tid % LPS;
@@ -131,7 +136,8 @@ __device__ __forceinline__ void score_tile(const float4 (&qreg)[GREG],
       const bool ok = ps[j] >= 0;
 #pragma unroll
       for (int i = 0; i < KEEP; ++i)
-        if (g0 + i < G) ss[(g0 + i) * ts + j] = ok ? v[i] : REPRO_NEG_INF;
+        if (g0 + i < G)
+          ss[(g_lo + g0 + i) * ts + j] = ok ? v[i] : REPRO_NEG_INF;
     }
   }
 }
@@ -148,7 +154,8 @@ __host__ __device__ __forceinline__ int kv_floats(int ts, int hd4) {
   return max(2 * ts * hd4, 4 * THREADS);
 }
 
-template <typename T, bool VEC>
+// MULTI: more than GREG query heads a kv head, scored GREG at a time
+template <typename T, bool VEC, bool MULTI>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ pos,
@@ -190,13 +197,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lrow[g] = 0.f;
   }
   // scorer: lps lanes per slot (a warp at head dim 128, a quarter warp at
-  // 32); the fast path (G <= 8, a row of at most 32 float4s) holds each
-  // lane's float4 of the G query rows in registers, the other reads them
-  // from shared memory
+  // 32); the fast path (a row of at most 32 float4s) holds each lane's
+  // float4 of up to GREG query rows in registers (all G of them when G <=
+  // GREG, else GREG at a time), the other reads them from shared memory
   int lps = 1;
   while (lps < 32 && lps < nch) lps *= 2;
   const int li = tid % lps, spp = THREADS / lps;
-  const bool fast = G <= GREG && nch <= lps;
+  const bool fast = nch <= lps;
   // p.v: quad oq (+ THREADS * s) of the G x nch (g, 4 dims) outputs; slots
   // j = part mod nparts when there are fewer quads than threads
   const int GQ = G * nch;
@@ -212,8 +219,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float4 qreg[GREG];
 #pragma unroll
   for (int g = 0; g < GREG; ++g)
-    qreg[g] = (fast && g < G && li < nch) ? qs4[g * nch + li]
-                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    qreg[g] = (fast && !MULTI && g < G && li < nch)
+                  ? qs4[g * nch + li]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int w0 = s_lo; w0 < s_hi; w0 += ts) {
     const int tl = min(ts, s_hi - w0);
@@ -264,13 +272,35 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // scores of the tile's slots, a lane group per slot
     if (fast) {
-      switch (lps) {
-        case 1: score_tile<1>(qreg, ks4, ps, ss, nch, ts, tl, G, tid); break;
-        case 2: score_tile<2>(qreg, ks4, ps, ss, nch, ts, tl, G, tid); break;
-        case 4: score_tile<4>(qreg, ks4, ps, ss, nch, ts, tl, G, tid); break;
-        case 8: score_tile<8>(qreg, ks4, ps, ss, nch, ts, tl, G, tid); break;
-        case 16: score_tile<16>(qreg, ks4, ps, ss, nch, ts, tl, G, tid); break;
-        default: score_tile<32>(qreg, ks4, ps, ss, nch, ts, tl, G, tid);
+      // MULTI: GREG heads a pass, each pass's loaded from shared memory
+      for (int g_lo = 0; g_lo < G; g_lo += GREG) {
+        const int gn = MULTI ? min(GREG, G - g_lo) : G;
+        if (MULTI) {
+#pragma unroll
+          for (int g = 0; g < GREG; ++g)
+            qreg[g] = (g < gn && li < nch) ? qs4[(g_lo + g) * nch + li]
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        switch (lps) {
+          case 1:
+            score_tile<1>(qreg, ks4, ps, ss, nch, ts, tl, gn, g_lo, tid);
+            break;
+          case 2:
+            score_tile<2>(qreg, ks4, ps, ss, nch, ts, tl, gn, g_lo, tid);
+            break;
+          case 4:
+            score_tile<4>(qreg, ks4, ps, ss, nch, ts, tl, gn, g_lo, tid);
+            break;
+          case 8:
+            score_tile<8>(qreg, ks4, ps, ss, nch, ts, tl, gn, g_lo, tid);
+            break;
+          case 16:
+            score_tile<16>(qreg, ks4, ps, ss, nch, ts, tl, gn, g_lo, tid);
+            break;
+          default:
+            score_tile<32>(qreg, ks4, ps, ss, nch, ts, tl, gn, g_lo, tid);
+        }
+        if (!MULTI) break;
       }
     } else {
       for (int j0 = 0; j0 < tl; j0 += spp) {
@@ -422,9 +452,11 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
            void* o, float* pm, float* pl, float* pacc, int B, int K,
            int nsplit, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.G, a.hd4, a.ts);
-  cudaError_t err = set_smem(decode_kernel<T, VEC>, smem);
+  auto kernel = a.G > GREG ? decode_kernel<T, VEC, true>
+                           : decode_kernel<T, VEC, false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  decode_kernel<T, VEC><<<dim3(K, B, nsplit), THREADS, smem, stream>>>(
+  kernel<<<dim3(K, B, nsplit), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), pos, static_cast<T*>(o), pm, pl, pacc, a);
   err = cudaGetLastError();
@@ -452,7 +484,7 @@ int launch(bool vec, const void* q, const void* k, const void* v,
 
 // q (B,1,H,hd) via strides (b, head, d); k/v (B,W,K,hd) via (b, w, head, d);
 // pos (B,W) int32 via (b, w); o contiguous (B,1,H,hd).  dtype 0 = fp32,
-// 1 = bf16.  Requires H % K == 0 and (H/K) * hd <= 1024.  nsplit blocks
+// 1 = bf16.  Requires H % K == 0 and (H/K) * hd <= 2048.  nsplit blocks
 // of split_len slots each cover the cache (nsplit = ceil(W / split_len));
 // with nsplit > 1, part_m / part_l (B,K,nsplit,G) and part_acc
 // (B,K,nsplit,G,hd) fp32 are scratch.  vec = 1 promises 16-byte-aligned k
@@ -463,7 +495,7 @@ extern "C" int repro_decode_attention_fwd(
     int H, int K, int hd, int nsplit, int split_len, int vec, int qsb,
     int qsh, int qsd, int ksb, int ksw, int ksh, int ksd, int vsb, int vsw,
     int vsh, int vsd, int psb, int psw, float sm_scale, void* stream) {
-  if (hd < 1 || K < 1 || H % K != 0 || (H / K) * hd > 1024 ||
+  if (hd < 1 || K < 1 || H % K != 0 || (H / K) * hd > 2048 ||
       (H / K) * ((hd + 3) / 4) > THREADS * MAX_QUADS ||
       nsplit < 1 || split_len < 1 || (long long)nsplit * split_len < W ||
       (long long)(nsplit - 1) * split_len >= W)

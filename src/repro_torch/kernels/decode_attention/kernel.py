@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_GROUP_DIMS = 1024      # (H / K) * hd: the kernel's per-block outputs
+MAX_GROUP_DIMS = 2048      # (H / K) * hd: the kernel's per-block outputs
 H100_SMS = 132
 # A split's least length: at W = 128 (the cascade's readout at bucket 8)
 # two splits of 64 slots took the device as long as one block over all

@@ -3,6 +3,7 @@ same function, at the shapes the main paths give them, on random inputs
 made from a seed on the card.
 
   python src/repro_torch/launch/time_kernels.py [--root DIR] [--label X]
+      [--kernels ssd_scan,decode_attention]
 
 ``--root`` imports ``repro_torch`` from another checkout (its ``src/``),
 which builds its own kernels, so that two versions are timed by the same
@@ -18,14 +19,22 @@ host's work per call is included where it is the longer), ``graph_ms``
 per call without the host's) and ``profile_by_kernel`` (device time per
 call of each kernel a call launches, from a ``torch.profiler`` trace).
 Rows: flash attention at the cascade's buckets 64 / 32 / 16 / 8 (fp32)
-and the zoo's prefill (bf16), decode attention, the SSD scan, and
-``moe_gmm`` at the zoo's prefill and decode (bf16, and the fp32 prefill
-row), each kernel row with its plain PyTorch version (``plain`` names it:
+and the zoo's prefill (bf16; Mixtral's, and Danube's at head dim 120),
+decode attention (the cascade's readout,
+Mixtral's step and Llama-3-405B's, 16 query heads a kv head), the SSD
+scan (the cascade's buckets, and the zoo's chunk 256 x state 128 at
+mamba2-370m's and Jamba's layer shapes), and ``moe_gmm`` at the zoo's
+prefill and decode (bf16, and the fp32 prefill row), each kernel row
+with its plain PyTorch version (``plain`` names it:
 ``attention_ref``, ``decode_attention_ref``, ``ssd_scan_chunked_ref``,
 ``gmm_ref``) and, but the SSD scan's, with its library twin
 (``F.scaled_dot_product_attention`` or ``torch.bmm``).  Where the
-version's launchers take them, rows at a forced flash ``variant`` and
-decode ``n_split`` show each choice's trade-off.
+version's launchers take them, rows at a forced flash or SSD
+``variant`` and decode ``n_split`` show each choice's trade-off.  Under
+``--root`` naming another checkout, a row its launcher refuses (a
+``ValueError`` before any launch: a shape an older checkout does not
+take) is printed with its ``error``; any other failure ends the run.
+``--kernels`` keeps only the named kernels' rows.
 Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -117,7 +126,12 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--reps", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated kernels to time (default all)")
     args = ap.parse_args(argv)
+    only = {k for k in args.kernels.split(",") if k}
+    other_root = (Path(args.root).resolve()
+                  != Path(__file__).resolve().parents[3])
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
     import torch
     if not torch.cuda.is_available():
@@ -151,18 +165,27 @@ def main(argv=None) -> int:
         """Time ``fn``; the variant is the one its call took (read from
         ``launcher``'s counts) unless given; ``library`` / ``plain`` name
         the function of a twin row."""
-        if launcher is not None and variant is None:
-            before = dict(getattr(launcher, "launches_by_variant", {}))
-            fn()
-            torch.cuda.synchronize()
-            variant = _variant(launcher, before)
-        row = {"kernel": kernel, "path": path, "shape": shape,
-               "variant": variant}
+        if only and kernel not in only:
+            return
+        row = {"kernel": kernel, "path": path, "shape": shape}
         if library:
             row["library"] = library
         if plain:
             row["plain"] = plain
-        rows.append({**row, **_row(torch, fn, reps)})
+        before = dict(getattr(launcher, "launches_by_variant", {}))
+        try:
+            fn()
+        except ValueError as e:
+            # a launcher's shape refusal, raised before any launch: kept
+            # as a row only for another checkout's (older) kernels
+            if not other_root:
+                raise
+            rows.append({**row, "error": str(e)})
+            return
+        torch.cuda.synchronize()
+        if launcher is not None and variant is None:
+            variant = _variant(launcher, before)
+        rows.append({**row, "variant": variant, **_row(torch, fn, reps)})
 
     # flash attention: the cascade's tinytf_flash layer at every bucket
     # (fp32, causal) and the zoo's prefill (bf16, GQA 6, window 4096 >= S)
@@ -179,6 +202,10 @@ def main(argv=None) -> int:
     flash.append(("zoo prefill", rnd(2, 2048, 48, 128, dtype=bf),
                   rnd(2, 2048, 8, 128, dtype=bf),
                   rnd(2, 2048, 8, 128, dtype=bf), 4096))
+    # h2o-danube-3-4b's head dim 120 ("tc" takes 64 and 128)
+    flash.append(("zoo danube prefill", rnd(2, 2048, 32, 120, dtype=bf),
+                  rnd(2, 2048, 8, 120, dtype=bf),
+                  rnd(2, 2048, 8, 120, dtype=bf), 4096))
     forced = _takes(flash_attention_cuda, "variant")
     for path, q, k, v, window in flash:
         shape = [list(q.shape), list(k.shape)]
@@ -216,6 +243,9 @@ def main(argv=None) -> int:
     dec = [("zoo decode", rnd(2, 1, 48, 128, dtype=bf),
             rnd(2, W, 8, 128, dtype=bf), rnd(2, W, 8, 128, dtype=bf),
             torch.arange(W, device="cuda", dtype=torch.int32))]
+    dec.append(("zoo llama3 decode", rnd(2, 1, 128, 128, dtype=bf),
+                rnd(2, W, 8, 128, dtype=bf), rnd(2, W, 8, 128, dtype=bf),
+                torch.arange(W, device="cuda", dtype=torch.int32)))
     for B in (64, 8):
         lens = torch.randint(1, 129, (B, 1), generator=gen, device="cuda")
         ar = torch.arange(128, device="cuda")
@@ -242,24 +272,40 @@ def main(argv=None) -> int:
     # forced split counts (versions whose launcher takes ``n_split``)
     if _takes(decode_attention_cuda, "n_split"):
         for (path, q, k, v, pos), counts in ((dec[0], (8, 16, 32)),
-                                             (dec[2], (1, 2))):
+                                             (dec[3], (1, 2))):
             pos = pos if pos.ndim == 2 else pos[None].expand(k.shape[0], -1)
             for n in counts:
                 emit("decode_attention", path,
                      [list(q.shape), list(k.shape)],
                      lambda: decode_attention_cuda(q, k, v, pos, n_split=n),
                      variant=f"{n} splits")
-    # SSD scan at the ssm level's dims, every bucket
-    S, H, hp, N, chunk = 128, 6, 64, 32, 64
-    for B in (64, 32, 16, 8):
+    # SSD scan at the ssm level's dims, every bucket; then the zoo's
+    # chunk 256 x state 128 at mamba2-370m's (32 heads) and Jamba's (256
+    # heads) layer shapes, prompts 2 x 2048
+    ssd = [(f"cascade B={B}", B, 128, 6, 64, 32, 64)
+           for B in (64, 32, 16, 8)]
+    ssd += [("zoo mamba2 prefill", 2, 2048, 32, 64, 128, 256),
+            ("zoo jamba prefill", 2, 2048, 256, 64, 128, 256)]
+    for path, B, S, H, hp, N, chunk in ssd:
+        if only and "ssd_scan" not in only:
+            break
         x, Bm, Cm = rnd(B, S, H, hp), rnd(B, S, N), rnd(B, S, N)
         dt = torch.nn.functional.softplus(rnd(B, S, H) - 2.0)
         adt = -torch.arange(1, H + 1, device="cuda").float() * dt
-        emit("ssd_scan", f"cascade B={B}", list(x.shape),
-             lambda: ssd_ops.ssd_scan(x, adt, dt, Bm, Cm, chunk=chunk))
-        emit("ssd_scan", f"cascade B={B}", list(x.shape),
+        launcher = getattr(ssd_ops, "ssd_scan_cuda", None)
+        emit("ssd_scan", path, list(x.shape),
+             lambda: ssd_ops.ssd_scan(x, adt, dt, Bm, Cm, chunk=chunk),
+             launcher)
+        # the sub-tiled kernel at the cascade's chunk 64, beside "whole"
+        if path.startswith("cascade") and _takes(launcher, "variant"):
+            emit("ssd_scan", path, list(x.shape),
+                 lambda: launcher(x, adt, dt, Bm, Cm, chunk=chunk,
+                                  variant="subtile"),
+                 variant="forced subtile")
+        emit("ssd_scan", path, list(x.shape),
              lambda: ssd_scan_chunked_ref(x, adt, dt, Bm, Cm, chunk),
-             plain="ssd_scan_chunked_ref", reps=10)
+             plain="ssd_scan_chunked_ref",
+             reps=10 if path.startswith("cascade") else 3)
     # moe_gmm at the zoo's expert FFN (8 experts, d_model 6144, d_ff
     # 16384): prefill capacity 640 and decode capacity 4, the up and down
     # projections, and the prefill's up projection in fp32

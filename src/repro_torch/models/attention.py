@@ -9,7 +9,7 @@ function, the masked softmax attention below; its Pallas kernels
 flash-attention kernel (which skips the kv tiles above the diagonal and
 left of the window itself) and decode one call of the decode-attention
 kernel.  Cross-attention and the non-causal encoder path wait (ROADMAP
-Queue 1 item 15).
+Queue 1 item 10).
 
 Position conventions (as in the reference):
 * ``q_positions`` (Sq,) and ``kv_positions`` (Skv,) are absolute token

@@ -193,9 +193,11 @@ def ssm_model_config(spec: SSMStudentSpec) -> ModelConfig:
         dtype="float32")
 
 
-def _ssd_kernel_impl(x, adt, dt, B, C, chunk):
-    """``ssd_chunked``-shaped adapter over ``kernels.ssd_scan``."""
-    return ssd_scan(x, adt, dt, B, C, chunk=chunk)
+def _ssd_kernel_impl(x, adt, dt, B, C, chunk, init_state=None):
+    """``ssd_chunked``-shaped adapter over ``kernels.ssd_scan``
+    (forward-only: the student never resumes or reads a state)."""
+    assert init_state is None, "kernel SSD path is forward-only"
+    return ssd_scan(x, adt, dt, B, C, chunk=chunk), None
 
 
 def ssm_student_init(gen: torch.Generator, spec: SSMStudentSpec,

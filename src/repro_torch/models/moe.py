@@ -8,7 +8,7 @@ through each expert's SwiGLU FFN — three grouped matmuls on the port's
 CUDA ``moe_gmm`` kernel — and combined back with their gate weights.
 
 The reference's ``shard_map`` path (tokens over the data axes, experts
-over 'model') waits for lane sharding (ROADMAP Queue 1 item 14); without
+over 'model') waits for lane sharding (ROADMAP Queue 1 item 13); without
 a mesh the reference takes this local path too.  Aux losses
 (load-balance + router-z) are returned as in the reference.
 """

@@ -8,7 +8,10 @@ Every architecture is a repeating ``period`` of blocks (see
 (``blocks/b0/...``), and the reference's ``lax.scan`` over periods is a
 loop over that axis.  Attention runs on the port's flash-attention
 (prefill) and decode-attention (ring cache) kernels, MoE FFNs on its
-``moe_gmm`` kernel; everything else is plain PyTorch.
+``moe_gmm`` kernel, MAMBA blocks' prefill on its ``ssd_scan`` kernel
+(``models.ssm.ssd_kernel``, which returns the state each MAMBA cache
+starts from); everything else, the MAMBA decode step included, is plain
+PyTorch.
 
 Public API (all functional: inputs are not modified):
   init_params(gen, cfg)                        -> params
@@ -16,9 +19,10 @@ Public API (all functional: inputs are not modified):
   prefill(params, batch, cfg, cache_len)       -> (last_logits, cache)
   decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
 
-``CROSS`` and ``MAMBA`` blocks, ``encode``, ``train_loss`` and ``remat``
-raise ``NotImplementedError`` (ROADMAP Queue 1 item 15), and there is no
-mesh, so the reference's sharding constraints are dropped.
+``CROSS`` blocks, ``encode`` and image memory raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 10, ``train_loss``
+and ``remat`` naming item 11; there is no mesh, so the reference's
+sharding constraints are dropped.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from typing import Optional
 import torch
 
 import repro_torch.device  # noqa: F401  (IEEE fp32 products, no TF32)
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (prefill_attention,
                                           ring_decode_attention, rope)
 from repro_torch.models.layers import (
@@ -36,12 +41,13 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
 
-_WAITS = ("is not ported yet (ROADMAP Queue 1 item 15: CROSS / MAMBA "
-          "blocks, the encoder, train_loss and remat)")
+_CROSS_ITEM = ("ROADMAP Queue 1 item 10: CROSS blocks, the encoder and "
+               "the vision stub")
+_TRAIN_ITEM = "ROADMAP Queue 1 item 11: train_loss, remat and training"
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} {_WAITS}")
+def _not_ported(what: str, item: str = _CROSS_ITEM):
+    raise NotImplementedError(f"{what} is not ported yet ({item})")
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +83,8 @@ def _init_block(gen, cfg: ModelConfig, period_idx: int):
     p = {"norm1": init_norm(cfg, device=dev)}
     if kind == ATTN:
         p["attn"] = _init_attn(gen, cfg)
+    elif kind == MAMBA:
+        p["mamba"] = ssm_mod.init_mamba(gen, cfg)
     else:
         _not_ported(f"a {kind!r} block")
     ffn = _ffn_kind(cfg, period_idx)
@@ -94,7 +102,7 @@ def _init_period_stack(gen, cfg: ModelConfig, n_periods: int):
     blocks = {}
     for i in range(len(cfg.period)):
         per = [_init_block(gen, cfg, i) for _ in range(n_periods)]
-        blocks[f"b{i}"] = tree_map(lambda *xs: torch.stack(xs), *per)
+        blocks[f"b{i}"] = _stack(per)
     return blocks
 
 
@@ -191,12 +199,24 @@ def _apply_period_full(pp, h, cfg: ModelConfig, memory, mode: str,
     for i, kind in enumerate(cfg.period):
         p = pp[f"b{i}"]
         c = {}
-        if kind != ATTN:
+        if kind == ATTN:
+            out, (k, v) = _self_attn_full(p, h, cfg, causal=cfg.attn.causal)
+            h = h + out
+            if mode == "prefill":
+                c.update(_build_kv_cache(k, v, cfg, cache_len))
+        elif kind == MAMBA:
+            x = apply_norm(p["norm1"], h, cfg)
+            if mode == "prefill":
+                out, (conv_st, ssm_st) = ssm_mod.mamba_forward(
+                    p["mamba"], x, cfg, return_state=True,
+                    ssd_impl=ssm_mod.ssd_kernel)
+                c["conv"], c["ssm"] = conv_st, ssm_st
+            else:
+                out = ssm_mod.mamba_forward(p["mamba"], x, cfg,
+                                            ssd_impl=ssm_mod.ssd_kernel)
+            h = h + out
+        else:
             _not_ported(f"a {kind!r} block")
-        out, (k, v) = _self_attn_full(p, h, cfg, causal=cfg.attn.causal)
-        h = h + out
-        if mode == "prefill":
-            c.update(_build_kv_cache(k, v, cfg, cache_len))
         delta, aux = _ffn(p, h, cfg, i)
         h = h + delta
         aux_total = aux_total + aux
@@ -233,9 +253,16 @@ def _apply_period_decode(pp, h, cfg: ModelConfig, cache, pos: int):
     new_cache = {}
     for i, kind in enumerate(cfg.period):
         p = pp[f"b{i}"]
-        if kind != ATTN:
+        c = cache[f"b{i}"]
+        if kind == ATTN:
+            out, nc = _self_attn_decode(p, h, cfg, c, pos)
+        elif kind == MAMBA:
+            x = apply_norm(p["norm1"], h, cfg)
+            out, (conv_st, ssm_st) = ssm_mod.mamba_decode_step(
+                p["mamba"], x, cfg, c["conv"], c["ssm"])
+            nc = {"conv": conv_st, "ssm": ssm_st}
+        else:
             _not_ported(f"a {kind!r} block")
-        out, nc = _self_attn_decode(p, h, cfg, cache[f"b{i}"], pos)
         h = h + out
         delta, _ = _ffn(p, h, cfg, i)
         h = h + delta
@@ -257,13 +284,17 @@ def _take(tree, i: int):
 
 
 def _stack(trees):
+    """Stack over a new leading axis; one tree is a view, not a copy (a
+    single period of a full-width block needs no second copy)."""
+    if len(trees) == 1:
+        return tree_map(lambda t: t.unsqueeze(0), trees[0])
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 def _stack_full(params_blocks, h, cfg: ModelConfig, memory, mode: str,
                 cache_len: int = 0, remat: bool = False):
     if remat:
-        _not_ported("remat")
+        _not_ported("remat", _TRAIN_ITEM)
     aux = torch.zeros((), device=h.device)
     caches = []
     for i in range(_n_stacked(params_blocks)):
@@ -312,7 +343,7 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = False):
 def train_loss(params, batch, cfg: ModelConfig, remat: bool = True,
                loss_chunk: int = 0):
     """Teacher-forced LM loss: not ported yet."""
-    _not_ported("train_loss")
+    _not_ported("train_loss", _TRAIN_ITEM)
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: Optional[int] = None):

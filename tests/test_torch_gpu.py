@@ -14,7 +14,11 @@ against ``"simt"`` on one input).  The CUDA engine must route a short
 stream like the CPU engine does, on the kernel ladder and on the paper's
 default ``lr -> tinytf`` ladder; a hard expert budget must hold on the
 card; the model expert must label on the card as on the CPU; and the
-zoo's smoke model must serve on the card as on the CPU.  The engine
+zoo's smoke models (Mixtral and the seven other decoder-only
+architectures) must serve on the card as on the CPU.  The SSD scan's
+sub-tiled variant (the zoo's chunk 256 x state 128) and both variants'
+final state are held to the twin, and decode attention at Llama-3-405B's
+16 query heads a kv head.  The engine
 matrix: pipelined depth 2 routes as depth 0 with bitwise state, stage B
 waits for the level-0 copy's event (device work queued ahead of it with
 ``torch.cuda._sleep``), and the model expert's pool threads run on
@@ -120,7 +124,9 @@ def _decode_pos(kind, gen, B, K, W):
     (2, 2048, 48, 8, 128, torch.bfloat16, "split empty"),
     (2, 1024, 8, 2, 64, torch.float32, "split empty"),  # 8 splits
     (2, 1000, 8, 2, 64, torch.bfloat16, "lens"),  # 7 splits, ragged last
-    (2, 300, 32, 2, 64, torch.float32, "lens"),   # G 16: scores from smem
+    (2, 300, 32, 2, 64, torch.float32, "lens"),   # G 16: scored 8 at a time
+    (2, 2048, 128, 8, 128, torch.bfloat16, "ring"),  # llama3-405b: G 16
+    (2, 512, 32, 2, 128, torch.float32, "lens"),  # G 16 x hd 128 in fp32
     (2, 300, 4, 2, 256, torch.float32, "lens"),   # hd 256: two load rounds
     (3, 130, 6, 3, 120, torch.bfloat16, "lens"),  # 240-byte rows: scalar
 ])
@@ -195,6 +201,91 @@ def test_ssd_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk, strided):
     assert ssd_scan_cuda.launches == n0 + 1
     ref = ssd_scan_chunked_ref(x, adt, dt, B, C, chunk)
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("Bsz,S,H,hp,N,chunk,strided", [
+    (2, 512, 4, 64, 128, 256, False),     # the zoo's chunk and state
+    (1, 255, 2, 64, 128, 255, False),     # S - 1 of a prefill check
+    (1, 512, 3, 32, 128, 256, True),      # hp 32, x through a stride
+    (2, 200, 2, 30, 20, 100, False),      # no dimension a multiple of 8
+])
+def test_ssd_subtile_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk,
+                                          strided):
+    """The sub-tiled kernel: y and the final state against the twin, from
+    zero and from an initial state; a null state pointer gives the same
+    y bit for bit; every launch takes "subtile" at the chunk asked for."""
+    gen = torch.Generator().manual_seed(5)
+    x = _randn(gen, Bsz, S, H, 2 * hp if strided else hp)
+    x = x[..., ::2] if strided else x
+    dt = torch.nn.functional.softplus(_randn(gen, Bsz, S, H) - 2.0)
+    adt = -torch.arange(1, H + 1, device="cuda").float() * dt
+    B, C = _randn(gen, Bsz, S, N), _randn(gen, Bsz, S, N)
+    h0 = 0.5 * _randn(gen, Bsz, H, hp, N)
+    v0 = ssd_scan_cuda.launches_by_variant["subtile"]
+    y, h = ssd_scan(x, adt, dt, B, C, chunk=chunk, return_state=True)
+    y_only = ssd_scan(x, adt, dt, B, C, chunk=chunk)
+    y1, h1 = ssd_scan(x, adt, dt, B, C, chunk=chunk, init_state=h0,
+                      return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches_by_variant["subtile"] == v0 + 3
+    assert torch.equal(y, y_only)
+    for init, got_y, got_h in ((None, y, h), (h0, y1, h1)):
+        ry, rh = ssd_scan_chunked_ref(x, adt, dt, B, C, chunk,
+                                      init_state=init, return_state=True)
+        torch.testing.assert_close(got_y, ry, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(got_h, rh, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("Bsz,S,H,hp,N,chunk,variant", [
+    (8, 128, 6, 64, 32, 64, "subtile"),   # the cascade's shape
+    (2, 200, 2, 64, 16, 100, "whole"),    # a chunk "subtile" would take
+])
+def test_ssd_forced_variant_matches_plain(cuda, Bsz, S, H, hp, N, chunk,
+                                          variant):
+    """Each variant forced onto a shape the chooser gives the other one;
+    a variant the shape does not allow raises."""
+    gen = torch.Generator().manual_seed(7)
+    x = _randn(gen, Bsz, S, H, hp)
+    dt = torch.nn.functional.softplus(_randn(gen, Bsz, S, H) - 2.0)
+    adt = -torch.arange(1, H + 1, device="cuda").float() * dt
+    B, C = _randn(gen, Bsz, S, N), _randn(gen, Bsz, S, N)
+    v0 = ssd_scan_cuda.launches_by_variant[variant]
+    y, h = ssd_scan_cuda(x, adt, dt, B, C, chunk=chunk, return_state=True,
+                         variant=variant)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches_by_variant[variant] == v0 + 1
+    ry, rh = ssd_scan_chunked_ref(x, adt, dt, B, C, chunk, return_state=True)
+    torch.testing.assert_close(y, ry, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(h, rh, atol=1e-3, rtol=1e-3)
+    # head dim 128: beyond "subtile"'s 64
+    with pytest.raises(ValueError, match="cannot take"):
+        ssd_scan_cuda(torch.cat([x, x], -1), adt, dt, B, C, chunk=chunk,
+                      variant="subtile")
+
+
+def test_ssd_whole_kernel_returns_its_state(cuda):
+    """The cascade's kernel ("whole", chunk 64) with both state pointers:
+    y unchanged bit for bit, the state against the twin."""
+    gen = torch.Generator().manual_seed(6)
+    Bsz, S, H, hp, N = 8, 128, 6, 64, 32
+    x = _randn(gen, Bsz, S, H, hp)
+    dt = torch.nn.functional.softplus(_randn(gen, Bsz, S, H) - 2.0)
+    adt = -torch.arange(1, H + 1, device="cuda").float() * dt
+    B, C = _randn(gen, Bsz, S, N), _randn(gen, Bsz, S, N)
+    h0 = 0.5 * _randn(gen, Bsz, H, hp, N)
+    v0 = ssd_scan_cuda.launches_by_variant["whole"]
+    y = ssd_scan(x, adt, dt, B, C, chunk=64)
+    y2, h = ssd_scan(x, adt, dt, B, C, chunk=64, return_state=True)
+    y3, h3 = ssd_scan(x, adt, dt, B, C, chunk=64, init_state=h0,
+                      return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches_by_variant["whole"] == v0 + 3
+    assert torch.equal(y, y2)
+    for init, got_y, got_h in ((None, y2, h), (h0, y3, h3)):
+        ry, rh = ssd_scan_chunked_ref(x, adt, dt, B, C, 64,
+                                      init_state=init, return_state=True)
+        torch.testing.assert_close(got_y, ry, atol=1e-3, rtol=1e-3)
+        torch.testing.assert_close(got_h, rh, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("E,C,D,F,dtype", [
@@ -454,6 +545,36 @@ def test_zoo_smoke_model_serves_like_the_cpu(cuda):
             lg, cg = tfm.decode_step(p_gpu, cg, nxt.cuda(), 64 + step, cfg)
             torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
     assert moe_gmm_cuda.launches == n0 + 3 * cfg.n_layers * 4
+
+
+@pytest.mark.parametrize("arch", [
+    "jamba-1.5-large-398b", "mamba2-370m", "internlm2-1.8b", "qwen3-8b",
+    "h2o-danube-3-4b", "llama3-405b", "dbrx-132b"])
+def test_zoo_arch_smoke_serves_like_the_cpu(cuda, arch):
+    """Each decoder-only architecture's smoke config in fp32: prefill
+    (S = 45: a ragged MAMBA chunk) and 3 greedy decode steps on the card
+    (kernels) and the CPU (twins) from the same weights."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    p_cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 45),
+                         generator=torch.Generator().manual_seed(1))
+    n0 = ssd_scan_cuda.launches
+    with torch.no_grad():
+        lc, cc = tfm.prefill(p_cpu, {"tokens": toks}, cfg)
+        lg, cg = tfm.prefill(p_gpu, {"tokens": toks.cuda()}, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        for step in range(3):
+            nxt = lc.argmax(-1)[:, None]
+            lc, cc = tfm.decode_step(p_cpu, cc, nxt, 45 + step, cfg)
+            lg, cg = tfm.decode_step(p_gpu, cg, nxt.cuda(), 45 + step, cfg)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    n_mamba = cfg.n_periods * cfg.period.count("mamba")
+    assert ssd_scan_cuda.launches == n0 + n_mamba
 
 
 def test_cpu_tensors_never_reach_the_kernels(cuda):

@@ -1,6 +1,7 @@
 """The port's zoo serving path vs the JAX package's on the CPU.
 
-Mixtral-8x22B is the one architecture ported so far.  Inputs are made
+This file holds Mixtral-8x22B's path (the other decoder-only
+architectures: ``tests/test_torch_zoo_archs.py``).  Inputs are made
 with numpy from a seed and handed to both packages; the whole-model runs
 start from the reference's own ``init_params(PRNGKey(0))`` through
 ``bridge.load_zoo_params``.  Tolerances, each with its reason:
@@ -111,7 +112,10 @@ def test_mixtral_config_is_the_reference(smoke):
             assert a == b, f.name
     assert mine.n_periods == ref.n_periods
     assert mine.torch_dtype == torch.bfloat16
-    assert list_architectures() == [ARCH]
+    # the eight decoder-only architectures (the CROSS ones wait)
+    assert list_architectures() == sorted([
+        ARCH, "jamba-1.5-large-398b", "mamba2-370m", "internlm2-1.8b",
+        "qwen3-8b", "h2o-danube-3-4b", "llama3-405b", "dbrx-132b"])
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -385,16 +389,16 @@ def test_init_params_shapes_dtypes_and_stds():
 
 
 def test_unported_blocks_raise():
-    cfg = dataclasses.replace(get_smoke_config(ARCH), period=("mamba",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    cfg = dataclasses.replace(get_smoke_config(ARCH), period=("cross",))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         t_tf.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         t_tf.train_loss({}, {}, get_smoke_config(ARCH))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         t_tf.encode({}, None, get_smoke_config(ARCH))
     params = t_tf.init_params(torch.Generator().manual_seed(0),
                               _fp32(get_smoke_config(ARCH)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         t_tf.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
                      _fp32(get_smoke_config(ARCH)), remat=True)
 
