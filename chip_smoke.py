@@ -17,10 +17,11 @@ Phases (any failure exits non-zero and prints no result line):
      32, 16 and 8, its tolerance scaled to the plain output's magnitude
      where that is below 1) — with the kernel's, the plain version's
      and, where one PyTorch call computes the same function, that call's
-     time, beside the analytic bound.  Every fp32 flash row here must
-     take the register-tiled ("tiled") variant, the bf16 hd 32 and hd 120
-     rows the scalar ("simt") one, and one row at the path shape forces
-     "simt" so that each variant stays checked; every decode row takes
+     time, beside the analytic bound.  Every fp32 flash row at head dim
+     32 must take the register-tiled ("tiled") variant, the bf16 hd 32
+     and fp32 hd 120 rows the scalar ("simt") one, the bf16 hd 120 row
+     (h2o-danube-3-4b's head dim) the tensor-core ("tc") one, and one row
+     at the path shape forces "simt" so that each variant stays checked; every decode row takes
      the variant ``decode_attention.kernel.select_variant`` names
      ("single" on the cascade's 128 slots, "split" on the zoo's 2048),
      and every SSD row the whole-chunk one ("whole", chunk 64);
@@ -172,13 +173,16 @@ Phases (any failure exits non-zero and prints no result line):
      of ``lm_batches(seed=0)``'s 2 x 2048 prompts and 16 greedy decode
      steps (prefill ms, decode ms/step, peak GB; every kernel's launches
      and variants counted from zero and equal to what the layers imply:
-     one SSD scan per MAMBA layer in the prefill, all "subtile", none in
-     decode; one flash call per ATTN layer, "tc" or, at Danube's head dim
-     120, "simt"; decode attention ATTN layers x steps, "split";
+     one SSD scan per MAMBA layer in the prefill, all "parallel" (the
+     four chunk-parallel passes), none in decode; one flash call per ATTN
+     layer, all "tc" (Danube's head dim 120 too); decode attention ATTN
+     layers x steps, "split";
      moe_gmm 3 per group and MoE layer, "tc"); the captured inputs held
      against the plain versions (the SSD scan's y and final state, also
      on O(1) random inputs at the shape, there held to the recurrence
-     in float64 per element within 2e-3 x (1 + |f64|)), with
+     in float64 per element within 2e-3 x (1 + |f64|); and each of its
+     four passes alone against its plain pass on the captured inputs, fed
+     the plain outputs of the passes before it), with
      mamba2-370m's and Jamba's SSD,
      Llama-3-405B's decode attention (16 query heads a kv head; also on
      O(1) random inputs with 300 empty slots) and Danube's flash prefill
@@ -191,7 +195,7 @@ The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade, Mixtral and
 zoo-archs serving runs, each counted from zero, ``launches_by_variant``
 its split by variant (decode attention: "single" / "split"; the SSD
-scan: "whole" / "subtile"), and ``paths`` has each path's own count,
+scan: "whole" / "parallel"), and ``paths`` has each path's own count,
 times, ``variant`` (the one its timed row took) and
 ``launches_by_variant``, ``cascade_pipelined`` the launches of phase 8
 (c)'s depth-2 run, ``cascade_admission`` those of phase 9 (c)'s Poisson
@@ -302,8 +306,11 @@ from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.kernel import moe_gmm_cuda  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import gmm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda  # noqa: E402
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.kernel import (  # noqa: E402
+    ssd_passes_cuda, ssd_scan_cuda, ssd_scratch)
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_cb_ref, ssd_chunk_scan_ref, ssd_chunk_state_ref, ssd_scan_chunked_ref,
+    ssd_state_pass_ref)
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 LAUNCHERS = {"flash_attention": flash_attention_cuda,
@@ -317,8 +324,8 @@ ZOO_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
 # kernel), flash also "tiled" (fp32 register tiles); decode attention
 # "single" (one block per (b, kv head), one launch) and "split" (the
 # cache split across blocks, then a combine); the SSD scan "whole" (a
-# chunk of up to 64 tokens held whole) and "subtile" (the zoo's chunk 256
-# in sub-tiles of 64)
+# chunk of up to 64 tokens held whole) and "parallel" (the zoo's chunk
+# 256 in four chunk-parallel passes, one launch of the op)
 VARIANT_LAUNCHERS = {"moe_gmm": moe_gmm_cuda,
                      "flash_attention": flash_attention_cuda,
                      "decode_attention": decode_attention_cuda,
@@ -658,8 +665,8 @@ def phase_kernels(tokens):
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen).to("cuda", dtype)
 
-    # flash edge cases: fp32 with hd 32 takes "tiled", bf16 hd 32 and hd
-    # 120 take "simt"
+    # flash edge cases: fp32 with hd 32 takes "tiled", bf16 hd 32 and fp32
+    # hd 120 take "simt", bf16 hd 120 takes "tc"
     for label, (B, S, H, K, hd, causal, window, dtype, fv) in {
             "window 48": (4, 128, 4, 4, 32, True, 48, torch.float32,
                           "tiled"),
@@ -670,6 +677,8 @@ def phase_kernels(tokens):
             "bf16": (4, 128, 4, 4, 32, True, None, torch.bfloat16, "simt"),
             "hd 120": (2, 128, 4, 2, 120, True, None, torch.float32,
                        "simt"),
+            "hd 120 bf16": (2, 128, 4, 2, 120, True, None, torch.bfloat16,
+                            "tc"),
             "ragged S=100": (2, 100, 4, 4, 32, True, None, torch.float32,
                              "tiled"),
     }.items():
@@ -767,7 +776,7 @@ def phase_serve():
         _fail(f"the cascade's fp32 flash launches must all take the "
               f"register-tiled variant: {by_variant['flash_attention']}")
     if by_variant["ssd_scan"] != {"whole": launches["ssd_scan"],
-                                  "subtile": 0}:
+                                  "parallel": 0}:
         _fail(f"the cascade's SSD launches (chunk 64) must all take the "
               f"whole-chunk variant: {by_variant['ssd_scan']}")
     for n in LAUNCHERS:
@@ -2375,13 +2384,14 @@ def _arch_config(name, depth):
 def _arch_variants(cfg):
     """The variant every launch of each kernel must take on this model's
     serving path: moe_gmm and flash bf16 on the tensor cores (flash at a
-    head dim other than 64 / 128 on the scalar kernel), decode attention
-    split across its 2048-slot ring, the SSD scan sub-tiled (chunk 256)."""
+    head dim outside ``TC_HEAD_DIMS``, none of the zoo's, on the scalar
+    kernel), decode attention split across its 2048-slot ring, the SSD
+    scan in its four chunk-parallel passes (chunk 256)."""
     from repro_torch.kernels.flash_attention.kernel import TC_HEAD_DIMS
     hd = cfg.attn.head_dim if cfg.attn is not None else None
     return {"moe_gmm": "tc",
             "flash_attention": "tc" if hd in TC_HEAD_DIMS else "simt",
-            "decode_attention": "split", "ssd_scan": "subtile"}
+            "decode_attention": "split", "ssd_scan": "parallel"}
 
 
 def _capture_arch_inputs(cfg, params, tokens):
@@ -2415,6 +2425,53 @@ def _capture_arch_inputs(cfg, params, tokens):
     return got
 
 
+def _ssd_pass_rows(short, x, adt, dt, B, C, L, results):
+    """Each pass of the SSD scan's "parallel" variant alone
+    (``ssd_passes_cuda``, uncounted) against its plain pass on the same
+    inputs, fed the plain outputs of the passes before it: C·Bᵀ's lower
+    triangle, the chunk states and their cumsum of A·dt, the states
+    entering the chunks and the final one, y; each within ZOO_SSD_TOL x
+    min(1, max|plain|), the rule of the captured-input rows.  The cumsum,
+    which the kernel keeps in fp64, is held to the cumsum in float64: the
+    twin's fp32 cumsum is itself ~8 ulps (0.004) off at Jamba's |cum| ~
+    7e3."""
+    Bsz, S, H, hp = x.shape
+    N = B.shape[-1]
+    cb = ssd_cb_ref(B, C, L)
+    st, cum = ssd_chunk_state_ref(x, adt, dt, B, L)
+    ent, hf = ssd_state_pass_ref(st, cum)
+    y = ssd_chunk_scan_ref(x, dt, C, cb, cum, ent, L)
+    cum64 = torch.cumsum(adt.double().reshape(Bsz, S // L, L, H),
+                         dim=2).transpose(2, 3)
+    hout = torch.empty_like(hf)
+    yk = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+
+    def run(passes, entering=False, **kw):
+        s = ssd_scratch(Bsz, S, H, hp, N, L, x.device)
+        s["cb"].zero_()
+        s["cb"][..., :L, :L] = cb
+        s["cum"][..., :L] = cum
+        s["cum"][..., L:] = cum[..., -1:]
+        s["st"].copy_(ent if entering else st)
+        ssd_passes_cuda(x, adt, dt, B, C, chunk=L, passes=passes,
+                        scratch=s, **kw)
+        return s
+
+    for what, kernel_fn, plain in (
+            ("cb", lambda: run(["cb"])["cb"][..., :L, :L].tril(), cb),
+            ("chunk_state", lambda: run(["chunk_state"])["st"], st),
+            ("chunk_state cum",
+             lambda: run(["chunk_state"])["cum"][..., :L], cum64),
+            ("state_pass", lambda: run(["state_pass"], h_final=hout)["st"],
+             ent),
+            ("state_pass h_final",
+             lambda: (run(["state_pass"], h_final=hout), hout)[1], hf),
+            ("chunk_scan",
+             lambda: (run(["chunk_scan"], entering=True, y=yk), yk)[1], y)):
+        check("ssd_scan", f"pass zoo {short} {what}", kernel_fn,
+              lambda: plain, ZOO_SSD_TOL, results, scaled=True)
+
+
 def _arch_kernel_rows(short, cfg, got, results):
     """Each kernel held against its plain version on the captured layer
     inputs and on O(1) random inputs at the same shapes; the architecture's
@@ -2443,6 +2500,7 @@ def _arch_kernel_rows(short, cfg, got, results):
               lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, L,
                                            return_state=True)[1],
               ZOO_SSD_TOL, results, scaled=True, variant=want["ssd_scan"])
+        _ssd_pass_rows(short, x, adt, dt, B, C, L, results)
         # O(1) inputs with the model's A = -(1 .. H), held to the
         # recurrence in float64 per element (ZOO_SSD_F64_TOL)
         H = x.shape[2]

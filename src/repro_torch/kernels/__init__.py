@@ -20,8 +20,12 @@ Each package ships three files, as in the reference:
 their ``kernel.py`` ``select_variant`` from the operands: ``"tc"`` (bf16
 wgmma fed by TMA; Hopper building blocks in ``csrc/sm90.cuh``) and
 ``"simt"`` (the scalar fp32 kernel: fp32, other head dims, rows TMA
-cannot read).  ``_build.py`` compiles ``csrc/*.cu`` with nvcc at first
-use.  Every TPU kernel of the reference has its counterpart here: the
-first three serve the cascade's kernel ladder, and all but the SSD scan
-serve the zoo's Mixtral-8x22B (``models/transformer.py``).
+cannot read); flash attention also ``"tiled"`` (fp32 register tiles).
+The SSD scan has ``"whole"`` (a chunk of up to 64 tokens) and
+``"parallel"`` (four chunk-parallel passes, the zoo's chunk 256).
+``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.  Every TPU
+kernel of the reference has its counterpart here: the first three serve
+the cascade's kernel ladder, all but the SSD scan the zoo's
+Mixtral-8x22B, and the SSD scan the zoo's MAMBA blocks
+(``models/transformer.py``).
 """

@@ -14,7 +14,15 @@
 // Three variants; the Python launcher picks one from the operands before
 // the launch (kernels/flash_attention/kernel.py select_variant):
 //
-// "tc" (variant 1): bf16 with head dim 64 or 128, operands TMA can read.
+// "tc" (variant 1): bf16 with head dim 64, or 72 to 128 in steps of 8
+// (Danube's 120), operands TMA can read.  The template parameter is the
+// padded width, a multiple of the 64-column TMA box (64 or 128); the
+// tensor maps keep the real head dim as their innermost extent, so at hd
+// 120 the second box (columns 64..127) reads columns 120..127 as zeros
+// (out of bounds) and nothing of the next head.  The padded products of
+// Q K^T are zero, V's zero columns give zero accumulator columns, and the
+// epilogue stores only the hd / 8 real column groups; the 128-byte swizzle
+// and the shared-memory layout are those of hd 128.
 // A block owns 128 query rows of one head: two consumer warpgroups of 64
 // rows and a producer warpgroup whose one working thread loads the q tile
 // once and 128-key K and V tiles into a two-stage ring (4-d tensor maps
@@ -511,7 +519,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
-                int group, int causal, int window, float scale_log2) {
+                int hd, int group, int causal, int window,
+                float scale_log2) {
   constexpr int BOXES = HD / 64;                  // 64-wide head-dim boxes
   constexpr int TILE = BOXES * TC_BOX_BYTES;      // one q / K / V tile
   extern __shared__ uint8_t smem_raw[];
@@ -675,24 +684,29 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = qrow + 8 * r;
       if (row >= Sq) continue;
       __nv_bfloat16* orow =
-          o + (((long long)blockIdx.y * Sq + row) * H + h) * HD;
+          o + (((long long)blockIdx.y * Sq + row) * H + h) * hd;
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * (lane % 4)) =
-            __floats2bfloat162_rn(oacc[4 * c + 2 * r] * inv[r],
-                                  oacc[4 * c + 2 * r + 1] * inv[r]);
+      for (int c = 0; c < HD / 8; ++c)  // the real hd / 8 column groups
+        if (8 * c < hd)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c + 2 * (lane % 4)) =
+              __floats2bfloat162_rn(oacc[4 * c + 2 * r] * inv[r],
+                                    oacc[4 * c + 2 * r + 1] * inv[r]);
     }
   }
 }
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int Sq, int Skv, int H, int K, const int* st, int causal,
-              int window, float sm_scale, cudaStream_t stream) {
-  // (B, S, heads, hd) as 4-d maps (hd, heads, S, B), strides in bytes
+              int Sq, int Skv, int H, int K, int hd, const int* st,
+              int causal, int window, float sm_scale, cudaStream_t stream) {
+  // (B, S, heads, hd) as 4-d maps (hd, heads, S, B), strides in bytes; the
+  // real hd (<= HD) is the innermost extent, so columns hd..HD-1 of the
+  // last box are out of bounds and arrive as zeros
   const uint32_t box[4] = {64, 1, 128, 1};
-  const uint64_t qd[4] = {HD, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
-  const uint64_t kd[4] = {HD, (uint64_t)K, (uint64_t)Skv, (uint64_t)B};
+  const uint64_t qd[4] = {(uint64_t)hd, (uint64_t)H, (uint64_t)Sq,
+                          (uint64_t)B};
+  const uint64_t kd[4] = {(uint64_t)hd, (uint64_t)K, (uint64_t)Skv,
+                          (uint64_t)B};
   const uint64_t qs[3] = {(uint64_t)st[2] * 2, (uint64_t)st[1] * 2,
                           (uint64_t)st[0] * 2};
   const uint64_t ks[3] = {(uint64_t)st[6] * 2, (uint64_t)st[5] * 2,
@@ -710,8 +724,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(H, B, (Sq + TC_BM - 1) / TC_BM);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   flash_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, H / K, causal,
-      window, sm_scale * LOG2E);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, hd, H / K,
+      causal, window, sm_scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -720,7 +734,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 // q (B,Sq,H,hd), k/v (B,Skv,K,hd) read through element strides
 // (b, s, head, d) x {q, k, v}; o contiguous (B,Sq,H,hd) of the same dtype.
 // dtype: 0 = fp32, 1 = bf16.  window <= 0 means no window.  variant:
-// 0 = simt, 1 = tc (bf16, hd 64 or 128, TMA-readable operands), 2 = tiled
+// 0 = simt, 1 = tc (bf16, hd 64 or 72..128 in steps of 8, TMA-readable
+// operands; hd above 64 runs the 128-wide instance), 2 = tiled
 // (fp32, hd 16 / 32 / 64 / 128, head dims contiguous, other strides
 // multiples of 4 elements, 16-byte-aligned bases); the launcher checks,
 // and so does this function.
@@ -738,12 +753,12 @@ extern "C" int repro_flash_attention_fwd(
   if (variant == 1) {
     if (dtype != 1 || qsd != 1 || ksd != 1 || vsd != 1)
       return (int)cudaErrorInvalidValue;
-    if (hd == 128)
-      return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window,
-                            sm_scale, s);
     if (hd == 64)
-      return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, K, st, causal, window,
-                           sm_scale, s);
+      return launch_tc<64>(q, k, v, o, B, Sq, Skv, H, K, hd, st, causal,
+                           window, sm_scale, s);
+    if (hd > 64 && hd % 8 == 0)  // hd <= MAX_HD: checked above
+      return launch_tc<128>(q, k, v, o, B, Sq, Skv, H, K, hd, st, causal,
+                            window, sm_scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (variant == 2) {

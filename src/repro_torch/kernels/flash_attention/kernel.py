@@ -20,12 +20,14 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "tc": 1, "tiled": 2}
 MAX_HEAD_DIM = 128
-TC_HEAD_DIMS = (64, 128)
+# hd 120 (h2o-danube-3-4b) runs the 128-wide instance: TMA zero-fills the
+# columns past the real head dim (csrc/flash_attention.cu)
+TC_HEAD_DIMS = (64, 120, 128)
 TILED_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _tc_ok(q, k, v) -> bool:
-    """bf16 with head dim 64 or 128 that TMA can read."""
+    """bf16 with a head dim in ``TC_HEAD_DIMS`` that TMA can read."""
     return (all(t.dtype == torch.bfloat16 for t in (q, k, v))
             and q.ndim == 4 and k.ndim == 4
             and q.shape[-1] in TC_HEAD_DIMS and min(*q.shape, *k.shape) >= 1
@@ -47,7 +49,7 @@ def select_variant(q, k, v) -> str:
     """``"tc"`` (bf16 wgmma fed by TMA), ``"tiled"`` (fp32 register tiles
     fed by cp.async) or ``"simt"`` (the scalar kernel), from the
     operands' dtype, shapes, strides and base alignment alone: bf16 with
-    head dim 64 or 128 that TMA can read takes the tensor cores; fp32
+    head dim 64, 120 or 128 that TMA can read takes the tensor cores; fp32
     (the cascade's path: TF32 would miss its 2e-5 tolerance) with head
     dim 16 / 32 / 64 / 128 and 16-byte rows takes ``tiled``; other head
     dims and unreadable strides or bases take ``simt``."""

@@ -9,6 +9,12 @@
   the kernel against.
 * ``ssd_scan_ref`` — the sequential per-token recurrence, the
   ground-truth semantics both are tested against.
+* one twin per pass of the CUDA kernel's ``"parallel"`` variant —
+  ``ssd_cb_ref`` (C·Bᵀ per chunk), ``ssd_chunk_state_ref`` (each chunk's
+  cumsum of A·dt and its own state), ``ssd_state_pass_ref`` (the states
+  entering the chunks, and the final one) and ``ssd_chunk_scan_ref`` (y)
+  — and ``ssd_scan_passes_ref``, their composition, which computes
+  ``ssd_scan_chunked_ref``'s function.
 """
 from __future__ import annotations
 
@@ -72,3 +78,71 @@ def ssd_scan_ref(x, adt, dt, B, C) -> torch.Tensor:
         h = h * dA[:, :, None, None] + upd
         ys.append(torch.einsum("bn,bhpn->bhp", C[:, t].float(), h))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def _chunks(t, chunk: int):
+    """(Bsz, S, ...) -> (Bsz, S // chunk, chunk, ...) in fp32."""
+    return t.float().reshape(t.shape[0], t.shape[1] // chunk, chunk,
+                             *t.shape[2:])
+
+
+def ssd_cb_ref(B, C, chunk: int):
+    """Pass 1: (C B^T)[i][j] = C_i . B_j within each chunk, for j <= i
+    (zeros above the diagonal); (Bsz, nc, L, L) fp32.  B and C are shared
+    by the heads, so this does not depend on the head."""
+    cb = torch.einsum("bcin,bcjn->bcij", _chunks(C, chunk), _chunks(B, chunk))
+    return torch.tril(cb)
+
+
+def ssd_chunk_state_ref(x, adt, dt, B, chunk: int):
+    """Pass 2: per chunk, cum = cumsum(A dt) (Bsz, nc, H, L) and the
+    chunk's own state from zero, s = sum_j exp(cum_{L-1} - cum_j) dt_j
+    x_j^T B_j, (Bsz, nc, H, hp, N).  Returns (s, cum)."""
+    cum = torch.cumsum(_chunks(adt, chunk), dim=2).transpose(2, 3)
+    w = torch.exp(cum[..., -1:] - cum) * _chunks(dt, chunk).transpose(2, 3)
+    s = torch.einsum("bchl,bclhp,bcln->bchpn", w, _chunks(x, chunk),
+                     _chunks(B, chunk))
+    return s, cum
+
+
+def ssd_state_pass_ref(states, cum, init_state=None):
+    """Pass 3: h_c = h_{c-1} exp(cum_{L-1} of chunk c) + s_c from
+    ``init_state`` (zeros when None).  Returns (the state entering each
+    chunk, (Bsz, nc, H, hp, N); the state after the last, (Bsz, H, hp,
+    N))."""
+    h = (torch.zeros_like(states[:, 0]) if init_state is None
+         else init_state.float())
+    entering = []
+    for c in range(states.shape[1]):
+        entering.append(h)
+        h = h * torch.exp(cum[:, c, :, -1])[..., None, None] + states[:, c]
+    return torch.stack(entering, dim=1), h
+
+
+def ssd_chunk_scan_ref(x, dt, C, cb, cum, entering, chunk: int):
+    """Pass 4: y_i = sum_{j<=i} CB_ij exp(cum_i - cum_j) dt_j x_j +
+    exp(cum_i) C_i . h_{c-1}, from the three passes' outputs; y (Bsz, S,
+    H, hp) in x's dtype."""
+    L = chunk
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    diff = cum[..., :, None] - cum[..., None, :]        # (Bsz, nc, H, L, L)
+    # exp only where i >= j: the upper triangle may overflow
+    decay = torch.exp(torch.where(tri, diff, torch.full_like(diff,
+                                                             -torch.inf)))
+    scores = (torch.where(tri, cb, torch.zeros_like(cb))[:, :, None] * decay
+              * _chunks(dt, L).transpose(2, 3)[..., None, :])
+    y = torch.einsum("bchij,bcjhp->bcihp", scores, _chunks(x, L))
+    y = y + torch.einsum("bcin,bchpn->bcihp", _chunks(C, L), entering) \
+        * torch.exp(cum).transpose(2, 3)[..., None]
+    return y.reshape(x.shape).to(x.dtype)
+
+
+def ssd_scan_passes_ref(x, adt, dt, B, C, chunk: int, *, init_state=None,
+                        return_state: bool = False):
+    """The four passes composed: ``ssd_scan_chunked_ref``'s function and
+    contract."""
+    states, cum = ssd_chunk_state_ref(x, adt, dt, B, chunk)
+    entering, h = ssd_state_pass_ref(states, cum, init_state)
+    y = ssd_chunk_scan_ref(x, dt, C, ssd_cb_ref(B, C, chunk), cum, entering,
+                           chunk)
+    return (y, h) if return_state else y

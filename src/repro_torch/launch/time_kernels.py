@@ -16,8 +16,10 @@ names the PyTorch call of a twin row instead), ``ms`` (the mean of
 ``--reps`` calls back to back between CUDA events after a warm-up: the
 host's work per call is included where it is the longer), ``graph_ms``
 (the same calls captured in a CUDA graph and replayed: the device's time
-per call without the host's) and ``profile_by_kernel`` (device time per
-call of each kernel a call launches, from a ``torch.profiler`` trace).
+per call without the host's), ``profile_by_kernel`` (device time per
+call of each kernel a call launches, from a ``torch.profiler`` trace:
+the SSD scan's four passes each under its own kernel's name) and
+``profile_ms`` (their sum).
 Rows: flash attention at the cascade's buckets 64 / 32 / 16 / 8 (fp32)
 and the zoo's prefill (bf16; Mixtral's, and Danube's at head dim 120),
 decode attention (the cascade's readout,
@@ -30,7 +32,10 @@ with its plain PyTorch version (``plain`` names it:
 ``gmm_ref``) and, but the SSD scan's, with its library twin
 (``F.scaled_dot_product_attention`` or ``torch.bmm``).  Where the
 version's launchers take them, rows at a forced flash or SSD
-``variant`` and decode ``n_split`` show each choice's trade-off.  Under
+``variant`` and decode ``n_split`` show each choice's trade-off (flash
+``"simt"`` at the cascade's buckets and at Danube's prefill, beside the
+chosen variant; the SSD scan's other variant at the cascade's chunk
+64).  Under
 ``--root`` naming another checkout, a row its launcher refuses (a
 ``ValueError`` before any launch: a shape an older checkout does not
 take) is printed with its ``error``; any other failure ends the run.
@@ -103,9 +108,11 @@ def _profile_ms(torch, fn, reps: int):
 
 
 def _row(torch, fn, reps):
+    by_kernel = _profile_ms(torch, fn, reps)
     return {"ms": _time_ms(torch, fn, reps),
             "graph_ms": _graph_ms(torch, fn, reps),
-            "profile_by_kernel": _profile_ms(torch, fn, reps)}
+            "profile_by_kernel": by_kernel,
+            "profile_ms": sum(by_kernel.values())}
 
 
 def _variant(launcher, before):
@@ -202,7 +209,7 @@ def main(argv=None) -> int:
     flash.append(("zoo prefill", rnd(2, 2048, 48, 128, dtype=bf),
                   rnd(2, 2048, 8, 128, dtype=bf),
                   rnd(2, 2048, 8, 128, dtype=bf), 4096))
-    # h2o-danube-3-4b's head dim 120 ("tc" takes 64 and 128)
+    # h2o-danube-3-4b's head dim 120 ("tc" on its 128-wide instance)
     flash.append(("zoo danube prefill", rnd(2, 2048, 32, 120, dtype=bf),
                   rnd(2, 2048, 8, 120, dtype=bf),
                   rnd(2, 2048, 8, 120, dtype=bf), 4096))
@@ -220,7 +227,7 @@ def main(argv=None) -> int:
                                    window=window,
                                    sm_scale=q.shape[-1] ** -0.5),
              plain="attention_ref", reps=10)
-        if not path.startswith("cascade"):
+        if not (path.startswith("cascade") or "danube" in path):
             continue
         # the scalar kernel beside the chosen one
         if forced:
@@ -296,12 +303,15 @@ def main(argv=None) -> int:
         emit("ssd_scan", path, list(x.shape),
              lambda: ssd_ops.ssd_scan(x, adt, dt, Bm, Cm, chunk=chunk),
              launcher)
-        # the sub-tiled kernel at the cascade's chunk 64, beside "whole"
+        # the long-chunk variant (this checkout's name for it) at the
+        # cascade's chunk 64, beside "whole"
         if path.startswith("cascade") and _takes(launcher, "variant"):
+            other = [v for v in launcher.launches_by_variant
+                     if v != "whole"][0]
             emit("ssd_scan", path, list(x.shape),
                  lambda: launcher(x, adt, dt, Bm, Cm, chunk=chunk,
-                                  variant="subtile"),
-                 variant="forced subtile")
+                                  variant=other),
+                 variant=f"forced {other}")
         emit("ssd_scan", path, list(x.shape),
              lambda: ssd_scan_chunked_ref(x, adt, dt, Bm, Cm, chunk),
              plain="ssd_scan_chunked_ref",

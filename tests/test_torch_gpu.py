@@ -8,16 +8,18 @@ grouped matmul 1e-5 (fp32) and 1e-2 (bf16) of the twin's largest
 magnitude, as is bf16 flash attention on its tensor-core variant), its
 launch counter must move by exactly one per call, and a CPU tensor must
 never reach it.  For ``moe_gmm`` and flash attention each case also
-asserts which variant (``"tc"`` tensor cores, ``"simt"`` CUDA cores)
-the launch took (flash: also ``"tiled"``, fp32 register tiles, forced
-against ``"simt"`` on one input).  The CUDA engine must route a short
+asserts which variant (``"tc"`` tensor cores, also at Danube's head
+dim 120; ``"simt"`` CUDA cores) the launch took (flash: also
+``"tiled"``, fp32 register tiles, forced against ``"simt"`` on one
+input).  The CUDA engine must route a short
 stream like the CPU engine does, on the kernel ladder and on the paper's
 default ``lr -> tinytf`` ladder; a hard expert budget must hold on the
 card; the model expert must label on the card as on the CPU; and the
 zoo's smoke models (Mixtral and the seven other decoder-only
 architectures) must serve on the card as on the CPU.  The SSD scan's
-sub-tiled variant (the zoo's chunk 256 x state 128) and both variants'
-final state are held to the twin, and decode attention at Llama-3-405B's
+chunk-parallel variant (the zoo's chunk 256 x state 128, at
+mamba2-370m's and Jamba's layer shapes), each of its four passes against
+its plain pass, and both variants' final state are held to the twin, and decode attention at Llama-3-405B's
 16 query heads a kv head.  The engine
 matrix: pipelined depth 2 routes as depth 0 with bitwise state, stage B
 waits for the level-0 copy's event (device work queued ahead of it with
@@ -203,31 +205,48 @@ def test_ssd_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk, strided):
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("Bsz,S,H,hp,N,chunk,strided", [
-    (2, 512, 4, 64, 128, 256, False),     # the zoo's chunk and state
-    (1, 255, 2, 64, 128, 255, False),     # S - 1 of a prefill check
-    (1, 512, 3, 32, 128, 256, True),      # hp 32, x through a stride
-    (2, 200, 2, 30, 20, 100, False),      # no dimension a multiple of 8
-])
-def test_ssd_subtile_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk,
-                                          strided):
-    """The sub-tiled kernel: y and the final state against the twin, from
-    zero and from an initial state; a null state pointer gives the same
-    y bit for bit; every launch takes "subtile" at the chunk asked for."""
-    gen = torch.Generator().manual_seed(5)
+def _ssd_inputs(seed, Bsz, S, H, hp, N, strided=False, model_a=False):
+    """O(1) x, B, C; dt = softplus(randn - 2); A = -(1 .. H), or with
+    ``model_a`` spread over Mamba2's initial range [-16, -1] (at Jamba's
+    256 heads -(1 .. H) drives |cum A dt| to ~8e3 in a chunk, where fp32
+    rounding of the cumsum alone moves y by ~5e-3: the float64 rule of
+    chip_smoke.py holds those rows)."""
+    gen = torch.Generator().manual_seed(seed)
     x = _randn(gen, Bsz, S, H, 2 * hp if strided else hp)
     x = x[..., ::2] if strided else x
     dt = torch.nn.functional.softplus(_randn(gen, Bsz, S, H) - 2.0)
-    adt = -torch.arange(1, H + 1, device="cuda").float() * dt
+    a = (1 + 15 * torch.arange(H, device="cuda").float() / max(H - 1, 1)
+         if model_a else torch.arange(1, H + 1, device="cuda").float())
     B, C = _randn(gen, Bsz, S, N), _randn(gen, Bsz, S, N)
-    h0 = 0.5 * _randn(gen, Bsz, H, hp, N)
-    v0 = ssd_scan_cuda.launches_by_variant["subtile"]
+    return x, -a * dt, dt, B, C, 0.5 * _randn(gen, Bsz, H, hp, N)
+
+
+@pytest.mark.parametrize("Bsz,S,H,hp,N,chunk,strided,model_a", [
+    (2, 512, 4, 64, 128, 256, False, False),    # the zoo's chunk and state
+    (1, 255, 2, 64, 128, 255, False, False),    # S - 1 of a prefill check
+    (1, 512, 3, 32, 128, 256, True, False),     # hp 32, x through a stride
+    (2, 200, 2, 30, 20, 100, False, False),     # no dimension a multiple of 8
+    (2, 2048, 32, 64, 128, 256, False, True),   # mamba2-370m's layer
+    (2, 2048, 256, 64, 128, 256, False, True),  # Jamba's layer
+    (1, 300, 4, 64, 128, 300, False, True),     # a ragged chunk of 300
+])
+def test_ssd_parallel_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk,
+                                           strided, model_a):
+    """The chunk-parallel kernels: y and the final state against the twin,
+    from zero and from an initial state; a null state pointer gives the
+    same y bit for bit; every launch takes "parallel" at the chunk asked
+    for, one launch a call."""
+    x, adt, dt, B, C, h0 = _ssd_inputs(5, Bsz, S, H, hp, N, strided,
+                                       model_a)
+    v0 = ssd_scan_cuda.launches_by_variant["parallel"]
+    n0 = ssd_scan_cuda.launches
     y, h = ssd_scan(x, adt, dt, B, C, chunk=chunk, return_state=True)
     y_only = ssd_scan(x, adt, dt, B, C, chunk=chunk)
     y1, h1 = ssd_scan(x, adt, dt, B, C, chunk=chunk, init_state=h0,
                       return_state=True)
     torch.cuda.synchronize()
-    assert ssd_scan_cuda.launches_by_variant["subtile"] == v0 + 3
+    assert ssd_scan_cuda.launches_by_variant["parallel"] == v0 + 3
+    assert ssd_scan_cuda.launches == n0 + 3
     assert torch.equal(y, y_only)
     for init, got_y, got_h in ((None, y, h), (h0, y1, h1)):
         ry, rh = ssd_scan_chunked_ref(x, adt, dt, B, C, chunk,
@@ -237,8 +256,8 @@ def test_ssd_subtile_kernel_matches_plain(cuda, Bsz, S, H, hp, N, chunk,
 
 
 @pytest.mark.parametrize("Bsz,S,H,hp,N,chunk,variant", [
-    (8, 128, 6, 64, 32, 64, "subtile"),   # the cascade's shape
-    (2, 200, 2, 64, 16, 100, "whole"),    # a chunk "subtile" would take
+    (8, 128, 6, 64, 32, 64, "parallel"),  # the cascade's shape
+    (2, 200, 2, 64, 16, 100, "whole"),    # a chunk "parallel" would take
 ])
 def test_ssd_forced_variant_matches_plain(cuda, Bsz, S, H, hp, N, chunk,
                                           variant):
@@ -257,10 +276,63 @@ def test_ssd_forced_variant_matches_plain(cuda, Bsz, S, H, hp, N, chunk,
     ry, rh = ssd_scan_chunked_ref(x, adt, dt, B, C, chunk, return_state=True)
     torch.testing.assert_close(y, ry, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(h, rh, atol=1e-3, rtol=1e-3)
-    # head dim 128: beyond "subtile"'s 64
+    # head dim 128: beyond "parallel"'s 64
     with pytest.raises(ValueError, match="cannot take"):
         ssd_scan_cuda(torch.cat([x, x], -1), adt, dt, B, C, chunk=chunk,
-                      variant="subtile")
+                      variant="parallel")
+
+
+@pytest.mark.parametrize("Bsz,S,H,hp,N,chunk,init", [
+    (2, 2048, 32, 64, 128, 256, False),   # mamba2-370m's layer
+    (2, 2048, 32, 64, 128, 256, True),
+    (1, 200, 3, 30, 20, 100, True),       # ragged chunk, hp and state
+])
+def test_ssd_passes_match_plain_passes(cuda, Bsz, S, H, hp, N, chunk, init):
+    """Each pass of "parallel" alone against its plain twin (``ref.py``),
+    fed the twins' outputs of the passes before it; no pass counts as a
+    launch of the op."""
+    from repro_torch.kernels.ssd_scan.kernel import (ssd_passes_cuda,
+                                                     ssd_scratch)
+    from repro_torch.kernels.ssd_scan.ref import (
+        ssd_cb_ref, ssd_chunk_scan_ref, ssd_chunk_state_ref,
+        ssd_state_pass_ref)
+    x, adt, dt, B, C, h0 = _ssd_inputs(9, Bsz, S, H, hp, N, model_a=True)
+    h0 = h0 if init else None
+    L = chunk
+    cb, (st, cum) = ssd_cb_ref(B, C, L), ssd_chunk_state_ref(x, adt, dt, B,
+                                                             L)
+    ent, hf = ssd_state_pass_ref(st, cum, h0)
+    y = ssd_chunk_scan_ref(x, dt, C, cb, cum, ent, L)
+    n0 = ssd_scan_cuda.launches
+
+    def run(passes, **kw):
+        s = ssd_scratch(Bsz, S, H, hp, N, L, "cuda")
+        s["cb"].zero_()
+        s["cb"][..., :L, :L] = cb
+        s["cum"][..., :L] = cum
+        s["cum"][..., L:] = cum[..., -1:]
+        s["st"].copy_(ent if passes == ["chunk_scan"] else st)
+        ssd_passes_cuda(x, adt, dt, B, C, chunk=L, passes=passes,
+                        scratch=s, init_state=h0, **kw)
+        torch.cuda.synchronize()
+        return s
+
+    tol = dict(atol=1e-3, rtol=1e-3)
+    s = ssd_scratch(Bsz, S, H, hp, N, L, "cuda")
+    ssd_passes_cuda(x, adt, dt, B, C, chunk=L, passes=["cb"], scratch=s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s["cb"][..., :L, :L].tril(), cb, **tol)
+    s = run(["chunk_state"])
+    torch.testing.assert_close(s["cum"][..., :L].float(), cum, **tol)
+    torch.testing.assert_close(s["st"], st, **tol)
+    hout = torch.empty_like(hf)
+    s = run(["state_pass"], h_final=hout)
+    torch.testing.assert_close(s["st"], ent, **tol)
+    torch.testing.assert_close(hout, hf, **tol)
+    yk = torch.empty_like(x, memory_format=torch.contiguous_format)
+    run(["chunk_scan"], y=yk)
+    torch.testing.assert_close(yk, y, **tol)
+    assert ssd_scan_cuda.launches == n0
 
 
 def test_ssd_whole_kernel_returns_its_state(cuda):
@@ -423,15 +495,45 @@ def test_flash_tc_variant_matches_plain(cuda, B, S, H, K, hd, causal,
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["fp32", "hd 120", "strided q"])
+@pytest.mark.parametrize("B,Sq,Skv,H,K,causal,window", [
+    (2, 2048, 2048, 32, 8, True, None),   # Danube's GQA 4 (window >= S)
+    (1, 2048, 2048, 8, 2, True, 1000),    # a window below S
+    (2, 1000, 1000, 8, 2, True, None),    # ragged S
+    (1, 300, 700, 8, 4, False, None),     # non-causal, Sq != Skv
+])
+def test_flash_tc_head_dim_120_matches_plain(cuda, B, Sq, Skv, H, K, causal,
+                                             window):
+    """bf16 at h2o-danube-3-4b's head dim 120 takes "tc" (the 128-wide
+    instance; TMA zero-fills columns 120..127) and agrees with the twin
+    at the bf16 tolerance, 2e-2."""
+    from repro_torch.kernels.flash_attention.kernel import select_variant
+    gen = torch.Generator().manual_seed(Sq + Skv + H)
+    q = _randn(gen, B, Sq, H, 120, dtype=torch.bfloat16)
+    k = _randn(gen, B, Skv, K, 120, dtype=torch.bfloat16)
+    v = _randn(gen, B, Skv, K, 120, dtype=torch.bfloat16)
+    assert select_variant(q, k, v) == "tc"
+    before = dict(flash_attention_cuda.launches_by_variant)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _variant_delta(flash_attention_cuda, before) == {
+        "tc": 1, "simt": 0, "tiled": 0}
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal,
+                        window=window).transpose(1, 2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["fp32", "hd 96", "strided q"])
 def test_flash_simt_variant_cases(cuda, case):
     """fp32 whose rows cp.async cannot copy (a row stride of 65
-    elements), a head dim other than 64 / 128 and a q whose head-dim
-    stride is not 1 take the scalar variant, and agree with the twin."""
+    elements), a bf16 head dim outside ``TC_HEAD_DIMS`` and a q whose
+    head-dim stride is not 1 take the scalar variant, and agree with the
+    twin."""
     from repro_torch.kernels.flash_attention.kernel import select_variant
     gen = torch.Generator().manual_seed(12)
     dtype = torch.float32 if case == "fp32" else torch.bfloat16
-    hd = 120 if case == "hd 120" else 64
+    hd = 96 if case == "hd 96" else 64
     q = _randn(gen, 2, 256, 4, hd, dtype=dtype)
     if case == "strided q":
         q = _randn(gen, 2, 256, hd, 4, dtype=dtype).transpose(2, 3)

@@ -473,8 +473,12 @@ FLASH_VARIANT_CASES = {
     "fp32 unaligned base (cpu)": (lambda: (
         _unaligned(1, 16, 2, 32, dtype=torch.float32),
         torch.empty((1, 16, 2, 32)), torch.empty((1, 16, 2, 32))), "simt"),
+    # h2o-danube-3-4b's head dim: the 128-wide tc instance
     "hd 120 (cpu)": (lambda: tuple(torch.empty((1, 16, 2, 120), dtype=BF16)
-                                   for _ in range(3)), "simt"),
+                                   for _ in range(3)), "tc"),
+    "hd 96 bf16 (cpu)": (lambda: tuple(torch.empty((1, 16, 2, 96),
+                                                   dtype=BF16)
+                                       for _ in range(3)), "simt"),
     "hd 32 bf16 (meta)": (lambda: tuple(
         torch.empty((4, 128, 4, 32), dtype=BF16, device="meta")
         for _ in range(3)), "simt"),
@@ -497,14 +501,16 @@ def test_flash_select_variant(case):
 
 @pytest.mark.parametrize("case", [
     "tiled on hd 120", "tiled on bf16", "tiled on row stride 65",
-    "tiled on unaligned base", "tc on fp32", "tc on bf16 hd 32", "cuda"])
+    "tiled on unaligned base", "tc on fp32", "tc on bf16 hd 32",
+    "tc on bf16 hd 96", "cuda"])
 def test_flash_forced_choice_never_falls_back(case):
     """A forced variant the operands do not allow, or one the kernel does
     not have, raises; it never falls back to another variant."""
     from repro_torch.kernels.flash_attention.kernel import launch_choice
-    hd = {"tiled on hd 120": 120, "tc on bf16 hd 32": 32}.get(case, 64)
-    dtype = BF16 if case in ("tiled on bf16", "tc on bf16 hd 32") \
-        else torch.float32
+    hd = {"tiled on hd 120": 120, "tc on bf16 hd 32": 32,
+          "tc on bf16 hd 96": 96}.get(case, 64)
+    dtype = BF16 if case in ("tiled on bf16", "tc on bf16 hd 32",
+                             "tc on bf16 hd 96") else torch.float32
     q = torch.empty((2, 64, 4, hd), dtype=dtype, device="meta")
     if case == "tiled on row stride 65":
         q = torch.empty((2, 64, 4, 65))[..., :64]
@@ -512,7 +518,7 @@ def test_flash_forced_choice_never_falls_back(case):
         q = _unaligned(2, 64, 4, 64, dtype=torch.float32)
     k = v = torch.empty((2, 64, 4, hd), dtype=dtype, device=q.device)
     variant = {"tc on fp32": "tc", "tc on bf16 hd 32": "tc",
-               "cuda": "cuda"}.get(case, "tiled")
+               "tc on bf16 hd 96": "tc", "cuda": "cuda"}.get(case, "tiled")
     with pytest.raises(ValueError):
         launch_choice(q, k, v, variant)
 

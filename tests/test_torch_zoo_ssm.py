@@ -11,6 +11,10 @@ its reason:
   absolute and relative, the tolerance the JAX package pins between its
   own op and ref (fp32 sums over a 256-token chunk and 128 states in
   another order);
+* the plain twins of the CUDA kernel's four passes, composed, against
+  ``ssd_scan_chunked_ref``: 1e-5 absolute and relative (the same fp32
+  function; sums over a chunk regrouped), and against the JAX package
+  at the 2e-3 above;
 * the Mamba2 block (``mamba_forward`` with its states,
   ``mamba_decode_step``, ``_causal_conv``): 1e-4, fp32 products through
   the in-projection, the scan and the out-projection in another order;
@@ -37,7 +41,8 @@ from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.kernel import (  # noqa: E402
     select_variant, smem_bytes)
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    ssd_scan_chunked_ref, ssd_scan_ref)
+    ssd_cb_ref, ssd_chunk_scan_ref, ssd_chunk_state_ref, ssd_scan_chunked_ref,
+    ssd_scan_passes_ref, ssd_scan_ref, ssd_state_pass_ref)
 from repro_torch.models import ssm as t_ssm  # noqa: E402
 from repro_torch.models.layers import dense_init, trunc_normal  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -127,16 +132,81 @@ def test_ssd_scan_state_matches_the_recurrence():
     _close(h, hs, SSD_TOL)
 
 
+# the plain twins of the four passes, at CI sizes: chunk 32 and 64, state
+# 16, several chunks, a ragged head dim
+PASS_CASES = {
+    # name: (Bsz, S, H, hp, N, chunk)
+    "chunk 32, 4 chunks": (2, 128, 3, 16, 16, 32),
+    "chunk 64, 3 chunks, hp 10": (1, 192, 2, 10, 16, 64),
+    "chunk 64, one chunk, hp 7": (2, 64, 2, 7, 16, 64),
+}
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("case", sorted(PASS_CASES))
+def test_ssd_passes_compose_to_the_chunked_twin(case, init):
+    """C·Bᵀ, the chunk states, the state passing and the chunk scan,
+    composed, give ``ssd_scan_chunked_ref``'s y and final state, with and
+    without an initial state; each pass's output has its documented
+    shape (C·Bᵀ zero above the diagonal, cum of A·dt per chunk)."""
+    Bsz, S, H, hp, N, chunk = PASS_CASES[case]
+    ins = list(map(_t, _ssd_inputs(11 + S + hp, Bsz, S, H, hp, N)))
+    h0 = (0.5 * _t(np.random.default_rng(S).standard_normal((Bsz, H, hp, N)))
+          if init else None)
+    y, h = ssd_scan_passes_ref(*ins, chunk, init_state=h0,
+                               return_state=True)
+    ry, rh = ssd_scan_chunked_ref(*ins, chunk, init_state=h0,
+                                  return_state=True)
+    torch.testing.assert_close(y, ry, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, rh, atol=1e-5, rtol=1e-5)
+    x, adt, dt, B, C = ins
+    nc = S // chunk
+    cb = ssd_cb_ref(B, C, chunk)
+    assert cb.shape == (Bsz, nc, chunk, chunk)
+    assert torch.equal(cb, cb.tril())
+    st, cum = ssd_chunk_state_ref(x, adt, dt, B, chunk)
+    assert st.shape == (Bsz, nc, H, hp, N) and cum.shape == (Bsz, nc, H,
+                                                              chunk)
+    torch.testing.assert_close(
+        cum[:, -1], torch.cumsum(adt[:, S - chunk:], 1).transpose(1, 2))
+    ent, hf = ssd_state_pass_ref(st, cum, h0)
+    assert torch.equal(ent[:, 0], torch.zeros_like(st[:, 0]) if h0 is None
+                       else h0)
+    assert torch.equal(hf, h)
+    assert torch.equal(ssd_chunk_scan_ref(x, dt, C, cb, cum, ent, chunk), y)
+
+
+@pytest.mark.parametrize("case", sorted(PASS_CASES))
+def test_ssd_passes_match_jax(case):
+    """The composed passes against the JAX package's ``ssd_chunked`` (y
+    and the final state, from the first half's state) and the Pallas op
+    in interpret mode (y)."""
+    Bsz, S, H, hp, N, chunk = PASS_CASES[case]
+    ins = _ssd_inputs(13 + S + hp, Bsz, S, H, hp, N)
+    h0 = (0.5 * np.random.default_rng(S + 1).standard_normal(
+        (Bsz, H, hp, N))).astype(np.float32)
+    y, h = ssd_scan_passes_ref(*map(_t, ins), chunk, init_state=_t(h0),
+                               return_state=True)
+    jy, jh = j_ssm.ssd_chunked(*map(jnp.asarray, ins), chunk,
+                               init_state=jnp.asarray(h0))
+    _close(y, jy, SSD_TOL)
+    _close(h, jh, SSD_TOL)
+    y0 = ssd_scan_passes_ref(*map(_t, ins), chunk)
+    _close(y0, j_ssd(*map(jnp.asarray, ins), chunk=chunk, interpret=True),
+           SSD_TOL)
+
+
 def test_ssd_variants_are_picked_from_the_shapes():
     """The cascade's chunk 64 keeps the whole-chunk kernel; the zoo's
-    chunk 256 (and 255, S - 1 of a prefill check) takes the sub-tiled
-    one within shared memory; nothing re-chunks."""
+    chunk 256 (and 255, S - 1 of a prefill check) takes the chunk-parallel
+    passes within shared memory; nothing re-chunks."""
     assert select_variant(64, 32, 64) == "whole"
     assert select_variant(32, 16, 32) == "whole"
     for L in (256, 255, 100):
-        assert select_variant(64, 128, L) == "subtile"
+        assert select_variant(64, 128, L) == "parallel"
     assert smem_bytes(64, 128, 256) > 232_448
-    assert smem_bytes(64, 128, 256, "subtile") == 135_168
+    # the largest pass: the chunk state's two-stage ring of x and B
+    assert smem_bytes(64, 128, 256, "parallel") == 109_568
     with pytest.raises(ValueError, match="no variant"):
         select_variant(128, 128, 256)
 
