@@ -161,36 +161,51 @@ Phases (any failure exits non-zero and prints no result line):
      consistency at full width (S=256, a capacity that drops no token)
      and (b) card (kernels) vs CPU (plain twins) at the smoke config in
      fp32, from the same weights;
-  11. zoo-archs: the zoo's seven other decoder-only architectures, one at
-     a time, each at full width with weights from a seeded CUDA
-     generator and freed before the next: mamba2-370m (48 layers),
-     internlm2-1.8b (24), h2o-danube-3-4b (24) and qwen3-8b (36) at full
-     depth, llama3-405b and dbrx-132b cut to 2 layers, and
-     jamba-1.5-large-398b cut to the first half of its period (MAMBA,
-     MAMBA, MAMBA, ATTN; MoE at 1 and 3; 4 layers: a whole period needs
-     about 90 GB).  Each: a warm-up prefill and decode step that captures
-     the first layer's SSD / flash / decode-attention inputs; one prefill
-     of ``lm_batches(seed=0)``'s 2 x 2048 prompts and 16 greedy decode
-     steps (prefill ms, decode ms/step, peak GB; every kernel's launches
-     and variants counted from zero and equal to what the layers imply:
-     one SSD scan per MAMBA layer in the prefill, all "parallel" (the
-     four chunk-parallel passes), none in decode; one flash call per ATTN
-     layer, all "tc" (Danube's head dim 120 too); decode attention ATTN
-     layers x steps, "split";
-     moe_gmm 3 per group and MoE layer, "tc"); the captured inputs held
-     against the plain versions (the SSD scan's y and final state, also
-     on O(1) random inputs at the shape, there held to the recurrence
-     in float64 per element within 2e-3 x (1 + |f64|); and each of its
-     four passes alone against its plain pass on the captured inputs, fed
-     the plain outputs of the passes before it), with
-     mamba2-370m's and Jamba's SSD,
-     Llama-3-405B's decode attention (16 query heads a kv head; also on
-     O(1) random inputs with 300 empty slots) and Danube's flash prefill
-     timed beside the library call and the bound; (a) prefill(S) against
-     prefill(S - 1) + ``decode_step`` at S = 256, and with MAMBA blocks
-     also S = 300 (a chunk and a padded tail), MoE at a no-drop
-     capacity; (b) the smoke config in fp32, card against CPU, every
-     kernel the model runs launched; then the phase's seconds.
+  11. zoo-archs: the zoo's nine other architectures, one at a time, each
+     at full width with weights from a seeded CUDA generator and freed
+     before the next: mamba2-370m (48 layers), internlm2-1.8b (24),
+     h2o-danube-3-4b (24), qwen3-8b (36), seamless-m4t-medium (12
+     encoder + 12 CROSS decoder layers) and llama-3.2-vision-11b (40
+     layers, 8 of them CROSS) at full depth, llama3-405b and dbrx-132b
+     cut to 2 layers, and jamba-1.5-large-398b cut to the first half of
+     its period (MAMBA, MAMBA, MAMBA, ATTN; MoE at 1 and 3; 4 layers: a
+     whole period needs about 90 GB).  The CROSS models' memory is the
+     reference's modality stub, drawn from a seeded CUDA generator:
+     seamless' 2 x 2048 frame embeddings under 2 x 256 decoder tokens
+     (the reference's speech-to-text ratio), the vision model's 2 x 1600
+     image embeddings beside 2 x 2048 prompts.  Each: a warm-up prefill
+     and decode step that captures the SSD / flash / decode-attention
+     inputs of each role's first call (flash: causal self-attention,
+     the encoder's, cross-attention prefill; decode attention: the
+     ring, cross-attention over the memory); one prefill of
+     ``lm_batches(seed=0)``'s 2 x 2048 prompts (seamless: 2 x 256) and 16
+     greedy decode steps (prefill ms, decode ms/step, peak GB; every
+     kernel's launches and variants counted from zero and equal to what
+     the layers imply: one SSD scan per MAMBA layer in the prefill, all
+     "parallel" (the four chunk-parallel passes), none in decode; one
+     flash call per ATTN and encoder layer and two per CROSS layer, all
+     "tc" (Danube's head dim 120 too); decode attention (ATTN + 2 CROSS
+     layers) x steps, "split"; moe_gmm 3 per group and MoE layer, "tc");
+     one more prefill and 2 decode steps under torch.profiler (device
+     busy ms, idle share, device time by kernel group); the captured
+     inputs held against the plain versions (the SSD scan's
+     y and final state, also on O(1) random inputs at the shape, there
+     held to the recurrence in float64 per element within 2e-3 x (1 +
+     |f64|); and each of its four passes alone against its plain pass on
+     the captured inputs, fed the plain outputs of the passes before
+     it), with mamba2-370m's and Jamba's SSD, Llama-3-405B's decode
+     attention (16 query heads a kv head; also on O(1) random inputs
+     with 300 empty slots), Danube's flash prefill, seamless' encoder
+     flash and the vision model's cross-attention prefill (flash, Skv
+     1600) and decode (every memory slot valid) timed beside the library
+     call and the bound; (a) prefill(S) against prefill(S - 1) +
+     ``decode_step`` at S = 256 with the same memory, and with MAMBA
+     blocks also S = 300 (a chunk and a padded tail), MoE at a no-drop
+     capacity; (b) the smoke config in fp32 (the vision model's 16 image
+     tokens under 64 decoder tokens: its cross prefill runs "tiled" with
+     Skv below one tile), card against CPU from the same weights and
+     memory, every kernel the model runs launched; then the phase's
+     seconds.
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade, Mixtral and
 zoo-archs serving runs, each counted from zero, ``launches_by_variant``
@@ -202,8 +217,10 @@ times, ``variant`` (the one its timed row took) and
 run at depth 0, ``cascade_sanitized`` those of phase 10 (a)'s depth-0
 run, ``zoo_<model>_prefill`` / ``zoo_<model>_decode`` phase 11's runs
 (with times where the model's row is timed: ``zoo_mamba2_prefill`` and
-``zoo_jamba_prefill`` for the SSD scan, ``zoo_llama3_decode`` for decode
-attention, ``zoo_danube_prefill`` for flash attention);
+``zoo_jamba_prefill`` for the SSD scan, ``zoo_llama3_decode`` and
+``zoo_vision_decode`` (cross) for decode attention,
+``zoo_danube_prefill``, ``zoo_seamless_prefill`` (encoder) and
+``zoo_vision_prefill`` (cross) for flash attention);
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -2136,21 +2153,25 @@ def phase_zoo_kernels(cfg, params, tokens):
 
 def _zoo_expected(cfg, n_tokens, n_decode):
     """Launches each zoo phase implies: the prefill runs 3 grouped
-    products per MoE group and MoE layer, one flash call per ATTN layer
-    and one SSD scan per MAMBA layer; each decode step 3 grouped products
-    per MoE layer and one decode-attention call per ATTN layer (a MAMBA
-    layer's step is plain PyTorch)."""
-    from repro_torch.configs import ATTN, MAMBA
+    products per MoE group and MoE layer, one flash call per ATTN and
+    encoder layer and two per CROSS layer (causal self-attention, then
+    cross-attention over the memory), and one SSD scan per MAMBA layer;
+    each decode step 3 grouped products per MoE layer and one
+    decode-attention call per ATTN layer and two per CROSS layer (a
+    MAMBA layer's step is plain PyTorch)."""
+    from repro_torch.configs import ATTN, CROSS, MAMBA
     from repro_torch.models.moe import MOE_GROUP
     P = cfg.n_periods
     n_attn, n_mamba = P * cfg.period.count(ATTN), P * cfg.period.count(MAMBA)
+    n_cross = P * cfg.period.count(CROSS)
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
     n_moe = P * len(cfg.moe_period_idx) if cfg.moe is not None else 0
     groups = n_tokens // MOE_GROUP if n_tokens % MOE_GROUP == 0 else 1
     return {"prefill": {"moe_gmm": 3 * groups * n_moe,
-                        "flash_attention": n_attn, "decode_attention": 0,
-                        "ssd_scan": n_mamba},
+                        "flash_attention": n_attn + 2 * n_cross + n_enc,
+                        "decode_attention": 0, "ssd_scan": n_mamba},
             "decode": {"moe_gmm": 3 * n_moe * n_decode, "flash_attention": 0,
-                       "decode_attention": n_attn * n_decode,
+                       "decode_attention": (n_attn + 2 * n_cross) * n_decode,
                        "ssd_scan": 0}}
 
 
@@ -2232,20 +2253,20 @@ def phase_zoo_serve(cfg, params, tokens):
     return launches, by_variant, m
 
 
-def phase_zoo_profile(cfg, params, tokens, n_decode=4):
-    """Device time of one zoo prefill and of ``n_decode`` decode steps
-    under torch.profiler: the union of kernel intervals against the wall
-    clock (idle share) and device time by kernel group."""
+def phase_zoo_profile(cfg, params, batch, n_decode=4, tag="zoo-profile"):
+    """Device time of one zoo prefill of ``batch`` (its tokens and a
+    CROSS model's memory) and of ``n_decode`` decode steps under
+    torch.profiler: the union of kernel intervals against the wall clock
+    (idle share) and device time by kernel group."""
     from repro_torch.launch.profile_serve import _group, _union_us
     from repro_torch.models import transformer as tfm
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    S = tokens.shape[1]
+    S = batch["tokens"].shape[1]
     state = {}
 
     def prefill():
-        state["last"], state["cache"] = tfm.prefill(
-            params, {"tokens": tokens}, cfg)
+        state["last"], state["cache"] = tfm.prefill(params, batch, cfg)
 
     def decode():
         tok = state["last"].argmax(-1)
@@ -2266,14 +2287,14 @@ def phase_zoo_profile(cfg, params, tokens, n_decode=4):
         dev = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         if not dev:
-            _fail(f"zoo profile [{label}]: no device events recorded")
+            _fail(f"{tag} [{label}]: no device events recorded")
         busy = _union_us((e.time_range.start, e.time_range.end) for e in dev)
         groups = {}
         for e in dev:
             g = _group(e.name)
             n, tot = groups.get(g, (0, 0.0))
             groups[g] = (n + 1, tot + e.time_range.end - e.time_range.start)
-        print(f"[zoo-profile] {label}: wall_ms={wall_us / 1e3:.6g} "
+        print(f"[{tag}] {label}: wall_ms={wall_us / 1e3:.6g} "
               f"device_busy_ms={busy / 1e3:.6g} idle_share="
               f"{1 - busy / wall_us:.4f} by_group(launches, ms)=" + str({
                   g: (n, round(t / 1e3, 4))
@@ -2353,12 +2374,27 @@ ZOO_ARCHS = (
     ("llama3-405b", "llama3", 2),
     ("dbrx-132b", "dbrx", 2),
     ("jamba-1.5-large-398b", "jamba", "half"),
+    ("seamless-m4t-medium", "seamless", None),
+    ("llama-3.2-vision-11b", "vision", None),
 )
-# the rows each architecture times (kernel -> the path it stands for)
-ARCH_TIMED = {"mamba2": ("ssd_scan", "prefill"),
-              "jamba": ("ssd_scan", "prefill"),
-              "llama3": ("decode_attention", "decode"),
-              "danube": ("flash_attention", "prefill")}
+# a kernel call's role on a zoo path, from the function of
+# ``models/attention.py`` it came through (an SSD scan's is "prefill")
+ROLES = {("flash_attention", "prefill_attention"): "self prefill",
+         ("flash_attention", "encoder_attention"): "encoder",
+         ("flash_attention", "cross_attention"): "cross prefill",
+         ("decode_attention", "ring_decode_attention"): "self decode",
+         ("decode_attention", "cross_attention"): "cross decode"}
+# the (kernel, role) rows each architecture times
+ARCH_TIMED = {"mamba2": [("ssd_scan", "prefill")],
+              "jamba": [("ssd_scan", "prefill")],
+              "llama3": [("decode_attention", "self decode")],
+              "danube": [("flash_attention", "self prefill")],
+              "seamless": [("flash_attention", "encoder")],
+              "vision": [("flash_attention", "cross prefill"),
+                         ("decode_attention", "cross decode")]}
+# seamless' decoder prompt under its 2048 frames: the reference's
+# speech-to-text ratio, dec_len = max(S // 8, 128) (launch/shapes.py)
+ENCDEC_PROMPT = max(ZOO_PROMPT // 8, 128)
 
 
 def _arch_config(name, depth):
@@ -2367,7 +2403,9 @@ def _arch_config(name, depth):
     from repro_torch.configs import get_config
     full = get_config(name)
     if depth is None:
-        return full, f"full depth, {full.n_layers} layers"
+        enc = (f" + {full.encoder.n_layers} encoder layers"
+               if full.encoder is not None else "")
+        return full, f"full depth, {full.n_layers} layers{enc}"
     if depth == "half":
         half = len(full.period) // 2
         cfg = dataclasses.replace(
@@ -2385,8 +2423,10 @@ def _arch_variants(cfg):
     """The variant every launch of each kernel must take on this model's
     serving path: moe_gmm and flash bf16 on the tensor cores (flash at a
     head dim outside ``TC_HEAD_DIMS``, none of the zoo's, on the scalar
-    kernel), decode attention split across its 2048-slot ring, the SSD
-    scan in its four chunk-parallel passes (chunk 256)."""
+    kernel), decode attention split across its cache (the 2048-slot
+    ring, seamless' 256-slot one, the 1600 or 2048 memory slots of a
+    CROSS layer), the SSD scan in its four chunk-parallel passes (chunk
+    256)."""
     from repro_torch.kernels.flash_attention.kernel import TC_HEAD_DIMS
     hd = cfg.attn.head_dim if cfg.attn is not None else None
     return {"moe_gmm": "tc",
@@ -2394,9 +2434,30 @@ def _arch_variants(cfg):
             "decode_attention": "split", "ssd_scan": "parallel"}
 
 
-def _capture_arch_inputs(cfg, params, tokens):
-    """One prefill and one decode step (also the warm-up): the inputs the
-    SSD scan, flash and decode attention get in their first layer."""
+def _arch_batch(cfg, prompt_len):
+    """``lm_batches(seed=0)``'s prompts on the card and, for a CROSS
+    model, the memory its modality stub would hand over, drawn in fp32
+    from a seeded CUDA generator (the model casts it to its dtype):
+    seamless' ZOO_PROMPT frame embeddings, the vision model's
+    ``n_image_tokens`` image embeddings."""
+    from repro_torch.data import lm_batches
+    b = next(lm_batches(cfg.vocab, ZOO_BATCH, prompt_len, 1, seed=0))
+    batch = {"tokens": torch.from_numpy(b["tokens"]).cuda()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn((ZOO_BATCH, ZOO_PROMPT, cfg.d_model),
+                                      generator=gen, device="cuda")
+    if cfg.vision_stub:
+        batch["image_embeds"] = torch.randn(
+            (ZOO_BATCH, cfg.n_image_tokens, cfg.d_model), generator=gen,
+            device="cuda")
+    return batch
+
+
+def _capture_arch_inputs(cfg, params, batch):
+    """One prefill and one decode step (also the warm-up): the inputs of
+    each role's first call (``ROLES``) of the SSD scan, flash and decode
+    attention."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import transformer as tfm
@@ -2407,7 +2468,9 @@ def _capture_arch_inputs(cfg, params, tokens):
 
     def rec(name, fn):
         def f(*args, **kw):
-            got.setdefault(name, (args, kw))
+            caller = sys._getframe(1).f_code.co_name
+            role = "prefill" if name == "ssd_scan" else ROLES[name, caller]
+            got.setdefault((name, role), (args, kw))
             return fn(*args, **kw)
         return f
 
@@ -2415,9 +2478,9 @@ def _capture_arch_inputs(cfg, params, tokens):
         for name, (mod, fn) in real.items():
             setattr(mod, name, rec(name, fn))
         with torch.no_grad():
-            last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
+            last, cache = tfm.prefill(params, batch, cfg)
             tfm.decode_step(params, cache, last.argmax(-1)[:, None],
-                            tokens.shape[1], cfg)
+                            batch["tokens"].shape[1], cfg)
     finally:
         for name, (mod, fn) in real.items():
             setattr(mod, name, fn)
@@ -2473,26 +2536,26 @@ def _ssd_pass_rows(short, x, adt, dt, B, C, L, results):
 
 
 def _arch_kernel_rows(short, cfg, got, results):
-    """Each kernel held against its plain version on the captured layer
-    inputs and on O(1) random inputs at the same shapes; the architecture's
-    own path row (ARCH_TIMED) timed beside the library call and the
-    bound.  Every row asserts its variant."""
+    """Each kernel held against its plain version on the inputs captured
+    for each of its roles and on O(1) random inputs at the same shapes;
+    the architecture's own path rows (ARCH_TIMED) timed beside the
+    library call and the bound.  Every row asserts its variant."""
     want = _arch_variants(cfg)
-    timed = ARCH_TIMED.get(short, (None, None))[0]
+    timed = ARCH_TIMED.get(short, [])
     gen = torch.Generator(device="cuda").manual_seed(4321)
 
     def rnd(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    if "ssd_scan" in got:
-        (x, adt, dt, B, C), kw = got["ssd_scan"]
+    if ("ssd_scan", "prefill") in got:
+        (x, adt, dt, B, C), kw = got["ssd_scan", "prefill"]
         L = kw["chunk"]
         label = f"path zoo {short} prefill chunk {L} N{B.shape[-1]}"
         check("ssd_scan", label,
               lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, chunk=L),
               lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, L),
               ZOO_SSD_TOL, results, None, ssd_bound(x, adt, dt, B, C, L),
-              timed == "ssd_scan", scaled=True, reps=5,
+              ("ssd_scan", "prefill") in timed, scaled=True, reps=5,
               variant=want["ssd_scan"])
         check("ssd_scan", f"path zoo {short} prefill h_final",
               lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, chunk=L,
@@ -2521,25 +2584,34 @@ def _arch_kernel_rows(short, cfg, got, results):
                   f"float64 (max {float(f64[i].abs().max()):.4g})",
                   flush=True)
         del twin, f64
-    if "flash_attention" in got:
-        (q, k, v), kw = got["flash_attention"]
-        check("flash_attention", f"path zoo {short} prefill "
-              f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
+    for role in ("self prefill", "encoder", "cross prefill"):
+        if ("flash_attention", role) not in got:
+            continue
+        (q, k, v), kw = got["flash_attention", role]
+        what = "prefill" if role == "self prefill" else role
+        what += f" Sq{q.shape[1]}"
+        check("flash_attention", f"path zoo {short} {what} "
+              f"Skv{k.shape[1]} H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]} "
+              f"causal={kw['causal']}",
               lambda: fl_ops.flash_attention(q, k, v, **kw),
               lambda: flash_plain(q, k, v, **kw), ZOO_TOL["bf16"], results,
               lambda: flash_library(q, k, v, **kw),
-              flash_bound(q, k, v, **kw), timed == "flash_attention",
+              flash_bound(q, k, v, **kw), ("flash_attention", role) in timed,
               relative=True, reps=5, variant=want["flash_attention"])
-    if "decode_attention" in got:
-        (q, k, v, pos), kw = got["decode_attention"]
-        check("decode_attention", f"path zoo {short} decode "
-              f"W={k.shape[1]} H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
+    for role in ("self decode", "cross decode"):
+        if ("decode_attention", role) not in got:
+            continue
+        (q, k, v, pos), kw = got["decode_attention", role]
+        what = "decode" if role == "self decode" else role
+        check("decode_attention", f"path zoo {short} {what} "
+              f"W={k.shape[1]} H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]} "
+              f"valid={int((pos >= 0).sum())}",
               lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
               lambda: decode_plain(q, k, v, pos), ZOO_TOL["bf16"], results,
               lambda: decode_library(q, k, v, pos),
-              decode_bound(q, k, v, pos), timed == "decode_attention",
+              decode_bound(q, k, v, pos), ("decode_attention", role) in timed,
               relative=True, reps=20, variant=want["decode_attention"])
-        if timed == "decode_attention":
+        if ("decode_attention", role) in timed and role == "self decode":
             bf = q.dtype
             qr, kr, vr = (rnd(*t.shape, dtype=bf) for t in (q, k, v))
             W = k.shape[1]
@@ -2552,12 +2624,12 @@ def _arch_kernel_rows(short, cfg, got, results):
                   results, relative=True, variant=want["decode_attention"])
 
 
-def _arch_serve(cfg, params, tokens):
+def _arch_serve(cfg, params, batch):
     """prefill + ZOO_DECODE greedy steps, each phase's launches and
     variants counted from zero; they must equal what the layers imply and
     take the model's variants."""
     from repro_torch.models import transformer as tfm
-    B, S = tokens.shape
+    B, S = batch["tokens"].shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out_tokens, launches, by_variant = [], {}, {}
@@ -2575,7 +2647,7 @@ def _arch_serve(cfg, params, tokens):
     with torch.no_grad():
         zero()
         t0 = time.perf_counter()
-        last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
+        last, cache = tfm.prefill(params, batch, cfg)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         read("prefill")
@@ -2623,12 +2695,12 @@ def _arch_serve(cfg, params, tokens):
     return launches, by_variant, m
 
 
-def _arch_consistency(cfg, params, tokens):
-    """(a) prefill(S) against prefill(S - 1) + decode_step at full width:
-    S = 256 (one chunk of 255 before the step, not a multiple of the
-    64-token sub-tile) and, with MAMBA blocks, S = 300 (a chunk of 256
-    and a 44-token tail the adapter pads); MoE at a capacity that drops
-    no token."""
+def _arch_consistency(cfg, params, batch):
+    """(a) prefill(S) against prefill(S - 1) + decode_step at full width,
+    the same memory in both (a CROSS model's): S = 256 (one chunk of 255
+    before the step, not a multiple of the 64-token sub-tile) and, with
+    MAMBA blocks, S = 300 (a chunk of 256 and a 44-token tail the adapter
+    pads); MoE at a capacity that drops no token."""
     from repro_torch.configs import MAMBA
     from repro_torch.models import transformer as tfm
     if cfg.moe is not None:
@@ -2636,11 +2708,14 @@ def _arch_consistency(cfg, params, tokens):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             m, capacity_factor=m.num_experts / m.top_k))
     tol = ZOO_LOGIT_TOL["consistency"]
+    tokens = batch["tokens"]
+    memory = {k: v for k, v in batch.items() if k != "tokens"}
     for S in (256, 300) if MAMBA in cfg.period else (256,):
         tok = tokens[:, :S]
         with torch.no_grad():
-            full, _ = tfm.prefill(params, {"tokens": tok}, cfg)
-            _, cache = tfm.prefill(params, {"tokens": tok[:, :S - 1]}, cfg,
+            full, _ = tfm.prefill(params, {"tokens": tok, **memory}, cfg)
+            _, cache = tfm.prefill(params,
+                                   {"tokens": tok[:, :S - 1], **memory}, cfg,
                                    cache_len=S)
             dec, _ = tfm.decode_step(params, cache, tok[:, S - 1:], S - 1,
                                      cfg)
@@ -2661,20 +2736,29 @@ def _arch_consistency(cfg, params, tokens):
 
 def _arch_card_vs_cpu(name):
     """(b) the smoke config in fp32: kernels on the card against twins on
-    the CPU from the same weights; every kernel the model runs launched."""
+    the CPU from the same weights and, for a CROSS model, the same memory
+    (seamless: 80 frames; the vision model: its 16 image tokens); every
+    kernel the model runs launched."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import lm_batches
     from repro_torch.models import transformer as tfm
     cfg = dataclasses.replace(get_smoke_config(name), dtype="float32")
     p_cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg)
     p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
-    toks = torch.from_numpy(next(lm_batches(cfg.vocab, 2, 64, 1,
-                                            seed=0))["tokens"])
+    toks = next(lm_batches(cfg.vocab, 2, 64, 1, seed=0))["tokens"]
+    b_cpu = {"tokens": torch.from_numpy(toks)}
+    gen = torch.Generator().manual_seed(1)
+    if cfg.encoder is not None:
+        b_cpu["frames"] = torch.randn((2, 80, cfg.d_model), generator=gen)
+    if cfg.vision_stub:
+        b_cpu["image_embeds"] = torch.randn(
+            (2, cfg.n_image_tokens, cfg.d_model), generator=gen)
+    b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
     tol = ZOO_LOGIT_TOL["card_vs_cpu"]
     n0 = {n: fn.launches for n, fn in ARCH_LAUNCHERS.items()}
     with torch.no_grad():
-        lc, cc = tfm.prefill(p_cpu, {"tokens": toks}, cfg)
-        lg, cg = tfm.prefill(p_gpu, {"tokens": toks.cuda()}, cfg)
+        lc, cc = tfm.prefill(p_cpu, b_cpu, cfg)
+        lg, cg = tfm.prefill(p_gpu, b_gpu, cfg)
         errs = [max_err(lg.cpu(), lc)]
         same = [bool((lg.argmax(-1).cpu() == lc.argmax(-1)).all())]
         for step in range(4):
@@ -2698,12 +2782,11 @@ def _arch_card_vs_cpu(name):
 
 
 def phase_zoo_archs():
-    """The zoo's seven other decoder-only architectures, one at a time at
-    full width (each freed before the next): serve, kernel rows,
-    consistency (a) and card vs CPU (b).  Returns each kernel's rows and
-    the record's ``paths`` entries of every model."""
+    """The zoo's nine other architectures, one at a time at full width
+    (each freed before the next): serve, kernel rows, consistency (a) and
+    card vs CPU (b).  Returns each kernel's rows and the record's
+    ``paths`` entries of every model."""
     import gc
-    from repro_torch.data import lm_batches
     from repro_torch.models import transformer as tfm
     t_phase = time.time()
     results, paths = {}, {}
@@ -2712,36 +2795,41 @@ def phase_zoo_archs():
         cfg, cut = _arch_config(name, depth)
         params = tfm.init_params(
             torch.Generator(device="cuda").manual_seed(0), cfg)
+        batch = _arch_batch(cfg, ENCDEC_PROMPT if cfg.encoder is not None
+                            else ZOO_PROMPT)
         torch.cuda.synchronize()
-        batch = next(lm_batches(cfg.vocab, ZOO_BATCH, ZOO_PROMPT, 1, seed=0))
-        tokens = torch.from_numpy(batch["tokens"]).cuda()
         n = sum(t.numel() for t in tree_leaves(params))
         print(f"[zoo-archs] {name} at full width (d_model {cfg.d_model}), "
               f"{cut}: {n / 1e9:.3f} B parameters, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
               f"built in {time.time() - t_arch:.2f} s", flush=True)
-        got = _capture_arch_inputs(cfg, params, tokens)
-        launches, by_variant, m = _arch_serve(cfg, params, tokens)
+        got = _capture_arch_inputs(cfg, params, batch)
+        launches, by_variant, m = _arch_serve(cfg, params, batch)
+        phase_zoo_profile(cfg, params, batch, n_decode=2,
+                          tag=f"zoo-archs {short}")
         rows = {}
         _arch_kernel_rows(short, cfg, got, rows)
         del got
-        _arch_consistency(cfg, params, tokens)
+        _arch_consistency(cfg, params, batch)
         _arch_card_vs_cpu(name)
-        timed = ARCH_TIMED.get(short)
+        # one role a (kernel, phase) is timed: decode attention in decode,
+        # the others in the prefill
+        timed = {(k, "decode" if k == "decode_attention" else "prefill")
+                 for k, _ in ARCH_TIMED.get(short, [])}
         for phase in ("prefill", "decode"):
             for k in ARCH_LAUNCHERS:
                 if launches[phase][k] == 0:
                     continue
                 rec = {"launches": launches[phase][k],
                        "launches_by_variant": by_variant[phase][k]}
-                if timed == (k, phase):
+                if (k, phase) in timed:
                     rec = _record_row(
                         [x for x in rows[k] if x[0].startswith("path")],
                         launches[phase][k], by_variant[phase][k])
                 paths.setdefault(k, {})[f"zoo_{short}_{phase}"] = rec
         for k, r in rows.items():
             results.setdefault(k, []).extend(r)
-        del params, tokens
+        del params, batch
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[zoo-archs] {name}: {time.time() - t_arch:.1f} s",
@@ -2856,7 +2944,7 @@ def main():
     cfg, params, prompts = zoo_model()
     zoo_results = phase_zoo_kernels(cfg, params, prompts)
     zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)
-    phase_zoo_profile(cfg, params, prompts)
+    phase_zoo_profile(cfg, params, {"tokens": prompts})
     phase_zoo_checks(cfg, params, prompts)
     del params, prompts
     torch.cuda.empty_cache()

@@ -2,12 +2,11 @@
 
 Every architecture is a ``ModelConfig``: a repeating ``period`` of block
 kinds, applied ``n_periods`` times, with optional attention, MoE and
-Mamba2 settings.  The ported zoo serves the decoder-only architectures:
-``ATTN`` and ``MAMBA`` blocks with dense-MLP or MoE FFNs; ``CROSS``
-blocks, the encoder and the vision stub wait (ROADMAP Queue 1 item 10),
-so ``EncoderConfig`` and its fields are not here yet.  The kernel
-ladder's ``ssm`` student drives ``models/ssm.py`` through the same
-class.
+Mamba2 settings.  The ported zoo serves all ten architectures:
+``ATTN``, ``MAMBA`` and ``CROSS`` blocks with dense-MLP or MoE FFNs, the
+encoder of the encoder-decoder model (``EncoderConfig``) and the vision
+model's image memory (``vision_stub``).  The kernel ladder's ``ssm``
+student drives ``models/ssm.py`` through the same class.
 """
 from __future__ import annotations
 
@@ -59,6 +58,19 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec models (seamless-m4t).
+
+    The modality frontend (mel-spectrogram + conv feature extractor) is a
+    sanctioned stub: the batch's ``frames`` are precomputed frame
+    embeddings of shape (batch, frames, d_model).
+    """
+
+    n_layers: int = 12
+    frontend: str = "audio"  # 'audio' (frame embeddings) | 'text'
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """A zoo model: widths, block pattern and numerics."""
 
@@ -75,6 +87,10 @@ class ModelConfig:
     period: Tuple[str, ...] = (ATTN,)
     # Indices within the period whose FFN is MoE (others use dense MLP).
     moe_period_idx: Tuple[int, ...] = ()
+    encoder: Optional[EncoderConfig] = None
+    # VLM: patch-embedding stub frontend (precomputed patch embeddings).
+    vision_stub: bool = False
+    n_image_tokens: int = 1024
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     act: str = "swiglu"              # swiglu | gelu
     tie_embeddings: bool = False
@@ -129,12 +145,10 @@ def list_architectures() -> list:
     return sorted(_REGISTRY.keys())
 
 
-# The zoo's decoder-only architectures; seamless-m4t-medium and
-# llama-3.2-vision-11b wait for CROSS blocks (ROADMAP Queue 1 item 10).
 _ARCH_MODULES = [
-    "mixtral_8x22b", "jamba_1_5_large_398b", "internlm2_1_8b",
-    "h2o_danube_3_4b", "qwen3_8b", "llama3_405b", "mamba2_370m",
-    "dbrx_132b",
+    "seamless_m4t_medium", "mixtral_8x22b", "jamba_1_5_large_398b",
+    "internlm2_1_8b", "h2o_danube_3_4b", "llama_3_2_vision_11b",
+    "qwen3_8b", "llama3_405b", "mamba2_370m", "dbrx_132b",
 ]
 
 

@@ -21,9 +21,12 @@ call of each kernel a call launches, from a ``torch.profiler`` trace:
 the SSD scan's four passes each under its own kernel's name) and
 ``profile_ms`` (their sum).
 Rows: flash attention at the cascade's buckets 64 / 32 / 16 / 8 (fp32)
-and the zoo's prefill (bf16; Mixtral's, and Danube's at head dim 120),
-decode attention (the cascade's readout,
-Mixtral's step and Llama-3-405B's, 16 query heads a kv head), the SSD
+and the zoo's prefill (bf16; Mixtral's, Danube's at head dim 120, and,
+non-causal, seamless-m4t-medium's encoder and llama-3.2-vision-11b's
+cross-attention over its 1600 image tokens), decode attention (the
+cascade's readout, Mixtral's step, Llama-3-405B's, 16 query heads a kv
+head, and the CROSS models' cross-attention over their whole memory,
+every slot valid: the vision model's 1600, seamless' 2048), the SSD
 scan (the cascade's buckets, and the zoo's chunk 256 x state 128 at
 mamba2-370m's and Jamba's layer shapes), and ``moe_gmm`` at the zoo's
 prefill and decode (bf16, and the fp32 prefill row), each kernel row
@@ -195,35 +198,47 @@ def main(argv=None) -> int:
         rows.append({**row, "variant": variant, **_row(torch, fn, reps)})
 
     # flash attention: the cascade's tinytf_flash layer at every bucket
-    # (fp32, causal) and the zoo's prefill (bf16, GQA 6, window 4096 >= S)
-    def sdpa(q, k, v):
+    # (fp32, causal) and the zoo's prefill (bf16; Mixtral's GQA 6 with a
+    # window 4096 >= S, and the non-causal CROSS rows)
+    def sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=q.shape[2] != k.shape[2])
+            is_causal=causal, enable_gqa=q.shape[2] != k.shape[2])
 
     flash = []
     for B in (64, 32, 16, 8):
         flash.append((f"cascade B={B}", rnd(B, 128, 4, 32),
-                      rnd(B, 128, 4, 32), rnd(B, 128, 4, 32), None))
+                      rnd(B, 128, 4, 32), rnd(B, 128, 4, 32), None, True))
     bf = torch.bfloat16
     flash.append(("zoo prefill", rnd(2, 2048, 48, 128, dtype=bf),
                   rnd(2, 2048, 8, 128, dtype=bf),
-                  rnd(2, 2048, 8, 128, dtype=bf), 4096))
+                  rnd(2, 2048, 8, 128, dtype=bf), 4096, True))
     # h2o-danube-3-4b's head dim 120 ("tc" on its 128-wide instance)
     flash.append(("zoo danube prefill", rnd(2, 2048, 32, 120, dtype=bf),
                   rnd(2, 2048, 8, 120, dtype=bf),
-                  rnd(2, 2048, 8, 120, dtype=bf), 4096))
+                  rnd(2, 2048, 8, 120, dtype=bf), 4096, True))
+    # the vision model's cross-attention prefill (Skv 1600: a ragged last
+    # kv tile) and seamless' encoder, both non-causal
+    flash.append(("zoo vision cross prefill",
+                  rnd(2, 2048, 32, 128, dtype=bf),
+                  rnd(2, 1600, 8, 128, dtype=bf),
+                  rnd(2, 1600, 8, 128, dtype=bf), None, False))
+    flash.append(("zoo seamless encoder prefill",
+                  rnd(2, 2048, 16, 64, dtype=bf),
+                  rnd(2, 2048, 16, 64, dtype=bf),
+                  rnd(2, 2048, 16, 64, dtype=bf), None, False))
     forced = _takes(flash_attention_cuda, "variant")
-    for path, q, k, v, window in flash:
+    for path, q, k, v, window, causal in flash:
         shape = [list(q.shape), list(k.shape)]
         emit("flash_attention", path, shape,
-             lambda: fl_ops.flash_attention(q, k, v, window=window),
+             lambda: fl_ops.flash_attention(q, k, v, causal=causal,
+                                            window=window),
              flash_attention_cuda)
-        emit("flash_attention", path, shape, lambda: sdpa(q, k, v),
+        emit("flash_attention", path, shape, lambda: sdpa(q, k, v, causal),
              library="F.scaled_dot_product_attention")
         emit("flash_attention", path, shape,
              lambda: attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), causal=True,
+                                   v.transpose(1, 2), causal=causal,
                                    window=window,
                                    sm_scale=q.shape[-1] ** -0.5),
              plain="attention_ref", reps=10)
@@ -253,6 +268,14 @@ def main(argv=None) -> int:
     dec.append(("zoo llama3 decode", rnd(2, 1, 128, 128, dtype=bf),
                 rnd(2, W, 8, 128, dtype=bf), rnd(2, W, 8, 128, dtype=bf),
                 torch.arange(W, device="cuda", dtype=torch.int32)))
+    # cross-attention over the whole memory (every slot valid)
+    dec.append(("zoo vision cross decode", rnd(2, 1, 32, 128, dtype=bf),
+                rnd(2, 1600, 8, 128, dtype=bf),
+                rnd(2, 1600, 8, 128, dtype=bf),
+                torch.arange(1600, device="cuda", dtype=torch.int32)))
+    dec.append(("zoo seamless cross decode", rnd(2, 1, 16, 64, dtype=bf),
+                rnd(2, W, 16, 64, dtype=bf), rnd(2, W, 16, 64, dtype=bf),
+                torch.arange(W, device="cuda", dtype=torch.int32)))
     for B in (64, 8):
         lens = torch.randint(1, 129, (B, 1), generator=gen, device="cuda")
         ar = torch.arange(128, device="cuda")
@@ -279,7 +302,7 @@ def main(argv=None) -> int:
     # forced split counts (versions whose launcher takes ``n_split``)
     if _takes(decode_attention_cuda, "n_split"):
         for (path, q, k, v, pos), counts in ((dec[0], (8, 16, 32)),
-                                             (dec[3], (1, 2))):
+                                             (dec[-1], (1, 2))):
             pos = pos if pos.ndim == 2 else pos[None].expand(k.shape[0], -1)
             for n in counts:
                 emit("decode_attention", path,

@@ -1,15 +1,17 @@
 """Attention for the zoo's serving path (port of ``repro.models.attention``):
-RoPE, prefill attention and the one-token decode attention over a ring
-cache, each on the port's CUDA kernels.
+RoPE, causal prefill attention, the encoder's non-causal self-attention,
+cross-attention over encoder or image memory, and the one-token decode
+attention over a ring cache, each on the port's CUDA kernels.
 
 The reference's chunked jnp paths (``causal_prefill_blocked``, the banded
-``swa_prefill_attention``, ``chunked_attention``) are XLA schedules of one
-function, the masked softmax attention below; its Pallas kernels
-"implement the same schedules for TPU".  Here prefill is one call of the
-flash-attention kernel (which skips the kv tiles above the diagonal and
-left of the window itself) and decode one call of the decode-attention
-kernel.  Cross-attention and the non-causal encoder path wait (ROADMAP
-Queue 1 item 10).
+``swa_prefill_attention``, ``chunked_attention``, the q blocks of
+``cross_attention``) are XLA schedules of one function, the masked
+softmax attention below; its Pallas kernels "implement the same
+schedules for TPU".  Here every attention over more than one query is
+one call of the flash-attention kernel (which skips the kv tiles above
+the diagonal and left of the window itself) and every one-query
+attention one call of the decode-attention kernel.  Both are called
+through this module's globals ``flash_attention`` / ``decode_attention``.
 
 Position conventions (as in the reference):
 * ``q_positions`` (Sq,) and ``kv_positions`` (Skv,) are absolute token
@@ -78,3 +80,34 @@ def ring_decode_attention(q, k, v, *, kv_positions, q_position: int,
     if window is not None:
         drop = drop | (pos <= q_position - window)
     return decode_attention(q, k, v, torch.where(drop, -1, pos).to(pos.dtype))
+
+
+def encoder_attention(q, k, v) -> torch.Tensor:
+    """Non-causal self-attention (the encoder's; the reference's
+    ``chunked_attention(..., causal=False)`` over positions arange(S)):
+    q (B, S, H, hd), k/v (B, S, K, hd) -> (B, S, H, hd)."""
+    return flash_attention(q, k, v, causal=False, window=None)
+
+
+def cross_attention(q, k, v, *, kv_valid_len: Optional[int] = None,
+                    chunk: int = 1024, chunk_q: int = 2048) -> torch.Tensor:
+    """Non-causal attention over encoder / image memory: q (B, Sq, H, hd),
+    k/v (B, Skv, K, hd) -> (B, Sq, H, hd); only the first
+    ``kv_valid_len`` memory slots count when it is given.
+
+    Sq > 1 is one non-causal flash call over the valid slots (a masked
+    slot adds nothing, so slicing k/v to them is the same function; the
+    reference's q blocks and ``chunk`` are its XLA schedule, accepted for
+    its signature).  Sq == 1 (decode) is one decode-attention call with
+    slot positions arange(Skv), -1 past ``kv_valid_len``: the
+    reference's ``direct_attention`` at Sq == 1 with ``causal=False``."""
+    del chunk, chunk_q
+    Skv = k.shape[1]
+    if q.shape[1] == 1:
+        pos = torch.arange(Skv, dtype=torch.int32, device=k.device)
+        if kv_valid_len is not None:
+            pos = torch.where(pos < kv_valid_len, pos, -1).to(torch.int32)
+        return decode_attention(q, k, v, pos)
+    if kv_valid_len is not None:
+        k, v = k[:, :kv_valid_len], v[:, :kv_valid_len]
+    return flash_attention(q, k, v, causal=False, window=None)

@@ -7,33 +7,41 @@ Every architecture is a repeating ``period`` of blocks (see
 ``n_periods`` on a leading axis, in the reference's tree
 (``blocks/b0/...``), and the reference's ``lax.scan`` over periods is a
 loop over that axis.  Attention runs on the port's flash-attention
-(prefill) and decode-attention (ring cache) kernels, MoE FFNs on its
-``moe_gmm`` kernel, MAMBA blocks' prefill on its ``ssd_scan`` kernel
-(``models.ssm.ssd_kernel``, which returns the state each MAMBA cache
-starts from); everything else, the MAMBA decode step included, is plain
-PyTorch.
+kernel (causal prefill, the encoder, cross-attention prefill) and its
+decode-attention kernel (the ring cache, cross-attention decode over the
+memory), MoE FFNs on its ``moe_gmm`` kernel, MAMBA blocks' prefill on
+its ``ssd_scan`` kernel (``models.ssm.ssd_kernel``, which returns the
+state each MAMBA cache starts from); everything else, the MAMBA decode
+step included, is plain PyTorch.
 
 Public API (all functional: inputs are not modified):
   init_params(gen, cfg)                        -> params
   forward(params, batch, cfg)                  -> (logits, aux)
+  encode(params, frames, cfg)                  -> memory         (encdec)
   prefill(params, batch, cfg, cache_len)       -> (last_logits, cache)
   decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
+  cache_struct(cfg, batch, cache_len, memory_len) -> prefill's cache tree
+                                                     on the meta device
 
-``CROSS`` blocks, ``encode`` and image memory raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 10, ``train_loss``
-and ``remat`` naming item 11; there is no mesh, so the reference's
-sharding constraints are dropped.
+A batch carries the memory of a ``CROSS`` model beside its tokens: the
+encoder's ``frames`` (B, S_enc, d_model) or the vision stub's
+``image_embeds`` (B, n_image_tokens, d_model), the modality front ends
+being the reference's sanctioned stubs.  ``train_loss`` and ``remat``
+raise ``NotImplementedError`` naming ROADMAP Queue 1 item 11; there is
+no mesh, so the reference's sharding constraints are dropped.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 import repro_torch.device  # noqa: F401  (IEEE fp32 products, no TF32)
-from repro_torch.configs.base import ATTN, MAMBA, ModelConfig
+from repro_torch.configs.base import ATTN, CROSS, MAMBA, ModelConfig
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import (prefill_attention,
+from repro_torch.models.attention import (cross_attention, encoder_attention,
+                                          prefill_attention,
                                           ring_decode_attention, rope)
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed, init_embed, init_lm_head,
@@ -41,19 +49,17 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
 
-_CROSS_ITEM = ("ROADMAP Queue 1 item 10: CROSS blocks, the encoder and "
-               "the vision stub")
 _TRAIN_ITEM = "ROADMAP Queue 1 item 11: train_loss, remat and training"
 
 
-def _not_ported(what: str, item: str = _CROSS_ITEM):
-    raise NotImplementedError(f"{what} is not ported yet ({item})")
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet ({_TRAIN_ITEM})")
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _init_attn(gen, cfg: ModelConfig):
+def _init_attn(gen, cfg: ModelConfig, cross: bool = False):
     a = cfg.attn
     d = cfg.d_model
     dt = cfg.torch_dtype
@@ -63,7 +69,7 @@ def _init_attn(gen, cfg: ModelConfig):
         "wv": dense_init(gen, d, a.n_kv_heads * a.head_dim, dt),
         "wo": dense_init(gen, a.n_heads * a.head_dim, d, dt),
     }
-    if a.qk_norm:
+    if a.qk_norm and not cross:
         p["q_scale"] = torch.ones((a.head_dim,), device=param_device(gen))
         p["k_scale"] = torch.ones((a.head_dim,), device=param_device(gen))
     return p
@@ -83,10 +89,12 @@ def _init_block(gen, cfg: ModelConfig, period_idx: int):
     p = {"norm1": init_norm(cfg, device=dev)}
     if kind == ATTN:
         p["attn"] = _init_attn(gen, cfg)
+    elif kind == CROSS:
+        p["attn"] = _init_attn(gen, cfg)
+        p["norm_x"] = init_norm(cfg, device=dev)
+        p["cross_attn"] = _init_attn(gen, cfg, cross=True)
     elif kind == MAMBA:
         p["mamba"] = ssm_mod.init_mamba(gen, cfg)
-    else:
-        _not_ported(f"a {kind!r} block")
     ffn = _ffn_kind(cfg, period_idx)
     if ffn == "moe":
         p["norm2"] = init_norm(cfg, device=dev)
@@ -107,10 +115,10 @@ def _init_period_stack(gen, cfg: ModelConfig, n_periods: int):
 
 
 def init_params(gen: Optional[torch.Generator], cfg: ModelConfig):
-    """Full zoo-model parameter tree (embed, block stack, head), drawn
-    from ``gen`` on its device; ``gen=None`` gives the tree's shapes and
-    dtypes on the ``meta`` device.  Same shapes, dtypes and stds as the
-    reference; not its ``jax.random`` numbers."""
+    """Full zoo-model parameter tree (embed, block stack, head, encoder),
+    drawn from ``gen`` on its device; ``gen=None`` gives the tree's
+    shapes and dtypes on the ``meta`` device.  Same shapes, dtypes and
+    stds as the reference; not its ``jax.random`` numbers."""
     params = {
         "embed": init_embed(gen, cfg),
         "final_norm": init_norm(cfg, device=param_device(gen)),
@@ -118,23 +126,40 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_lm_head(gen, cfg)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "blocks": _init_period_stack(gen, _encoder_cfg(cfg),
+                                         cfg.encoder.n_layers),
+            "final_norm": init_norm(cfg, device=param_device(gen)),
+        }
     return params
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's stack as a config: one non-causal ATTN block a
+    period, dense FFN, no window."""
+    a = dataclasses.replace(cfg.attn, causal=False, window=None)
+    return dataclasses.replace(
+        cfg, period=(ATTN,), moe_period_idx=(), moe=None, attn=a,
+        n_layers=cfg.encoder.n_layers)
 
 
 # ---------------------------------------------------------------------------
 # Sublayers
 # ---------------------------------------------------------------------------
-def _project_qkv(p, x, cfg: ModelConfig, positions):
+def _project_qkv(p, x, cfg: ModelConfig, positions, with_rope=True,
+                 cross=False):
     a = cfg.attn
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, a.n_heads, a.head_dim)
     k = (x @ p["wk"]).reshape(B, S, a.n_kv_heads, a.head_dim)
     v = (x @ p["wv"]).reshape(B, S, a.n_kv_heads, a.head_dim)
-    if a.qk_norm:
+    if a.qk_norm and not cross:
         q = rms_norm_headwise(q, p["q_scale"])
         k = rms_norm_headwise(k, p["k_scale"])
-    q = rope(q, positions, a.rope_theta)
-    k = rope(k, positions, a.rope_theta)
+    if with_rope:
+        q = rope(q, positions, a.rope_theta)
+        k = rope(k, positions, a.rope_theta)
     return q, k, v
 
 
@@ -144,16 +169,18 @@ def _attn_out(p, out, cfg: ModelConfig):
 
 
 def _self_attn_full(p, h, cfg: ModelConfig, causal=True, q_offset=0):
-    """Full-sequence causal self-attention (prefill / teacher-forced
-    forward).  Returns (out, (k, v)) so prefill can build caches."""
-    if not causal:
-        _not_ported("non-causal (encoder) self-attention")
+    """Full-sequence self-attention (prefill / teacher-forced forward /
+    the encoder's non-causal one).  Returns (out, (k, v)) so prefill can
+    build caches."""
     S = h.shape[1]
     positions = q_offset + torch.arange(S, device=h.device)
     x = apply_norm(p["norm1"], h, cfg)
     q, k, v = _project_qkv(p["attn"], x, cfg, positions)
-    out = prefill_attention(q, k, v, window=cfg.attn.window,
-                            q_offset=q_offset)
+    if causal:
+        out = prefill_attention(q, k, v, window=cfg.attn.window,
+                                q_offset=q_offset)
+    else:
+        out = encoder_attention(q, k, v)
     return _attn_out(p["attn"], out, cfg), (k, v)
 
 
@@ -176,6 +203,26 @@ def _self_attn_decode(p, h, cfg: ModelConfig, cache, pos: int):
     return _attn_out(p["attn"], out, cfg), {"k": ck, "v": cv, "pos": cpos}
 
 
+def _cross_attn(p, h, cfg: ModelConfig, memory=None, mem_kv=None):
+    """Cross-attention to encoder / image memory, no RoPE on either side.
+    Either raw ``memory`` (B, Sm, D) or the cached projections ``mem_kv``
+    (k, v).  Returns (out, (k, v))."""
+    x = apply_norm(p["norm_x"], h, cfg)
+    a = cfg.attn
+    B, S, _ = x.shape
+    q = (x @ p["cross_attn"]["wq"]).reshape(B, S, a.n_heads, a.head_dim)
+    if mem_kv is None:
+        Sm = memory.shape[1]
+        k = (memory @ p["cross_attn"]["wk"]).reshape(B, Sm, a.n_kv_heads,
+                                                     a.head_dim)
+        v = (memory @ p["cross_attn"]["wv"]).reshape(B, Sm, a.n_kv_heads,
+                                                     a.head_dim)
+    else:
+        k, v = mem_kv
+    out = cross_attention(q, k, v)
+    return _attn_out(p["cross_attn"], out, cfg), (k, v)
+
+
 def _ffn(p, h, cfg: ModelConfig, period_idx: int):
     """Returns (delta, aux_loss)."""
     kind = _ffn_kind(cfg, period_idx)
@@ -193,7 +240,6 @@ def _ffn(p, h, cfg: ModelConfig, period_idx: int):
 def _apply_period_full(pp, h, cfg: ModelConfig, memory, mode: str,
                        cache_len: int = 0):
     """Apply one period in full-sequence mode.  Returns (h, aux, caches)."""
-    del memory      # only CROSS blocks read it
     aux_total = torch.zeros((), device=h.device)
     caches = {}
     for i, kind in enumerate(cfg.period):
@@ -204,6 +250,14 @@ def _apply_period_full(pp, h, cfg: ModelConfig, memory, mode: str,
             h = h + out
             if mode == "prefill":
                 c.update(_build_kv_cache(k, v, cfg, cache_len))
+        elif kind == CROSS:
+            out, (k, v) = _self_attn_full(p, h, cfg, causal=True)
+            h = h + out
+            xout, (xk, xv) = _cross_attn(p, h, cfg, memory=memory)
+            h = h + xout
+            if mode == "prefill":
+                c.update(_build_kv_cache(k, v, cfg, cache_len))
+                c["xk"], c["xv"] = xk, xv
         elif kind == MAMBA:
             x = apply_norm(p["norm1"], h, cfg)
             if mode == "prefill":
@@ -215,8 +269,6 @@ def _apply_period_full(pp, h, cfg: ModelConfig, memory, mode: str,
                 out = ssm_mod.mamba_forward(p["mamba"], x, cfg,
                                             ssd_impl=ssm_mod.ssd_kernel)
             h = h + out
-        else:
-            _not_ported(f"a {kind!r} block")
         delta, aux = _ffn(p, h, cfg, i)
         h = h + delta
         aux_total = aux_total + aux
@@ -256,14 +308,21 @@ def _apply_period_decode(pp, h, cfg: ModelConfig, cache, pos: int):
         c = cache[f"b{i}"]
         if kind == ATTN:
             out, nc = _self_attn_decode(p, h, cfg, c, pos)
+            h = h + out
+        elif kind == CROSS:
+            out, nc = _self_attn_decode(p, h, cfg, c, pos)
+            h = h + out
+            # the memory's projections are read, not copied: only the
+            # self-attention ring is written
+            xout, _ = _cross_attn(p, h, cfg, mem_kv=(c["xk"], c["xv"]))
+            h = h + xout
+            nc["xk"], nc["xv"] = c["xk"], c["xv"]
         elif kind == MAMBA:
             x = apply_norm(p["norm1"], h, cfg)
             out, (conv_st, ssm_st) = ssm_mod.mamba_decode_step(
                 p["mamba"], x, cfg, c["conv"], c["ssm"])
+            h = h + out
             nc = {"conv": conv_st, "ssm": ssm_st}
-        else:
-            _not_ported(f"a {kind!r} block")
-        h = h + out
         delta, _ = _ffn(p, h, cfg, i)
         h = h + delta
         new_cache[f"b{i}"] = nc
@@ -294,7 +353,7 @@ def _stack(trees):
 def _stack_full(params_blocks, h, cfg: ModelConfig, memory, mode: str,
                 cache_len: int = 0, remat: bool = False):
     if remat:
-        _not_ported("remat", _TRAIN_ITEM)
+        _not_ported("remat")
     aux = torch.zeros((), device=h.device)
     caches = []
     for i in range(_n_stacked(params_blocks)):
@@ -318,13 +377,21 @@ def _stack_decode(params_blocks, h, cfg: ModelConfig, cache, pos: int):
 # Public API
 # ---------------------------------------------------------------------------
 def encode(params, frames, cfg: ModelConfig):
-    """Encoder forward (enc-dec archs): not ported yet."""
-    _not_ported("encode")
+    """Encoder forward (enc-dec archs).  frames: (B, S_enc, D) embeddings
+    (the modality frontend is the sanctioned stub) -> memory (B, S_enc,
+    D) in the model dtype."""
+    enc_cfg = _encoder_cfg(cfg)
+    h = frames.to(cfg.torch_dtype)
+    h, _, _ = _stack_full(params["encoder"]["blocks"], h, enc_cfg,
+                          memory=None, mode="train")
+    return apply_norm(params["encoder"]["final_norm"], h, cfg)
 
 
 def _memory_from_batch(params, batch, cfg: ModelConfig):
-    if "frames" in batch or "image_embeds" in batch:
-        _not_ported("encoder / image memory")
+    if cfg.encoder is not None:
+        return encode(params, batch["frames"], cfg)
+    if cfg.vision_stub:
+        return batch["image_embeds"].to(cfg.torch_dtype)
     return None
 
 
@@ -343,7 +410,7 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = False):
 def train_loss(params, batch, cfg: ModelConfig, remat: bool = True,
                loss_chunk: int = 0):
     """Teacher-forced LM loss: not ported yet."""
-    _not_ported("train_loss", _TRAIN_ITEM)
+    _not_ported("train_loss")
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
@@ -376,3 +443,39 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     h = apply_norm(params["final_norm"], h, cfg)
     logits = lm_logits(params.get("lm_head", {}), params["embed"], h, cfg)
     return logits[:, 0], new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cache specs (for dry-runs: meta tensors, no storage)
+# ---------------------------------------------------------------------------
+def cache_struct(cfg: ModelConfig, batch: int, cache_len: int,
+                 memory_len: int = 0):
+    """The tree ``prefill`` would emit, as ``meta``-device tensors of its
+    shapes and dtypes (the reference's ``ShapeDtypeStruct`` tree)."""
+    P = cfg.n_periods
+    dt = cfg.torch_dtype
+    a = cfg.attn
+
+    def leaf(shape, dtype=dt):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out = {}
+    for i, kind in enumerate(cfg.period):
+        W = cache_len if a is None or a.window is None \
+            else min(cache_len, a.window)
+        c = {}
+        if kind in (ATTN, CROSS):
+            c["k"] = leaf((P, batch, W, a.n_kv_heads, a.head_dim))
+            c["v"] = leaf((P, batch, W, a.n_kv_heads, a.head_dim))
+            c["pos"] = leaf((P, W), torch.int32)
+        if kind == CROSS:
+            c["xk"] = leaf((P, batch, memory_len, a.n_kv_heads, a.head_dim))
+            c["xv"] = leaf((P, batch, memory_len, a.n_kv_heads, a.head_dim))
+        if kind == MAMBA:
+            s = cfg.ssm
+            _, n_heads, d_xbc = ssm_mod.dims(cfg)
+            c["conv"] = leaf((P, batch, s.d_conv - 1, d_xbc))
+            c["ssm"] = leaf((P, batch, n_heads, s.head_dim, s.d_state),
+                            torch.float32)
+        out[f"b{i}"] = c
+    return out

@@ -15,8 +15,11 @@ input).  The CUDA engine must route a short
 stream like the CPU engine does, on the kernel ladder and on the paper's
 default ``lr -> tinytf`` ladder; a hard expert budget must hold on the
 card; the model expert must label on the card as on the CPU; and the
-zoo's smoke models (Mixtral and the seven other decoder-only
-architectures) must serve on the card as on the CPU.  The SSD scan's
+zoo's smoke models (Mixtral, the seven other decoder-only
+architectures and the two CROSS ones with their memory) must serve on
+the card as on the CPU.  Flash is also held at the CROSS models'
+non-causal shapes (Sq != Skv, a ragged last kv tile at 1600 memory
+slots) and decode attention over a memory whose every slot is valid.  The SSD scan's
 chunk-parallel variant (the zoo's chunk 256 x state 128, at
 mamba2-370m's and Jamba's layer shapes), each of its four passes against
 its plain pass, and both variants' final state are held to the twin, and decode attention at Llama-3-405B's
@@ -96,7 +99,8 @@ def test_flash_kernel_matches_plain(cuda, B, S, H, K, hd, causal, window,
 def _decode_pos(kind, gen, B, K, W):
     """Slot positions: "lens" random valid prefixes (B, W); "ring" the
     zoo's (W,) ring with its last 300 slots empty; "empty" no valid slot;
-    "split empty" every slot valid but those of one whole split."""
+    "split empty" every slot valid but those of one whole split; "all"
+    every slot valid, (W,) arange (cross-attention over a memory)."""
     from repro_torch.kernels.decode_attention.kernel import (num_splits,
                                                               split_bounds)
     ar = torch.arange(W)
@@ -107,6 +111,8 @@ def _decode_pos(kind, gen, B, K, W):
         pos = torch.where(ar < W - 300, ar, -1)
     elif kind == "empty":
         pos = torch.full((B, W), -1)
+    elif kind == "all":
+        pos = ar
     else:
         bounds = split_bounds(W, num_splits(B, K, W))
         lo, hi = bounds[len(bounds) // 2]
@@ -131,6 +137,8 @@ def _decode_pos(kind, gen, B, K, W):
     (2, 512, 32, 2, 128, torch.float32, "lens"),  # G 16 x hd 128 in fp32
     (2, 300, 4, 2, 256, torch.float32, "lens"),   # hd 256: two load rounds
     (3, 130, 6, 3, 120, torch.bfloat16, "lens"),  # 240-byte rows: scalar
+    (2, 1600, 32, 8, 128, torch.bfloat16, "all"),  # vision cross: ragged
+    (2, 2048, 16, 16, 64, torch.bfloat16, "all"),  # seamless cross
 ])
 def test_decode_kernel_matches_plain(cuda, B, W, H, K, hd, dtype, pos_kind):
     from repro_torch.kernels.decode_attention.kernel import select_variant
@@ -472,16 +480,22 @@ def test_gmm_transposed_x_takes_simt(cuda):
     (2, 512, 12, 2, 128, False, None),    # non-causal, GQA 6
     (1, 2048, 4, 4, 64, True, None),      # hd 64
     (2, 300, 6, 1, 64, True, 100),        # hd 64, ragged, window
+    # non-causal, S = (Sq, Skv): the CROSS models' shapes
+    (2, (2048, 1600), 32, 8, 128, False, None),  # vision cross, ragged tail
+    (2, (256, 2048), 16, 16, 64, False, None),   # seamless cross prefill
+    (2, 2048, 16, 16, 64, False, None),          # seamless encoder
 ])
 def test_flash_tc_variant_matches_plain(cuda, B, S, H, K, hd, causal,
                                         window):
     """bf16 flash attention on the tensor cores at 1e-2 of the twin's
-    largest magnitude (p is rounded to bf16 before the PV product)."""
+    largest magnitude (p is rounded to bf16 before the PV product).  A
+    pair S is (Sq, Skv)."""
     from repro_torch.kernels.flash_attention.kernel import select_variant
-    gen = torch.Generator().manual_seed(S + H + hd)
-    q = _randn(gen, B, S, H, hd, dtype=torch.bfloat16)
-    k = _randn(gen, B, S, K, hd, dtype=torch.bfloat16)
-    v = _randn(gen, B, S, K, hd, dtype=torch.bfloat16)
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
+    gen = torch.Generator().manual_seed(Sq + Skv + H + hd)
+    q = _randn(gen, B, Sq, H, hd, dtype=torch.bfloat16)
+    k = _randn(gen, B, Skv, K, hd, dtype=torch.bfloat16)
+    v = _randn(gen, B, Skv, K, hd, dtype=torch.bfloat16)
     assert select_variant(q, k, v) == "tc"
     before = dict(flash_attention_cuda.launches_by_variant)
     out = flash_attention(q, k, v, causal=causal, window=window)
@@ -500,6 +514,7 @@ def test_flash_tc_variant_matches_plain(cuda, B, S, H, K, hd, causal,
     (1, 2048, 2048, 8, 2, True, 1000),    # a window below S
     (2, 1000, 1000, 8, 2, True, None),    # ragged S
     (1, 300, 700, 8, 4, False, None),     # non-causal, Sq != Skv
+    (2, 2048, 1600, 32, 8, False, None),  # non-causal, ragged last kv tile
 ])
 def test_flash_tc_head_dim_120_matches_plain(cuda, B, Sq, Skv, H, K, causal,
                                              window):
@@ -566,16 +581,21 @@ def test_flash_simt_variant_cases(cuda, case):
     (4, 128, 8, 2, 32, True, None),     # GQA 4
     (2, 200, 4, 2, 64, True, 72),       # hd 64, ragged, window
     (2, 130, 4, 4, 128, False, None),   # hd 128, ragged
+    # non-causal, S = (Sq, Skv): the CROSS smoke models' cross prefill
+    (2, (64, 16), 4, 2, 32, False, None),   # vision: Skv below one tile
+    (2, (16, 64), 4, 4, 32, False, None),
 ])
 def test_flash_tiled_variant_matches_plain(cuda, B, S, H, K, hd, causal,
                                            window):
     """fp32 on the register-tiled variant at 2e-5 of the twin (IEEE fp32
-    FMAs: only the order of summation differs)."""
+    FMAs: only the order of summation differs).  A pair S is (Sq,
+    Skv)."""
     from repro_torch.kernels.flash_attention.kernel import select_variant
-    gen = torch.Generator().manual_seed(B * S + H + hd)
-    q = _randn(gen, B, S, H, hd)
-    k = _randn(gen, B, S, K, hd)
-    v = _randn(gen, B, S, K, hd)
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
+    gen = torch.Generator().manual_seed(B * Sq + Skv + H + hd)
+    q = _randn(gen, B, Sq, H, hd)
+    k = _randn(gen, B, Skv, K, hd)
+    v = _randn(gen, B, Skv, K, hd)
     assert select_variant(q, k, v) == "tiled"
     before = dict(flash_attention_cuda.launches_by_variant)
     n0 = flash_attention_cuda.launches
@@ -677,6 +697,48 @@ def test_zoo_arch_smoke_serves_like_the_cpu(cuda, arch):
             torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
     n_mamba = cfg.n_periods * cfg.period.count("mamba")
     assert ssd_scan_cuda.launches == n0 + n_mamba
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium",
+                                  "llama-3.2-vision-11b"])
+def test_zoo_cross_smoke_serves_like_the_cpu(cuda, arch):
+    """Each CROSS architecture's smoke config in fp32, with its memory
+    (seamless: 80 frames; the vision model: 16 image embeddings): prefill
+    and 3 greedy decode steps on the card (kernels) and the CPU (twins)
+    from the same weights; two flash calls a CROSS layer and one an
+    encoder or ATTN layer in the prefill, decode attention alike a
+    step."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    p_cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    gen = torch.Generator().manual_seed(1)
+    b_cpu = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=gen)}
+    if cfg.encoder is not None:
+        b_cpu["frames"] = torch.randn((2, 80, cfg.d_model), generator=gen)
+    else:
+        b_cpu["image_embeds"] = torch.randn(
+            (2, cfg.n_image_tokens, cfg.d_model), generator=gen)
+    b_gpu = {k: t.cuda() for k, t in b_cpu.items()}
+    n_cross = cfg.n_periods * cfg.period.count("cross")
+    n_attn = cfg.n_layers - n_cross
+    n_enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    f0, d0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    with torch.no_grad():
+        lc, cc = tfm.prefill(p_cpu, b_cpu, cfg)
+        lg, cg = tfm.prefill(p_gpu, b_gpu, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        assert flash_attention_cuda.launches == f0 + n_attn + 2 * n_cross \
+            + n_enc
+        for step in range(3):
+            nxt = lc.argmax(-1)[:, None]
+            lc, cc = tfm.decode_step(p_cpu, cc, nxt, 64 + step, cfg)
+            lg, cg = tfm.decode_step(p_gpu, cg, nxt.cuda(), 64 + step, cfg)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    assert decode_attention_cuda.launches == d0 + 3 * (n_attn + 2 * n_cross)
 
 
 def test_cpu_tensors_never_reach_the_kernels(cuda):

@@ -75,7 +75,7 @@ def _close(got, want, tol):
 # configs and data
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("name", ["ModelConfig", "AttnConfig", "MoEConfig",
-                                  "SSMConfig"])
+                                  "SSMConfig", "EncoderConfig"])
 def test_config_field_defaults_match_reference(name):
     """Every field the port has is the reference's, with its default (the
     port's ModelConfig.dtype once defaulted to float32)."""
@@ -112,10 +112,11 @@ def test_mixtral_config_is_the_reference(smoke):
             assert a == b, f.name
     assert mine.n_periods == ref.n_periods
     assert mine.torch_dtype == torch.bfloat16
-    # the eight decoder-only architectures (the CROSS ones wait)
+    # all ten of the zoo's architectures, the CROSS ones included
     assert list_architectures() == sorted([
         ARCH, "jamba-1.5-large-398b", "mamba2-370m", "internlm2-1.8b",
-        "qwen3-8b", "h2o-danube-3-4b", "llama3-405b", "dbrx-132b"])
+        "qwen3-8b", "h2o-danube-3-4b", "llama3-405b", "dbrx-132b",
+        "seamless-m4t-medium", "llama-3.2-vision-11b"])
 
 
 @pytest.mark.parametrize("seed", [0, 3])
@@ -389,18 +390,30 @@ def test_init_params_shapes_dtypes_and_stds():
 
 
 def test_unported_blocks_raise():
-    cfg = dataclasses.replace(get_smoke_config(ARCH), period=("cross",))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        t_tf.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         t_tf.train_loss({}, {}, get_smoke_config(ARCH))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        t_tf.encode({}, None, get_smoke_config(ARCH))
     params = t_tf.init_params(torch.Generator().manual_seed(0),
                               _fp32(get_smoke_config(ARCH)))
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         t_tf.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
                      _fp32(get_smoke_config(ARCH)), remat=True)
+
+
+def test_cross_smoke_model_initialises_and_encodes():
+    """A CROSS model (seamless' smoke config) draws its tree from the
+    port's own generator, encoder included, and ``encode`` returns the
+    memory (B, S, d_model) in the model dtype."""
+    cfg = get_smoke_config("seamless-m4t-medium")
+    params = t_tf.init_params(torch.Generator().manual_seed(0), cfg)
+    assert set(params["blocks"]["b0"]) >= {"attn", "norm_x", "cross_attn"}
+    assert set(params["encoder"]) == {"blocks", "final_norm"}
+    frames = torch.randn((2, 24, cfg.d_model),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        mem = t_tf.encode(params, frames, cfg)
+    assert tuple(mem.shape) == (2, 24, cfg.d_model)
+    assert mem.dtype == cfg.torch_dtype
+    assert bool(torch.isfinite(mem.float()).all())
 
 
 # ---------------------------------------------------------------------------
