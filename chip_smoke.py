@@ -205,7 +205,38 @@ Phases (any failure exits non-zero and prints no result line):
      tokens under 64 decoder tokens: its cross prefill runs "tiled" with
      Skv below one tile), card against CPU from the same weights and
      memory, every kernel the model runs launched; then the phase's
-     seconds.
+     seconds;
+  12. zoo-train: the zoo's training path (``repro_torch.launch.train``)
+     on the card, bf16 at published widths, seeded weights, batches from
+     ``lm_batches(seed=0)``, one model at a time: internlm2-1.8b (24
+     ATTN layers) and mamba2-370m (48 MAMBA layers) at full depth, batch
+     4 x seq 2048, and mixtral-8x22b cut to 1 of 56 layers, batch 1 x seq
+     2048 (one MoE group).  Each: one ``train_loss`` step without and
+     one with remat (ms, tokens/s), (a) every parameter leaf's gradient
+     finite and present, non-zero upstream of each kernel (``wq`` /
+     ``wk`` / ``wv``, ``in_proj``, ``w_in`` / ``w_gate`` / ``w_out``);
+     (c) remat on against off: the loss within 1e-6 relative, each leaf
+     within 2e-2 in relative l2 norm; (d) each step's launches and
+     variants (flash once per ATTN layer a forward, the remat recompute
+     again: 24 / 48 "tc"; the SSD 48 / 96 "parallel"; Mixtral flash 1 /
+     2 and moe_gmm 3 / 6 "tc"; no decode launch); (b) the remat step with
+     the plain twins patched into ``attention.py`` / ``moe.py`` /
+     ``ssm.py`` (no kernel launched): in bf16 the loss within 2e-3
+     relative, and each leaf of the kernels' gradient no farther from the
+     same step's in fp32 (twins) than 1.25 x the bf16 twins' is, + 1e-3
+     (relative l2 norms); in fp32 (the kernels' fp32 variants) the loss
+     within 1e-5 relative and each leaf within 1e-4; each
+     kernel against its plain version on the step's layer-0 inputs,
+     timed beside the library call and the bound, and its backward (the
+     twin's, through ``kernels.autograd``) timed beside a backward's
+     bound; one step (forward, backward, AdamW) under torch.profiler
+     (device busy, idle share, device time by group); then
+     ``train(steps=8, remat=True)`` with a checkpoint: its launches
+     counted from zero over the run (8 x a remat step's), peak GB, ms a
+     step, tokens/s; (e) its first loss the remat step's and its last
+     below its first; (f) the checkpoint read back bit-exact against the
+     parameters ``train`` wrote (recorded by wrapping its
+     ``save_checkpoint``).
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade, Mixtral and
 zoo-archs serving runs, each counted from zero, ``launches_by_variant``
@@ -220,7 +251,11 @@ run, ``zoo_<model>_prefill`` / ``zoo_<model>_decode`` phase 11's runs
 ``zoo_jamba_prefill`` for the SSD scan, ``zoo_llama3_decode`` and
 ``zoo_vision_decode`` (cross) for decode attention,
 ``zoo_danube_prefill``, ``zoo_seamless_prefill`` (encoder) and
-``zoo_vision_prefill`` (cross) for flash attention);
+``zoo_vision_prefill`` (cross) for flash attention), and
+``zoo_<model>_train`` phase 12's ``train()`` runs (8 steps with remat:
+the launches, the timed row at the step's shapes, the step's ms,
+tokens/s, profiled busy and idle share, peak GB, and the twin
+backward's ms beside its bound);
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -403,7 +438,8 @@ def _bound(nbytes, flops, dtype=torch.float32):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def flash_bound(q, k, v, causal=True, window=None):
+def flash_flops(q, k, causal=True, window=None):
+    """q.k and p.v over the (query, key) pairs the masks keep."""
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     qp = torch.arange(Sq)[:, None]
@@ -413,9 +449,12 @@ def flash_bound(q, k, v, causal=True, window=None):
         mask &= kp <= qp
     if window is not None:
         mask &= kp > qp - window
-    pairs = int(mask.sum())
-    flops = B * H * pairs * 4 * hd                # q.k and p.v
-    return _bound(_nbytes(q, k, v, q), flops, q.dtype)
+    return B * H * int(mask.sum()) * 4 * hd
+
+
+def flash_bound(q, k, v, causal=True, window=None):
+    return _bound(_nbytes(q, k, v, q), flash_flops(q, k, causal, window),
+                  q.dtype)
 
 
 def decode_bound(q, k, v, pos):
@@ -2839,6 +2878,530 @@ def phase_zoo_archs():
     return results, paths
 
 
+# ---------------------------------------------------------------------------
+# zoo-train: the zoo's training path at published widths (phase 12)
+# ---------------------------------------------------------------------------
+# (name, short name, depth cut (None = full), batch); seq TRAIN_SEQ
+ZOO_TRAIN = (("internlm2-1.8b", "internlm2", None, 4),
+             ("mamba2-370m", "mamba2", None, 4),
+             ("mixtral-8x22b", "mixtral", 1, 1))
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 8, 1e-3
+# (b) kernels against twins, one remat step each.  In fp32 (the
+# kernels' fp32 variants: flash "tiled", moe_gmm "simt", the SSD
+# "parallel") the two compute one function in another order: the loss
+# within 1e-5 relative, each gradient leaf within 1e-4 in relative l2
+# norm.  In bf16 (the training path's "tc" kernels) a step's gradient is
+# itself far from the same step in fp32 (0.5-2% at internlm2's leaves,
+# 2-8% at mamba2's, 6-9% at Mixtral's, where bf16 rounding also re-routes
+# a few tokens), so the kernels' bf16 gradient is held to the fp32 twin
+# step no farther than 1.25 x the bf16 twins' own gradient is, plus
+# 1e-3, leaf by leaf; their losses within 2e-3 relative of each other.
+# (c) remat on against off: the loss within 1e-6 relative (the same
+# forward recomputed), each leaf within 2e-2 (the embedding's gradient
+# accumulates bf16 rows with atomics, and GQA's repeat_interleave
+# backward sums 2-6 fp32 terms in a varying order).
+TRAIN_TOL = {"loss": 2e-3, "fp32_loss": 1e-5, "fp32_grad": 1e-4,
+             "bf16_ratio": 1.25, "bf16_slack": 1e-3,
+             "remat_loss": 1e-6, "remat_grad": 2e-2}
+# (a) the leaves upstream of a kernel, whose gradient must be non-zero
+TRAIN_UPSTREAM = ("wq", "wk", "wv", "in_proj", "w_in", "w_gate", "w_out")
+
+
+def _leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_leaf_paths(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def _train_expected(cfg, n_tokens, remat):
+    """Launches one training step implies: its forward's (the prefill's,
+    ``_zoo_expected``), and with ``remat`` each checkpointed period's
+    again in the backward's recompute; the backward itself runs the
+    twins, and no step decodes."""
+    per = _zoo_expected(cfg, n_tokens, 0)["prefill"]
+    return {k: (2 if remat else 1) * v for k, v in per.items()}
+
+
+def _train_step(cfg, params, batch, remat):
+    """One step's loss, metrics and gradients (``launch.train``'s
+    ``loss_and_grads``), its launches and variants counted from zero, and
+    its synchronised wall ms."""
+    from repro_torch.launch.train import loss_and_grads
+    for fn in ARCH_LAUNCHERS.values():
+        fn.launches = 0
+    _zero_variant_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, metrics, grads = loss_and_grads(params, batch, cfg, remat)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: fn.launches for n, fn in ARCH_LAUNCHERS.items()}
+    by_variant = {n: c for n, c in _variant_counts().items()
+                  if n in ARCH_LAUNCHERS}
+    return loss, metrics, grads, ms, launches, by_variant
+
+
+def _check_train_launches(tag, cfg, n_tokens, remat, launches, by_variant,
+                          steps=1):
+    """(d) the launches and variants a step implies, x ``steps``."""
+    expect = {k: steps * v for k, v in
+              _train_expected(cfg, n_tokens, remat).items()}
+    want = _arch_variants(cfg)
+    print(f"[zoo-train] {tag}: launches {launches} expected {expect}; by "
+          f"variant {by_variant}", flush=True)
+    for n in ARCH_LAUNCHERS:
+        if launches[n] != expect[n]:
+            _fail(f"{tag} {n}: {launches[n]} launches != {expect[n]}")
+        v_want = {v: expect[n] if v == want[n] else 0
+                  for v in by_variant[n]}
+        if by_variant[n] != v_want:
+            _fail(f"{tag} {n}: launches by variant {by_variant[n]} != "
+                  f"{v_want}")
+
+
+def _check_grads_present(tag, grads):
+    """(a) every leaf has a finite gradient, non-zero upstream of each
+    kernel (a kernel output cut off from the graph leaves them None)."""
+    zero, seen = [], set()
+    for path, g in _leaf_paths(grads).items():
+        if g is None:
+            _fail(f"{tag}: no gradient reached {path}")
+        if not bool(torch.isfinite(g).all()):
+            _fail(f"{tag}: non-finite gradient at {path}")
+        name = path.rsplit("/", 1)[-1]
+        if name in TRAIN_UPSTREAM:
+            seen.add(name)
+            if not bool((g != 0).any()):
+                zero.append(path)
+    if zero:
+        _fail(f"{tag}: zero gradient upstream of a kernel at {zero}")
+    print(f"[zoo-train] {tag} (a): {len(_leaf_paths(grads))} leaves, every "
+          f"gradient finite; non-zero at {sorted(seen)}", flush=True)
+
+
+def _rel_l2(a, b):
+    """||a - b|| / ||b|| in fp32 (0 when both are 0)."""
+    num = float(torch.linalg.vector_norm((a.float() - b.float())))
+    den = float(torch.linalg.vector_norm(b.float()))
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+
+def _compare_grads(tag, got, want, tol):
+    """Each leaf within ``tol`` in relative l2 norm; prints the largest
+    and the count of bitwise-equal leaves."""
+    worst, equal = 0.0, 0
+    wp = _leaf_paths(want)
+    for path, g in _leaf_paths(got).items():
+        r = _rel_l2(g, wp[path])
+        equal += bool(torch.equal(g, wp[path]))
+        worst = max(worst, r)
+        if not r <= tol:
+            _fail(f"{tag}: gradient at {path} off by {r:.4g} (relative l2) "
+                  f"> {tol}")
+    print(f"[zoo-train] {tag}: largest relative l2 {worst:.4g} (tol {tol}); "
+          f"{equal} of {len(wp)} leaves bitwise equal", flush=True)
+
+
+def _compare_to_fp32(tag, kernel, twin, fp32):
+    """(b) in bf16: each leaf of the kernels' gradient no farther from
+    the fp32 step's than TRAIN_TOL["bf16_ratio"] x the twins' bf16
+    gradient is, plus TRAIN_TOL["bf16_slack"] (relative l2 norms)."""
+    ratio, slack = TRAIN_TOL["bf16_ratio"], TRAIN_TOL["bf16_slack"]
+    tp, fp = _leaf_paths(twin), _leaf_paths(fp32)
+    rows = []
+    for path, g in _leaf_paths(kernel).items():
+        rk, rt = _rel_l2(g, fp[path]), _rel_l2(tp[path], fp[path])
+        rows.append((rk / rt if rt > 0 else math.inf, rk, rt, path))
+        if not rk <= ratio * rt + slack:
+            _fail(f"{tag}: the kernels' gradient at {path} is {rk:.4g} from "
+                  f"the fp32 step's, the twins' {rt:.4g} (relative l2; "
+                  f"allowed {ratio} x + {slack})")
+    q, rk, rt, path = max(rows)
+    print(f"[zoo-train] {tag}: kernels' / twins' distance to the fp32 step "
+          f"at most {q:.4g} ({path}: {rk:.4g} / {rt:.4g}); the kernels' "
+          f"{min(r[1] for r in rows):.4g}-{max(r[1] for r in rows):.4g}, "
+          f"the twins' {min(r[2] for r in rows):.4g}-"
+          f"{max(r[2] for r in rows):.4g} (allowed {ratio} x + {slack})",
+          flush=True)
+
+
+def _twin_ssd(x, adt, dt, B, C, *, chunk, init_state=None,
+              return_state=False):
+    return ssd_scan_chunked_ref(x, adt, dt, B, C, min(chunk, x.shape[1]),
+                                init_state=init_state,
+                                return_state=return_state)
+
+
+def _twins_patched(fn):
+    """``fn()`` with the plain twins in the ``attention.py`` / ``moe.py``
+    / ``ssm.py`` module globals the zoo calls its kernels through."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    real = [(attn_mod, "flash_attention", flash_plain),
+            (moe_mod, "moe_gmm", gmm_ref), (ssm_mod, "ssd_scan", _twin_ssd)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in real]
+    try:
+        for mod, name, twin in real:
+            setattr(mod, name, twin)
+        return fn()
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+
+
+def _capture_train_inputs(fn):
+    """``fn()`` recording the (detached) inputs of the first flash and SSD
+    call and of the first group's up and down ``moe_gmm`` products."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    got, gmm_calls = {}, [0]
+    real = {"flash_attention": (attn_mod, attn_mod.flash_attention),
+            "moe_gmm": (moe_mod, moe_mod.moe_gmm),
+            "ssd_scan": (ssm_mod, ssm_mod.ssd_scan)}
+
+    def rec(name, f):
+        def g(*args, **kw):
+            key = name
+            if name == "moe_gmm":
+                gmm_calls[0] += 1
+                key = {1: ("moe_gmm", "up"), 3: ("moe_gmm", "down")}.get(
+                    gmm_calls[0])
+            if key is not None and key not in got:
+                got[key] = (tuple(a.detach() for a in args), kw)
+            return f(*args, **kw)
+        return g
+
+    try:
+        for name, (mod, f) in real.items():
+            setattr(mod, name, rec(name, f))
+        return fn(), got
+    finally:
+        for name, (mod, f) in real.items():
+            setattr(mod, name, f)
+
+
+def _backward_ms(op_fn, ins, upstream, reps=3):
+    """Device ms of one backward through the op's ``TwinGrad`` (the twin
+    recomputed and differentiated) on leaf copies of ``ins``."""
+    xs = [t.detach().requires_grad_(t.is_floating_point()) for t in ins]
+    out = op_fn(*xs)
+    out = out[0] if isinstance(out, tuple) else out
+    wants = [x for x in xs if x.requires_grad]
+    return time_ms(lambda: torch.autograd.grad(out, wants, upstream,
+                                               retain_graph=True), reps, 1)
+
+
+def _train_kernel_rows(short, cfg, got, results):
+    """Each kernel against its plain version on the step's captured
+    layer-0 inputs, timed beside the library call and the bound, and the
+    time of its backward (the twin's) beside a backward's bound: for
+    attention 2.5x the forward's operations (FlashAttention-2's five
+    products against two) over q, k, v, dO in and dq, dk, dv out; for the
+    grouped product dx and dw (twice the forward's operations) over x, w,
+    dy in and dx, dw out; for the SSD scan twice its forward's bound."""
+    want = _arch_variants(cfg)
+    bwd = {}
+    if "flash_attention" in got:
+        (q, k, v), kw = got["flash_attention"]
+        label = (f"path zoo {short} train S{q.shape[1]} B{q.shape[0]} "
+                 f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}")
+        row = check("flash_attention", label,
+                    lambda: fl_ops.flash_attention(q, k, v, **kw),
+                    lambda: flash_plain(q, k, v, **kw), ZOO_TOL["bf16"],
+                    results, lambda: flash_library(q, k, v, **kw),
+                    flash_bound(q, k, v, **kw), True, relative=True, reps=5,
+                    variant=want["flash_attention"])
+        bwd["flash_attention"] = (
+            _backward_ms(lambda *a: fl_ops.flash_attention(*a, **kw),
+                         (q, k, v), torch.randn_like(q)),
+            _bound(2 * _nbytes(q, k, v, q), 2.5 * flash_flops(q, k, **kw),
+                   q.dtype)[0], row["kernel_ms"])
+    for proj in ("up", "down"):
+        if ("moe_gmm", proj) not in got:
+            continue
+        (x, w), _ = got["moe_gmm", proj]
+        row = check("moe_gmm", f"path zoo {short} train {proj} "
+                    f"C={x.shape[1]} D={x.shape[2]} F={w.shape[2]}",
+                    lambda: gmm_ops.moe_gmm(x, w), lambda: gmm_ref(x, w),
+                    ZOO_TOL["bf16"], results, lambda: torch.bmm(x, w),
+                    gmm_bound(x, w), True, relative=True, reps=5,
+                    variant=want["moe_gmm"])
+        if proj == "up":
+            y = torch.randn((x.shape[0], x.shape[1], w.shape[2]),
+                            device="cuda").to(x.dtype)
+            bwd["moe_gmm"] = (
+                _backward_ms(gmm_ops.moe_gmm, (x, w), y),
+                _bound(2 * _nbytes(x, w) + _nbytes(y),
+                       4 * x.shape[0] * x.shape[1] * x.shape[2] * y.shape[2],
+                       x.dtype)[0], row["kernel_ms"])
+    if "ssd_scan" in got:
+        (x, adt, dt, B, C), kw = got["ssd_scan"]
+        L = kw["chunk"]
+        row = check("ssd_scan", f"path zoo {short} train B{x.shape[0]} "
+                    f"chunk {L} N{B.shape[-1]}",
+                    lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, chunk=L),
+                    lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, L),
+                    ZOO_SSD_TOL, results, None,
+                    ssd_bound(x, adt, dt, B, C, L), True, scaled=True,
+                    reps=5, variant=want["ssd_scan"])
+        bwd["ssd_scan"] = (
+            _backward_ms(lambda *a: ssd_ops.ssd_scan(*a, chunk=L),
+                         (x, adt, dt, B, C), torch.randn_like(x)),
+            2 * ssd_bound(x, adt, dt, B, C, L)[0], row["kernel_ms"])
+    for name, (ms, bound, fwd) in bwd.items():
+        print(f"[zoo-train] {short} {name} backward (the twin's): "
+              f"ms={ms:.6g} bound_ms={bound:.6g} (forward kernel "
+              f"{fwd:.6g} ms)", flush=True)
+    return bwd
+
+
+def _timed_train_steps(short, cfg, params, batch, n_timed=2):
+    """Whole steps with remat (forward, backward, the AdamW update), each
+    from the same parameters and optimizer state: one to warm up, then
+    ``n_timed`` timed (synchronised wall ms a step, tokens/s), then one
+    under torch.profiler, phase_zoo_profile's method (device busy ms,
+    idle share, device time by kernel group)."""
+    from repro_torch.launch.profile_serve import _group, _union_us
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.optim import adamw
+    opt = adamw(TRAIN_LR)
+    state = opt.init(params)
+
+    def step():
+        _, _, grads = loss_and_grads(params, batch, cfg, True)
+        with torch.no_grad():
+            opt.step(params, grads, state)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del state
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        _fail(f"zoo-train {short}: no device events recorded")
+    busy = _union_us((e.time_range.start, e.time_range.end) for e in dev)
+    groups = {}
+    for e in dev:
+        g = _group(e.name)
+        n, tot = groups.get(g, (0, 0.0))
+        groups[g] = (n + 1, tot + e.time_range.end - e.time_range.start)
+    n_tok = batch["tokens"].numel()
+    m = {"step_ms": step_ms, "tokens_per_s": n_tok / step_ms * 1e3,
+         "profiled_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+         "idle_share": 1 - busy / wall_us}
+    print(f"[zoo-train] {short} whole steps (AdamW included, remat on, "
+          f"mean of {n_timed} after one to warm up): " + " ".join(
+              f"{k}={v:.6g}" for k, v in m.items())
+          + " by_group(launches, ms)="
+          + str({g: (n, round(t / 1e3, 4)) for g, (n, t) in
+                 sorted(groups.items(), key=lambda kv: -kv[1][1])}),
+          flush=True)
+    return m
+
+
+def _train_run(name, short, cfg, depth, batch_size):
+    """(e) ``launch.train.train`` for TRAIN_STEPS steps with remat on the
+    card, its launches counted from zero over the run; (f) the
+    checkpoint it writes read back bit-exact against the parameters it
+    was handed (recorded by wrapping the module's ``save_checkpoint``)."""
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.launch import train as train_mod
+    saved = {}
+    real_save = train_mod.save_checkpoint
+
+    def recording_save(path, tree, metadata=None):
+        saved["tree"], saved["metadata"] = tree, metadata
+        return real_save(path, tree, metadata)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in ARCH_LAUNCHERS.values():
+            fn.launches = 0
+        _zero_variant_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        train_mod.save_checkpoint = recording_save
+        t0 = time.perf_counter()
+        try:
+            losses = train_mod.train(
+                name, smoke=False, steps=TRAIN_STEPS, batch=batch_size,
+                seq=TRAIN_SEQ, lr=TRAIN_LR, seed=0, ckpt=tmp,
+                log_every=TRAIN_STEPS, remat=True, device="cuda",
+                layers=depth)
+        finally:
+            train_mod.save_checkpoint = real_save
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in ARCH_LAUNCHERS.items()}
+        by_variant = {n: c for n, c in _variant_counts().items()
+                      if n in ARCH_LAUNCHERS}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t1 = time.perf_counter()
+        tree, meta = restore_checkpoint(tmp, bf16="torch")
+        read_s = time.perf_counter() - t1
+        ckpt_gb = sum(f.stat().st_size for f in Path(tmp).iterdir()) / 1e9
+    mine = _leaf_paths(saved.pop("tree")["params"])
+    back = _leaf_paths(tree["params"])
+    if set(mine) != set(back):
+        _fail(f"zoo-train {short} (f): checkpoint paths differ")
+    for path, t in mine.items():
+        r = back[path]
+        r = r if isinstance(r, torch.Tensor) else torch.from_numpy(r)
+        if r.dtype != t.dtype or not torch.equal(r, t.cpu()):
+            _fail(f"zoo-train {short} (f): {path} did not reload bit-exact")
+    if meta.get("final_loss") != losses[-1] or meta.get("arch") != name:
+        _fail(f"zoo-train {short} (f): metadata {meta}")
+    n_tok = batch_size * TRAIN_SEQ
+    print(f"[zoo-train] {short} train(): {TRAIN_STEPS} steps in {wall:.3f} "
+          f"s ({1e3 * wall / TRAIN_STEPS:.6g} ms a step with the host's "
+          f"batches, {n_tok * TRAIN_STEPS / wall:.6g} tokens/s), peak "
+          f"{peak:.4g} GB; losses {[round(x, 4) for x in losses]}; (f) "
+          f"{len(mine)} leaves ({ckpt_gb:.4g} GB) reloaded bit-exact in "
+          f"{read_s:.3f} s", flush=True)
+    _check_train_launches(f"{short} train() x{TRAIN_STEPS}", cfg, n_tok,
+                          True, launches, by_variant, steps=TRAIN_STEPS)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        _fail(f"zoo-train {short} (e): the loss did not fall: {losses}")
+    return losses, launches, by_variant, {"wall_s": wall, "peak_gb": peak}
+
+
+def phase_zoo_train():
+    """Phase 12: each ZOO_TRAIN model trained on the card at its published
+    widths, bf16, one at a time (freed before the next): one step without
+    and one with remat, (a) gradients present, (c) the two against each
+    other, (d) their launches; (b) the remat step with the plain twins
+    patched in, in bf16 and (against the same step in fp32) in fp32; the
+    kernels against their plain versions at the step's
+    shapes, and their backwards timed; one profiled step; (e) and (f)
+    through ``launch.train.train``.  Returns the record's
+    ``zoo_<model>_train`` paths."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.train import model_config
+    from repro_torch.models import transformer as tfm
+    t_phase = time.time()
+    paths = {}
+    for name, short, depth, batch_size in ZOO_TRAIN:
+        t_arch = time.time()
+        cfg = model_config(name, smoke=False, layers=depth)
+        params = tfm.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        b = next(lm_batches(cfg.vocab, batch_size, TRAIN_SEQ, 1, seed=0))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in tree_leaves(params))
+        cut = ("full depth" if depth is None else
+               f"depth cut to {depth} of {get_config(name).n_layers} "
+               f"layers")
+        print(f"[zoo-train] {name} at full width (d_model {cfg.d_model}), "
+              f"{cut}, {cfg.n_layers} layers: {n / 1e9:.4g} B parameters; "
+              f"batch {batch_size} x seq {TRAIN_SEQ}", flush=True)
+        n_tok = batch_size * TRAIN_SEQ
+        (la, ma, ga, ms_a, launch_a, var_a), got = _capture_train_inputs(
+            lambda: _train_step(cfg, params, batch, remat=False))
+        _check_grads_present(f"{short} remat off", ga)
+        _check_train_launches(f"{short} step, remat off", cfg, n_tok, False,
+                              launch_a, var_a)
+        lb, mb, gb, ms_b, launch_b, var_b = _train_step(cfg, params, batch,
+                                                        remat=True)
+        _check_grads_present(f"{short} remat on", gb)
+        _check_train_launches(f"{short} step, remat on", cfg, n_tok, True,
+                              launch_b, var_b)
+        print(f"[zoo-train] {short} first steps (the allocator's growth "
+              f"and warm-up included): remat off {ms_a:.6g} ms, on "
+              f"{ms_b:.6g} ms; loss {float(lb):.6g} (xent "
+              f"{float(mb['xent']):.6g}, aux {float(mb['aux']):.4g})",
+              flush=True)
+        rel = abs(float(la) - float(lb)) / abs(float(lb))
+        print(f"[zoo-train] {short} (c) remat on vs off: loss "
+              f"{float(lb)!r} vs {float(la)!r} (relative {rel:.3g}, tol "
+              f"{TRAIN_TOL['remat_loss']})", flush=True)
+        if not rel <= TRAIN_TOL["remat_loss"]:
+            _fail(f"zoo-train {short} (c): remat changed the loss")
+        _compare_grads(f"{short} (c) remat on vs off", gb, ga,
+                       TRAIN_TOL["remat_grad"])
+        del ga
+        lt, _, gt, ms_t, launch_t, _ = _twins_patched(
+            lambda: _train_step(cfg, params, batch, remat=True))
+        if any(launch_t.values()):
+            _fail(f"zoo-train {short} (b): a kernel ran with the twins "
+                  f"patched in: {launch_t}")
+        rel = abs(float(lb) - float(lt)) / abs(float(lt))
+        print(f"[zoo-train] {short} (b) bf16 kernels vs twins, remat on: "
+              f"loss {float(lb):.6g} vs {float(lt):.6g} (relative "
+              f"{rel:.3g}, tol {TRAIN_TOL['loss']}); the twins' step "
+              f"{ms_t:.6g} ms", flush=True)
+        if not rel <= TRAIN_TOL["loss"]:
+            _fail(f"zoo-train {short} (b): kernel and twin losses differ")
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        l32, _, g32, ms_32, _, _ = _twins_patched(
+            lambda: _train_step(cfg32, p32, batch, remat=True))
+        _compare_to_fp32(f"{short} (b) bf16", gb, gt, g32)
+        del gb, gt
+        lk32, _, gk32, ms_k32, launch_k32, _ = _train_step(cfg32, p32,
+                                                           batch, True)
+        rel = abs(float(lk32) - float(l32)) / abs(float(l32))
+        print(f"[zoo-train] {short} (b) fp32 kernels vs twins, remat on: "
+              f"loss {float(lk32)!r} vs {float(l32)!r} (relative {rel:.3g}, "
+              f"tol {TRAIN_TOL['fp32_loss']}); steps {ms_k32:.6g} / "
+              f"{ms_32:.6g} ms; launches {launch_k32}", flush=True)
+        if launch_k32 != _train_expected(cfg, n_tok, True):
+            _fail(f"zoo-train {short} (b): fp32 launches {launch_k32}")
+        if not rel <= TRAIN_TOL["fp32_loss"]:
+            _fail(f"zoo-train {short} (b): fp32 kernel and twin losses "
+                  f"differ")
+        _compare_grads(f"{short} (b) fp32 kernels vs twins", gk32, g32,
+                       TRAIN_TOL["fp32_grad"])
+        del gk32, g32, p32
+        rows = {}
+        bwd = _train_kernel_rows(short, cfg, got, rows)
+        del got
+        prof = _timed_train_steps(short, cfg, params, batch)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        losses, launches, by_variant, run = _train_run(
+            name, short, cfg, depth, batch_size)
+        if abs(losses[0] - float(lb)) > TRAIN_TOL["remat_loss"] * abs(
+                float(lb)):
+            _fail(f"zoo-train {short} (e): train()'s first loss "
+                  f"{losses[0]!r} is not the remat step's {float(lb)!r}")
+        for k in ARCH_LAUNCHERS:
+            if launches[k] == 0:
+                continue
+            timed = [x for x in rows.get(k, []) if "kernel_ms" in x[1]]
+            rec = _record_row(timed, launches[k], by_variant[k])
+            rec.update(**prof, train_wall_s=run["wall_s"],
+                       peak_gb=run["peak_gb"],
+                       backward_ms=bwd[k][0], backward_bound_ms=bwd[k][1])
+            paths.setdefault(k, {})[f"zoo_{short}_train"] = rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[zoo-train] {name}: {time.time() - t_arch:.1f} s",
+              flush=True)
+    print(f"[zoo-train] phase seconds {time.time() - t_phase:.1f}",
+          flush=True)
+    return paths
+
 def _record_row(rows, launches, by_variant):
     """A path's numbers; ``variant`` is the one its timed row took."""
     timed = [r for _, r in rows if "kernel_ms" in r][0]
@@ -2869,9 +3432,10 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
     ``cascade_sanitized`` those of phase 10 (a)'s depth-0 run under the
     determinism and retrace sanitizers (counted from zero over that
     run); ``zoo_<model>_prefill`` / ``zoo_<model>_decode`` the zoo-archs
-    phase's serving runs of each other architecture (``arch_paths``,
-    counted from zero over each; the timed ones with their numbers),
-    whose launches the totals include."""
+    phase's serving runs of each other architecture and
+    ``zoo_<model>_train`` the zoo-train phase's ``train()`` runs
+    (``arch_paths``, counted from zero over each; the timed ones with
+    their numbers), whose launches the totals include."""
     def split(counts, name, n):
         return counts[name]
 
@@ -2949,6 +3513,8 @@ def main():
     del params, prompts
     torch.cuda.empty_cache()
     _, arch_paths = phase_zoo_archs()
+    for name, train_paths in phase_zoo_train().items():
+        arch_paths.setdefault(name, {}).update(train_paths)
     print(json.dumps({"kernels": kernel_record(
         results, launches, by_variant, zoo_results, zoo_launches,
         zoo_by_variant, pipelined, admission, sanitized, arch_paths)}))

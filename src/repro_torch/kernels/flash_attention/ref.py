@@ -1,9 +1,10 @@
 """Plain PyTorch flash-attention twin: naive O(S^2) attention with explicit
 masks (written from ``repro.kernels.flash_attention.ref.attention_ref``).
 
-It is the CPU path of ``ops.flash_attention``, the differentiable
-attention of the ``tinytf_flash`` loss, and what ``chip_smoke.py``
-holds the CUDA kernel against on the card."""
+It is the CPU path of ``ops.flash_attention``, the backward of its CUDA
+path (``kernels.autograd``), the differentiable attention of the
+``tinytf_flash`` loss, and what ``chip_smoke.py`` holds the CUDA kernel
+against on the card."""
 from __future__ import annotations
 
 from typing import Optional

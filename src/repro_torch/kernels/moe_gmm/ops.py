@@ -1,15 +1,17 @@
 """Public grouped-matmul op (port of ``repro.kernels.moe_gmm.ops``):
 ``moe_gmm``.
 
-A CUDA tensor launches the hand-written kernel (or raises); a CPU tensor
-runs the plain twin ``ref.gmm_ref``.  There is no fall-back from one to
-the other.  The reference's ``block_*`` arguments are TPU tiling and
+A CUDA tensor launches the hand-written kernel (or raises), through
+``kernels.autograd`` when the call needs a gradient, whose backward is
+the twin's; a CPU tensor runs the plain twin ``ref.gmm_ref``.  There is
+no fall-back from one to the other.  The reference's ``block_*`` arguments are TPU tiling and
 ``interpret`` is Pallas's switch, so neither is taken here.  The expert
 SwiGLU FFN built from three of these products is
 ``models/moe.py`` ``_expert_ffn``.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.autograd import with_twin_grad
 from repro_torch.kernels.moe_gmm.kernel import moe_gmm_cuda
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
@@ -18,5 +20,5 @@ def moe_gmm(x, w):
     """Grouped matmul over capacity-bucketed expert tokens:
     x (E, C, D) x w (E, D, F) -> (E, C, F) in x's dtype."""
     if x.device.type != "cpu":
-        return moe_gmm_cuda(x, w)
+        return with_twin_grad(moe_gmm_cuda, gmm_ref, x, w)
     return gmm_ref(x, w)

@@ -1,8 +1,9 @@
 """Plain PyTorch grouped-matmul twin (written from
 ``repro.kernels.moe_gmm.ref``): ``gmm_ref``.
 
-The CPU path of ``ops.moe_gmm`` and the version ``chip_smoke.py`` holds
-the CUDA kernel against on the card."""
+The CPU path of ``ops.moe_gmm``, the backward of its CUDA path
+(``kernels.autograd``) and the version ``chip_smoke.py`` holds the CUDA
+kernel against on the card."""
 from __future__ import annotations
 
 import torch

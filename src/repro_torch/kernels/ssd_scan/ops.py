@@ -3,12 +3,18 @@
 The reference op's signature, plus ``init_state`` / ``return_state``
 (``models.ssm.ssd_chunked``'s contract, which the zoo's prefill needs
 from the kernel that replaces it).  A CUDA tensor launches the
-hand-written kernel (or raises); a CPU tensor runs the plain twin
-``ref.ssd_scan_chunked_ref``.  As in the reference, ``chunk`` is min'd
-to the sequence length, which must be a multiple of it.
+hand-written kernel (or raises), through ``kernels.autograd`` when the
+call needs a gradient: the backward is the twin's, to x, adt, dt, B, C
+and ``init_state``, through y and the final state alike.  A CPU tensor
+runs the plain twin ``ref.ssd_scan_chunked_ref``.  As in the reference,
+``chunk`` is min'd to the sequence length, which must be a multiple of
+it.
 """
 from __future__ import annotations
 
+import functools
+
+from repro_torch.kernels.autograd import with_twin_grad
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_chunked_ref
 
@@ -23,9 +29,22 @@ def ssd_scan(x, adt, dt, B, C, *, chunk: int = 256, init_state=None,
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
     if x.device.type != "cpu":
-        return ssd_scan_cuda(x, adt, dt, B, C, chunk=chunk,
-                             init_state=init_state,
-                             return_state=return_state)
+        return with_twin_grad(
+            functools.partial(_kernel, chunk=chunk,
+                              return_state=return_state),
+            functools.partial(_twin, chunk=chunk,
+                              return_state=return_state),
+            x, adt, dt, B, C, init_state)
+    return _twin(x, adt, dt, B, C, init_state, chunk=chunk,
+                 return_state=return_state)
+
+
+def _kernel(x, adt, dt, B, C, init_state, *, chunk, return_state):
+    return ssd_scan_cuda(x, adt, dt, B, C, chunk=chunk,
+                         init_state=init_state, return_state=return_state)
+
+
+def _twin(x, adt, dt, B, C, init_state, *, chunk, return_state):
     return ssd_scan_chunked_ref(x, adt, dt, B, C, chunk,
                                 init_state=init_state,
                                 return_state=return_state)

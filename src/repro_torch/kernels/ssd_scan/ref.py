@@ -5,8 +5,9 @@
   ((C B^T) * decay)(x dt) term, the inter-chunk read of the carried
   state, and the state update; optionally from an initial state, and
   returning the final one (``models.ssm.ssd_chunked``'s contract).  The
-  CPU path of ``ops.ssd_scan`` and the version ``chip_smoke.py`` holds
-  the kernel against.
+  CPU path of ``ops.ssd_scan``, the backward of its CUDA path
+  (``kernels.autograd``) and the version ``chip_smoke.py`` holds the
+  kernel against.
 * ``ssd_scan_ref`` — the sequential per-token recurrence, the
   ground-truth semantics both are tested against.
 * one twin per pass of the CUDA kernel's ``"parallel"`` variant —

@@ -12,7 +12,8 @@
 public ops, which launch the CUDA kernels on a CUDA tensor and run their
 plain twins on a CPU tensor; ``use_kernels=False`` (the imitation loss,
 ``*_loss_weighted``) runs the differentiable plain composition, as the
-reference does — the CUDA kernels have no backward.
+reference does — the CUDA kernels have no backward (an op that needs a
+gradient on the card differentiates its twin, ``kernels.autograd``).
 
 Shape/dtype contract (float32 activations):
   tokens : (B, L) int32 hashed ids from ``data.features.hash_ids``;

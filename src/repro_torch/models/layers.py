@@ -1,5 +1,5 @@
 """Shared layers (port of ``repro.models.layers``): initializers, norms,
-embeddings, the LM head and the dense MLP.
+embeddings, the LM head, the softmax cross-entropy and the dense MLP.
 
 Parameters are drawn from an explicit ``torch.Generator`` on the
 generator's own device, so a seed gives the same numbers on every call
@@ -125,6 +125,18 @@ def lm_logits(params, embed_params, x, cfg: ModelConfig):
         pad_mask = (torch.arange(v, device=x.device) >= cfg.vocab).float()
         logits = logits - 1e9 * pad_mask
     return logits
+
+
+def softmax_xent(logits, targets, mask=None):
+    """logits (..., V) fp32, targets (...) int; mean over ``mask`` (all
+    positions when None)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    losses = logz - gold
+    if mask is None:
+        return losses.mean()
+    mask = mask.float()
+    return (losses * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

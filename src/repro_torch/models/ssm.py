@@ -138,7 +138,8 @@ def ssd_chunked(x, adt, dt, Bmat, Cmat, chunk: int, init_state=None):
 
 def ssd_kernel(x, adt, dt, Bmat, Cmat, chunk: int, init_state=None):
     """``ssd_chunked``'s contract on ``kernels.ssd_scan``: the CUDA kernel
-    on a CUDA tensor, its plain twin on a CPU one (forward only)."""
+    on a CUDA tensor (differentiated through its plain twin,
+    ``kernels.autograd``), the plain twin on a CPU one."""
     return _ssd_padded(_kernel_scan, x, adt, dt, Bmat, Cmat, chunk,
                        init_state)
 

@@ -20,15 +20,25 @@ Public API (all functional: inputs are not modified):
   encode(params, frames, cfg)                  -> memory         (encdec)
   prefill(params, batch, cfg, cache_len)       -> (last_logits, cache)
   decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
+  train_loss(params, batch, cfg, remat, loss_chunk) -> (loss, metrics)
   cache_struct(cfg, batch, cache_len, memory_len) -> prefill's cache tree
                                                      on the meta device
 
 A batch carries the memory of a ``CROSS`` model beside its tokens: the
 encoder's ``frames`` (B, S_enc, d_model) or the vision stub's
 ``image_embeds`` (B, n_image_tokens, d_model), the modality front ends
-being the reference's sanctioned stubs.  ``train_loss`` and ``remat``
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 11; there is
-no mesh, so the reference's sharding constraints are dropped.
+being the reference's sanctioned stubs.  There is no mesh, so the
+reference's sharding constraints are dropped.
+
+Training: ``train_loss(params, batch, cfg, remat, loss_chunk)`` ->
+(loss, {"xent", "aux"}), differentiable with autograd.  The kernels
+compute forwards only; on the card each kernel op that needs a gradient
+launches its kernel and differentiates its plain twin
+(``kernels.autograd``), as the reference differentiates its plain
+composition.  ``remat`` checkpoints each period
+(``torch.utils.checkpoint``, non-reentrant: nothing inside a period is
+saved, the reference's ``nothing_saveable``), so its kernels launch again
+in the backward's recompute.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 import repro_torch.device  # noqa: F401  (IEEE fp32 products, no TF32)
 from repro_torch.configs.base import ATTN, CROSS, MAMBA, ModelConfig
@@ -45,15 +56,10 @@ from repro_torch.models.attention import (cross_attention, encoder_attention,
                                           ring_decode_attention, rope)
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed, init_embed, init_lm_head,
-    init_mlp, init_norm, lm_logits, param_device, rms_norm_headwise)
+    init_mlp, init_norm, lm_logits, param_device, rms_norm_headwise,
+    softmax_xent)
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
-
-_TRAIN_ITEM = "ROADMAP Queue 1 item 11: train_loss, remat and training"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet ({_TRAIN_ITEM})")
 
 
 # ---------------------------------------------------------------------------
@@ -352,13 +358,19 @@ def _stack(trees):
 
 def _stack_full(params_blocks, h, cfg: ModelConfig, memory, mode: str,
                 cache_len: int = 0, remat: bool = False):
-    if remat:
-        _not_ported("remat")
+    """Loop over periods; with ``remat`` each period is checkpointed and
+    recomputed in the backward (the blocks draw no random numbers, so
+    no RNG state is kept)."""
     aux = torch.zeros((), device=h.device)
     caches = []
     for i in range(_n_stacked(params_blocks)):
-        h, aux_i, c = _apply_period_full(_take(params_blocks, i), h, cfg,
-                                         memory, mode, cache_len)
+        args = (_take(params_blocks, i), h, cfg, memory, mode, cache_len)
+        if remat:
+            h, aux_i, c = checkpoint(_apply_period_full, *args,
+                                     use_reentrant=False,
+                                     preserve_rng_state=False)
+        else:
+            h, aux_i, c = _apply_period_full(*args)
         aux = aux + aux_i
         caches.append(c)
     return h, aux, _stack(caches)
@@ -395,22 +407,58 @@ def _memory_from_batch(params, batch, cfg: ModelConfig):
     return None
 
 
-def forward(params, batch, cfg: ModelConfig, remat: bool = False):
-    """Teacher-forced decoder forward.  Returns (logits, aux)."""
-    tokens = batch["tokens"]
+def _hidden_for_loss(params, batch, cfg: ModelConfig, remat: bool):
+    """The final norm's output (B, S, d_model) and the aux loss."""
     memory = _memory_from_batch(params, batch, cfg)
-    h = embed(params["embed"], tokens, cfg)
+    h = embed(params["embed"], batch["tokens"], cfg)
     h, aux, _ = _stack_full(params["blocks"], h, cfg, memory, mode="train",
                             remat=remat)
-    h = apply_norm(params["final_norm"], h, cfg)
+    return apply_norm(params["final_norm"], h, cfg), aux
+
+
+def forward(params, batch, cfg: ModelConfig, remat: bool = False):
+    """Teacher-forced decoder forward.  Returns (logits, aux)."""
+    h, aux = _hidden_for_loss(params, batch, cfg, remat)
     logits = lm_logits(params.get("lm_head", {}), params["embed"], h, cfg)
     return logits, aux
 
 
 def train_loss(params, batch, cfg: ModelConfig, remat: bool = True,
                loss_chunk: int = 0):
-    """Teacher-forced LM loss: not ported yet."""
-    _not_ported("train_loss")
+    """Teacher-forced LM loss.  Returns (xent + aux, {"xent", "aux"}).
+
+    ``loss_chunk`` > 0 computes the softmax cross-entropy in sequence
+    chunks, each checkpointed, so the (B, S, vocab) fp32 logits and
+    their gradient are never held at once; as in the reference it
+    averages over every token, so it takes no ``mask``."""
+    if loss_chunk <= 0:
+        logits, aux = forward(params, batch, cfg, remat=remat)
+        loss = softmax_xent(logits, batch["targets"], batch.get("mask"))
+        return loss + aux, {"xent": loss, "aux": aux}
+    if batch.get("mask") is not None:
+        raise ValueError("the chunked loss averages over every token; it "
+                         "takes no mask")
+    h, aux = _hidden_for_loss(params, batch, cfg, remat)
+    B, S, _ = h.shape
+    if S % loss_chunk:
+        raise ValueError(f"sequence {S} is not a multiple of loss_chunk "
+                         f"{loss_chunk}")
+    head = params.get("lm_head", {})
+
+    def chunk_loss(hb, tb):
+        logits = lm_logits(head, params["embed"], hb, cfg)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tb[..., None].long())[..., 0]
+        return torch.sum(logz - gold)
+
+    total = torch.zeros((), device=h.device)
+    for c0 in range(0, S, loss_chunk):
+        total = total + checkpoint(
+            chunk_loss, h[:, c0:c0 + loss_chunk],
+            batch["targets"][:, c0:c0 + loss_chunk], use_reentrant=False,
+            preserve_rng_state=False)
+    loss = total / (B * S)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: Optional[int] = None):

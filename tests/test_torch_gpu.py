@@ -34,8 +34,13 @@ restores on the CPU and routes the same.  Sanitizers: the determinism
 trace at depth 2 equals depth 0's on the card, state digests included,
 and the card's equals the CPU's on every field but the state; the model
 expert's W=4 pool runs clean under the lock sanitizer, which catches an
-unguarded ticket read.  Nothing here imports JAX (the GPU machine has
-none).
+unguarded ticket read.  Gradients: a CUDA call of flash, ``moe_gmm`` or
+the SSD scan that needs one launches the kernel once and returns
+autograd's gradient through the plain twin (within 1e-6 x max|twin
+grad|, at a small shape and at the training path's), one that needs
+none launches the kernel alone, decode attention raises under grad, and
+a smoke-config training step with remat on the card equals the CPU's.
+Nothing here imports JAX (the GPU machine has none).
 """
 import numpy as np
 import pytest
@@ -1104,3 +1109,153 @@ def test_lock_sanitizer_on_the_card_pool(cuda, sanitizers):
     assert sanitizers.lock_order_violations() == []
     with pytest.raises(sanitizers.LockSanitizerError):
         ExpertTicket(labels=np.array([1]))._shards
+
+
+# ---------------------------------------------------------------------------
+# gradients: the kernels' forwards carry their plain twins' gradients
+# ---------------------------------------------------------------------------
+def _grad_case(op, size):
+    """(op on the card, its twin, the kernel's counter, inputs needing a
+    gradient) at a small shape or at the training path's: internlm2-1.8b's
+    attention (B 4 x S 2048, 16 / 8 heads of 128, bf16), mixtral-8x22b's
+    expert projection (one group of 2048 tokens: capacity 640, d_model
+    6144 x d_ff 16384, bf16), mamba2-370m's SSD (B 4 x S 2048, 32 heads
+    of 64, state 128, chunk 256)."""
+    import functools
+    from repro_torch.kernels.flash_attention.ops import _twin as flash_twin
+    from repro_torch.kernels.ssd_scan.ops import _twin as ssd_twin
+    gen = torch.Generator().manual_seed(7)
+    path = size == "path"
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * _randn(gen, *shape)).to(dtype).requires_grad_()
+
+    if op == "flash":
+        B, S, H, K, hd, dt, win = ((4, 2048, 16, 8, 128, torch.bfloat16,
+                                    None) if path else
+                                   (2, 48, 4, 2, 32, torch.float32, 20))
+        fn = functools.partial(flash_attention, causal=True, window=win)
+        twin = functools.partial(flash_twin, causal=True, window=win,
+                                 sm_scale=hd ** -0.5)
+        return fn, twin, flash_attention_cuda, (
+            rnd(B, S, H, hd, dtype=dt), rnd(B, S, K, hd, dtype=dt),
+            rnd(B, S, K, hd, dtype=dt))
+    if op == "moe_gmm":
+        E, C, D, F, dt = ((8, 640, 6144, 16384, torch.bfloat16) if path
+                          else (3, 10, 64, 48, torch.float32))
+        return moe_gmm, gmm_ref, moe_gmm_cuda, (
+            rnd(E, C, D, dtype=dt), rnd(E, D, F, dtype=dt, scale=D ** -0.5))
+    Bsz, S, H, hp, N, L = ((4, 2048, 32, 64, 128, 256) if path
+                           else (2, 128, 3, 16, 8, 64))
+    fn = functools.partial(ssd_scan, chunk=L, return_state=True)
+    twin = functools.partial(ssd_twin, chunk=L, return_state=True)
+    dt = 0.1 * torch.rand((Bsz, S, H), generator=gen)
+    adt = (-dt * torch.arange(1, H + 1)).cuda().requires_grad_()
+    ins = (rnd(Bsz, S, H, hp), adt, dt.cuda().requires_grad_(),
+           rnd(Bsz, S, N), rnd(Bsz, S, N), rnd(Bsz, H, hp, N, scale=0.1))
+    return (lambda x, a, d, b, c, h0: fn(x, a, d, b, c, init_state=h0),
+            twin, ssd_scan_cuda, ins)
+
+
+def _backward(outs, inputs):
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator().manual_seed(8)
+    ups = [_randn(gen, *o.shape).to(o.dtype) for o in outs]
+    return torch.autograd.grad(outs, inputs, ups)
+
+
+@pytest.mark.parametrize("size", ["small", "path"])
+@pytest.mark.parametrize("op", ["flash", "moe_gmm", "ssd"])
+def test_kernel_op_gradient_is_the_twins(cuda, op, size):
+    """A CUDA call that needs a gradient launches the kernel once (its
+    output is the kernel's, still on the graph) and its gradient to every
+    input (the SSD's through y and the final state) is autograd's through
+    the twin on the same inputs, within 1e-6 x max|twin grad| (the same
+    operations on the same inputs)."""
+    fn, twin, launcher, inputs = _grad_case(op, size)
+    n0 = launcher.launches
+    out = fn(*inputs)
+    torch.cuda.synchronize()
+    assert launcher.launches == n0 + 1
+    with torch.no_grad():
+        plain_out = fn(*inputs)
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.grad_fn is not None
+    assert torch.equal(first, plain_out[0] if isinstance(out, tuple)
+                       else plain_out)
+    got = _backward(out, inputs)
+    torch.cuda.synchronize()
+    assert launcher.launches == n0 + 2       # the backward launches none
+    want = _backward(twin(*inputs), inputs)
+    for g, w, x in zip(got, want, inputs):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        scale = float(w.float().abs().max())
+        assert scale > 0
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=1e-6 * scale)
+
+
+def test_decode_attention_raises_under_grad(cuda):
+    gen = torch.Generator().manual_seed(9)
+    q = _randn(gen, 2, 1, 4, 32).requires_grad_()
+    kv = _randn(gen, 2, 16, 2, 32)
+    pos = torch.arange(16, dtype=torch.int32, device="cuda")
+    n0 = decode_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="decode_attention has no "
+                                           "gradient"):
+        decode_attention(q, kv, kv, pos)
+    assert decode_attention_cuda.launches == n0
+    with torch.no_grad():
+        out = decode_attention(q, kv, kv, pos)
+    assert out.grad_fn is None and decode_attention_cuda.launches == n0 + 1
+
+
+@pytest.mark.parametrize("op", ["flash", "moe_gmm", "ssd"])
+def test_kernel_op_without_grad_launches_the_kernel_alone(cuda, op):
+    """No gradient needed (grad mode off, or detached inputs): one launch
+    and the kernel's output, off the graph."""
+    fn, _, launcher, inputs = _grad_case(op, "small")
+    n0 = launcher.launches
+    with torch.no_grad():
+        a = fn(*inputs)
+    b = fn(*(t.detach() for t in inputs))
+    torch.cuda.synchronize()
+    assert launcher.launches == n0 + 2
+    a, b = (a[0], b[0]) if isinstance(a, tuple) else (a, b)
+    assert a.grad_fn is None and b.grad_fn is None and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mixtral-8x22b",
+                                  "mamba2-370m"])
+def test_zoo_smoke_train_step_on_the_card_like_the_cpu(cuda, arch):
+    """One ``train_loss`` step of the smoke config in fp32, remat on: the
+    card (kernel forwards, twin backwards) against the CPU (twins) from
+    the same weights: loss within 1e-5 relative, every gradient leaf
+    within 1e-4 x max|CPU leaf| (fp32 in another order), and the kernels
+    launched twice a layer (forward and recompute)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    p_cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    b = next(lm_batches(cfg.vocab, 2, 64, 1, seed=0))
+    b_cpu = {k: torch.from_numpy(v) for k, v in b.items()}
+    counters = (flash_attention_cuda, moe_gmm_cuda, ssd_scan_cuda)
+    n0 = [c.launches for c in counters]
+    lg, _, gg = loss_and_grads(p_gpu, {k: v.cuda() for k, v in
+                                       b_cpu.items()}, cfg, remat=True)
+    torch.cuda.synchronize()
+    moved = [c.launches - n for c, n in zip(counters, n0)]
+    lc, _, gc = loss_and_grads(p_cpu, b_cpu, cfg, remat=True)
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for g, c in zip(tree_leaves(gg), tree_leaves(gc)):
+        torch.testing.assert_close(g.cpu(), c, rtol=0,
+                                   atol=1e-4 * float(c.abs().max()))
+    n_attn = cfg.n_periods * cfg.period.count("attn")
+    n_mamba = cfg.n_periods * cfg.period.count("mamba")
+    n_moe = cfg.n_periods * len(cfg.moe_period_idx) if cfg.moe else 0
+    assert moved == [2 * n_attn, 2 * 3 * n_moe, 2 * n_mamba]

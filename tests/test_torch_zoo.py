@@ -389,14 +389,25 @@ def test_init_params_shapes_dtypes_and_stds():
     assert {t.device.type for t in tree_leaves(meta)} == {"meta"}
 
 
-def test_unported_blocks_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        t_tf.train_loss({}, {}, get_smoke_config(ARCH))
-    params = t_tf.init_params(torch.Generator().manual_seed(0),
-                              _fp32(get_smoke_config(ARCH)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        t_tf.forward(params, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                     _fp32(get_smoke_config(ARCH)), remat=True)
+def test_train_loss_and_remat_run_on_the_smoke_config():
+    """``train_loss`` (remat on, its default) gives a finite loss whose
+    gradient reaches every leaf, and ``forward(remat=True)`` is bitwise
+    ``forward(remat=False)`` (the parity with the reference's loss and
+    gradients: ``tests/test_torch_train.py``)."""
+    cfg = _fp32(get_smoke_config(ARCH))
+    params = t_tf.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = next(lm_batches(cfg.vocab, 2, 16, 1, seed=1))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    loss, metrics = t_tf.train_loss(params, batch, cfg)
+    assert bool(torch.isfinite(loss)) and float(metrics["aux"].detach()) > 0
+    loss.backward()
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in leaves)
+    with torch.no_grad():
+        plain, aux = t_tf.forward(params, batch, cfg)
+        remat, raux = t_tf.forward(params, batch, cfg, remat=True)
+    assert torch.equal(plain, remat) and torch.equal(aux, raux)
 
 
 def test_cross_smoke_model_initialises_and_encodes():
