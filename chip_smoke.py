@@ -236,7 +236,25 @@ Phases (any failure exits non-zero and prints no result line):
      step, tokens/s; (e) its first loss the remat step's and its last
      below its first; (f) the checkpoint read back bit-exact against the
      parameters ``train`` wrote (recorded by wrapping its
-     ``save_checkpoint``).
+     ``save_checkpoint``);
+  13. dryrun: ``repro_torch.launch.dryrun.dryrun_one`` on the card for
+     internlm2-1.8b x all four shapes, mamba2-370m x prefill_32k /
+     train_4k / decode_32k, mixtral-8x22b x prefill_32k / decode_32k,
+     seamless-m4t-medium x prefill_32k and llama-3.2-vision-11b x
+     decode_32k (all four kernels launch): each step counted on
+     ``meta`` at full width at the probes (2 and 3 periods x batch 1
+     and 2) and extended along the bilinear law; each probe run on the
+     card with seeded weights (warm-up, a run under the counter, 3 timed
+     runs) and held to its ``meta`` count (``dryrun.AGREE``): (a) FLOPs
+     by dtype and launches by variant equal, bytes within 1%; (b)
+     ``max_memory_allocated`` within 5% + 256 MiB of the counted peak;
+     (c) the bound's share of the measured time at most 1.05; the
+     launchers' counts over the pair equal the probes' counted launches
+     x runs; (d) the record read by ``benchmarks/roofline_report.py``
+     ``fmt_table``.  Then the bounds of what phases 11 and 12 measured
+     (each model's prefill of 2 x 2048, its decode step over that
+     cache, each training step), counted on ``meta``, printed beside
+     the times measured in this run as the share.
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade, Mixtral and
 zoo-archs serving runs, each counted from zero, ``launches_by_variant``
@@ -255,7 +273,8 @@ run, ``zoo_<model>_prefill`` / ``zoo_<model>_decode`` phase 11's runs
 ``zoo_<model>_train`` phase 12's ``train()`` runs (8 steps with remat:
 the launches, the timed row at the step's shapes, the step's ms,
 tokens/s, profiled busy and idle share, peak GB, and the twin
-backward's ms beside its bound);
+backward's ms beside its bound), and ``dryrun_<model>_<shape>`` phase
+13's runs of each pair (the launches over its probes, by variant);
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -275,9 +294,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-PEAK_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
-PEAK_FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-PEAK_BF16_FLOP_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 # SSD: 1e-3 scaled by the plain output's largest magnitude when that is
 # below 1 (the served students' SSD outputs are ~1e-4; an absolute 1e-3
 # would pass a kernel that returned zeros)
@@ -363,6 +379,7 @@ from repro_torch.kernels.ssd_scan.kernel import (  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_cb_ref, ssd_chunk_scan_ref, ssd_chunk_state_ref, ssd_scan_chunked_ref,
     ssd_state_pass_ref)
+from repro_torch.metrics import roofline  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 LAUNCHERS = {"flash_attention": flash_attention_cuda,
@@ -423,7 +440,9 @@ def decode_library(q, k, v, pos):
 
 # ---------------------------------------------------------------------------
 # analytic bounds: max(bytes / HBM rate, FLOPs / peak rate of the dtype:
-# fp32 outside the tensor cores, bf16 dense tensor cores)
+# fp32 outside the tensor cores, bf16 dense tensor cores), from the cost
+# functions the kernel ops report to the dry-run's counter
+# (``repro_torch.metrics.roofline``, the H100 SXM data sheet's rates)
 # ---------------------------------------------------------------------------
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
@@ -431,62 +450,33 @@ def _nbytes(*ts):
 
 def _bound(nbytes, flops, dtype=torch.float32):
     """max(bytes / HBM rate, FLOPs / the peak rate of ``dtype``), in ms."""
-    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
-        else PEAK_FP32_FLOP_PER_S
-    tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / peak * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
+    return roofline.kernel_bound(nbytes, flops, dtype)
 
 
 def flash_flops(q, k, causal=True, window=None):
-    """q.k and p.v over the (query, key) pairs the masks keep."""
-    B, Sq, H, hd = q.shape
-    Skv = k.shape[1]
-    qp = torch.arange(Sq)[:, None]
-    kp = torch.arange(Skv)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool)
-    if causal:
-        mask &= kp <= qp
-    if window is not None:
-        mask &= kp > qp - window
-    return B * H * int(mask.sum()) * 4 * hd
+    return roofline.flash_flops(q.shape, k.shape[1], causal, window)
 
 
 def flash_bound(q, k, v, causal=True, window=None):
-    return _bound(_nbytes(q, k, v, q), flash_flops(q, k, causal, window),
-                  q.dtype)
+    return roofline.flash_cost(q.shape, k.shape, q.dtype, causal,
+                               window).bound_ms()
 
 
 def decode_bound(q, k, v, pos):
-    B, _, H, hd = q.shape
-    W, K = k.shape[1], k.shape[2]
+    """K / V of the slots this data needs (valid positions) only."""
+    B, W = q.shape[0], k.shape[1]
     if pos.ndim == 1:
         pos = pos[None].expand(B, W)
-    valid = int((pos >= 0).sum())                 # slots this data needs
-    kv_bytes = 2 * valid * K * hd * k.element_size()
-    flops = valid * H * 4 * hd
-    return _bound(_nbytes(q, pos, q) + kv_bytes, flops, q.dtype)
+    return roofline.decode_cost(q.shape, k.shape, q.dtype,
+                                int((pos >= 0).sum())).bound_ms()
 
 
 def ssd_bound(x, adt, dt, B, C, chunk):
-    """B and C are shared by the heads: C B^T once per (batch, chunk);
-    per head the decay-masked scores times x, the inter-chunk read and
-    the state update."""
-    Bsz, S, H, hp = x.shape
-    N = B.shape[-1]
-    L = chunk
-    tri = L * (L + 1) // 2
-    per_head = 2 * tri * hp + 2 * L * hp * N + 2 * hp * N * L
-    flops = Bsz * (S // L) * (2 * tri * N + H * per_head)
-    return _bound(_nbytes(x, adt, dt, B, C, x), flops)
+    return roofline.ssd_cost(x.shape, B.shape[-1], chunk).bound_ms()
 
 
 def gmm_bound(x, w):
-    """Dense grouped product: every capacity row is computed."""
-    E, C, D = x.shape
-    F = w.shape[2]
-    out_bytes = E * C * F * x.element_size()
-    return _bound(_nbytes(x, w) + out_bytes, 2 * E * C * D * F, x.dtype)
+    return roofline.gmm_cost(x.shape, w.shape, x.dtype).bound_ms()
 
 
 # ---------------------------------------------------------------------------
@@ -2828,7 +2818,7 @@ def phase_zoo_archs():
     import gc
     from repro_torch.models import transformer as tfm
     t_phase = time.time()
-    results, paths = {}, {}
+    results, paths, measured = {}, {}, {}
     for name, short, depth in ZOO_ARCHS:
         t_arch = time.time()
         cfg, cut = _arch_config(name, depth)
@@ -2844,6 +2834,7 @@ def phase_zoo_archs():
               f"built in {time.time() - t_arch:.2f} s", flush=True)
         got = _capture_arch_inputs(cfg, params, batch)
         launches, by_variant, m = _arch_serve(cfg, params, batch)
+        measured[name] = (cfg, batch["tokens"].shape[1], m)
         phase_zoo_profile(cfg, params, batch, n_decode=2,
                           tag=f"zoo-archs {short}")
         rows = {}
@@ -2875,7 +2866,7 @@ def phase_zoo_archs():
               flush=True)
     print(f"[zoo-archs] phase seconds {time.time() - t_phase:.1f}",
           flush=True)
-    return results, paths
+    return results, paths, measured
 
 
 # ---------------------------------------------------------------------------
@@ -3291,14 +3282,15 @@ def phase_zoo_train():
     kernels against their plain versions at the step's
     shapes, and their backwards timed; one profiled step; (e) and (f)
     through ``launch.train.train``.  Returns the record's
-    ``zoo_<model>_train`` paths."""
+    ``zoo_<model>_train`` paths and each model's (config, batch, ms a
+    whole step)."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batches
     from repro_torch.launch.train import model_config
     from repro_torch.models import transformer as tfm
     t_phase = time.time()
-    paths = {}
+    paths, measured = {}, {}
     for name, short, depth, batch_size in ZOO_TRAIN:
         t_arch = time.time()
         cfg = model_config(name, smoke=False, layers=depth)
@@ -3376,6 +3368,7 @@ def phase_zoo_train():
         bwd = _train_kernel_rows(short, cfg, got, rows)
         del got
         prof = _timed_train_steps(short, cfg, params, batch)
+        measured[name] = (cfg, batch_size, prof["step_ms"])
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -3400,7 +3393,167 @@ def phase_zoo_train():
               flush=True)
     print(f"[zoo-train] phase seconds {time.time() - t_phase:.1f}",
           flush=True)
+    return paths, measured
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the one-card dry-run's probes on the card (phase 13)
+# ---------------------------------------------------------------------------
+# (arch, short name, shape): between them all four kernels launch
+DRYRUN_PAIRS = (
+    ("internlm2-1.8b", "internlm2", "train_4k"),
+    ("internlm2-1.8b", "internlm2", "prefill_32k"),
+    ("internlm2-1.8b", "internlm2", "decode_32k"),
+    ("internlm2-1.8b", "internlm2", "long_500k"),
+    ("mamba2-370m", "mamba2", "prefill_32k"),
+    ("mamba2-370m", "mamba2", "train_4k"),
+    ("mamba2-370m", "mamba2", "decode_32k"),
+    ("mixtral-8x22b", "mixtral", "prefill_32k"),
+    ("mixtral-8x22b", "mixtral", "decode_32k"),
+    ("seamless-m4t-medium", "seamless", "prefill_32k"),
+    ("llama-3.2-vision-11b", "vision", "decode_32k"),
+)
+DRYRUN_REPS = 3           # timed runs a probe (their median), after a
+#                           warm-up and the counted run: 2 + DRYRUN_REPS
+
+
+def _roofline_report():
+    """``benchmarks/roofline_report.py`` (stdlib only), loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "roofline_report", ROOT / "benchmarks" / "roofline_report.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dryrun_pair(dryrun, report, arch, short, shape):
+    """One (arch, shape) through ``dryrun_one`` on the card, its launches
+    counted from zero: checks (a)-(c) on each probe that ran
+    (``dryrun.probe_problems``, tolerances ``dryrun.AGREE``), the
+    launchers' counts against the probes' counted launches x runs, and
+    (d) the record through ``roofline_report.fmt_table``."""
+    t0 = time.time()
+    for fn in ARCH_LAUNCHERS.values():
+        fn.launches = 0
+    _zero_variant_counts()
+    rec = dryrun.dryrun_one(arch, shape, device="cuda", reps=DRYRUN_REPS,
+                            verbose=False)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in ARCH_LAUNCHERS.items()}
+    by_variant = {n: c for n, c in _variant_counts().items()
+                  if n in ARCH_LAUNCHERS}
+    want = {n: 0 for n in ARCH_LAUNCHERS}
+    for row in rec["probes"]:
+        tag = f"{short} {shape} P={row['periods']} B={row['batch']}"
+        if "ms" not in row:
+            print(f"[dryrun] {tag}: {row.get('skipped', 'not run')}",
+                  flush=True)
+            continue
+        print(f"[dryrun] {tag}: {row['ms']:.6g} ms, bound "
+              f"{1e3 * row['bound_s']:.6g} ms (share {row['share']:.4g}); "
+              f"peak {row['peak_bytes'] / 1e9:.6g} GB measured / "
+              f"{row['counted_peak_bytes'] / 1e9:.6g} counted; bytes "
+              f"{row['bytes_accessed']:.6g} / "
+              f"{row['counted_bytes_accessed']:.6g}; FLOPs and launches "
+              f"equal: {row['count_equal']}",
+              flush=True)
+        bad = dryrun.probe_problems(row)
+        if bad:
+            _fail(f"dryrun {tag}: {bad}")
+        for k, n in row["card_count"].items():
+            if k.startswith("launches:"):
+                want[k.split(":")[1]] += (2 + DRYRUN_REPS) * n
+    if launches != want:
+        _fail(f"dryrun {short} {shape}: the launchers counted {launches}, "
+              f"the probes' counts x runs imply {want}")
+    table = report.fmt_table([rec])
+    m = rec.get("measured") or {}
+    print(f"[dryrun] {short} {shape} ({rec['extrapolated']}): bound "
+          f"{rec['roofline']['bound_s']:.6g} s ({rec['roofline']['dominant']}"
+          f"), floor {rec['roofline']['memory_floor_s']:.6g} s, hbm "
+          f"{rec['hbm_per_device_gb']:.6g} GB, fits {rec['fits_hbm']}; "
+          f"extended from the probes: {m.get('ms')} ms, share "
+          f"{m.get('share')}, peak {m.get('peak_bytes')} measured / "
+          f"{m.get('counted_peak_bytes')} counted"
+          f"{'; ' + m['note'] if m.get('note') else ''}; launches "
+          f"{by_variant}; {time.time() - t0:.1f} s\n{table}", flush=True)
+    return rec, launches, by_variant
+
+
+def _zoo_bounds(dryrun, arch_measured, train_measured):
+    """The bounds of what phases 11 and 12 measured, counted on ``meta``
+    at the same configs and shapes: each model's prefill of 2 prompts
+    (2048 tokens; seamless 256 under 2048 frames, the vision model's
+    1600 image embeddings), one decode step over the prompt's cache,
+    and each training step (remat, AdamW); each beside the time phase 11
+    or 12 measured in this run, as the share bound / measured."""
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import transformer as tfm
+    rows = []
+
+    def decode_build(S, mem):
+        def build(c):
+            tokens = torch.empty((ZOO_BATCH, 1), dtype=torch.int32,
+                                 device="meta")
+            return dryrun.make_decode_step(c), (
+                tfm.init_params(None, c),
+                tfm.cache_struct(c, ZOO_BATCH, S, memory_len=mem), tokens, S)
+        return build
+
+    for name, (cfg, S, m) in arch_measured.items():
+        pre = InputShape("prefill", "prefill", ZOO_PROMPT, ZOO_BATCH)
+        mem = ZOO_PROMPT if cfg.encoder is not None else (
+            cfg.n_image_tokens if cfg.vision_stub else 0)
+        for what, build, ms in (
+                ("prefill", lambda c: dryrun.build_step(c, pre, "meta"),
+                 m["prefill_ms"]),
+                ("decode step", decode_build(S, mem),
+                 m["decode_ms_per_step"])):
+            b = dryrun.bound_s(dryrun.count_extended(cfg, build))
+            rows.append((name, what, b * 1e3, ms))
+    for name, (cfg, batch, ms) in train_measured.items():
+        sh = InputShape("train", "train", TRAIN_SEQ, batch)
+        b = dryrun.bound_s(dryrun.count_extended(
+            cfg, lambda c: dryrun.build_step(c, sh, "meta")))
+        rows.append((name, f"train step {batch}x{TRAIN_SEQ}", b * 1e3, ms))
+    for name, what, b, ms in rows:
+        print(f"[dryrun] zoo bound: {name} {what}: bound {b:.6g} ms, "
+              f"measured {ms:.6g} ms, share {b / ms:.4g}", flush=True)
+    return rows
+
+
+def phase_dryrun(arch_measured, train_measured):
+    """Phase 13: ``launch/dryrun.py``'s probes on the card for
+    DRYRUN_PAIRS, each checked (a)-(d), and the end-to-end bounds of
+    phases 11 and 12.  Returns the record's ``dryrun_<model>_<shape>``
+    paths."""
+    from repro_torch.launch import dryrun
+    t_phase = time.time()
+    report = _roofline_report()
+    paths, recs = {}, []
+    for arch, short, shape in DRYRUN_PAIRS:
+        rec, launches, by_variant = _dryrun_pair(dryrun, report, arch,
+                                                 short, shape)
+        recs.append(rec)
+        for k, n in launches.items():
+            if n:
+                paths.setdefault(k, {})[f"dryrun_{short}_{shape}"] = {
+                    "launches": n, "launches_by_variant": by_variant[k]}
+        _free_card()
+    print(report.fmt_table(recs), flush=True)
+    missing = [k for k in ARCH_LAUNCHERS if k not in paths]
+    if missing:
+        _fail(f"dryrun: no probe launched {missing}")
+    _zoo_bounds(dryrun, arch_measured, train_measured)
+    print(f"[dryrun] phase seconds {time.time() - t_phase:.1f}", flush=True)
     return paths
+
+
+def _free_card():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 def _record_row(rows, launches, by_variant):
     """A path's numbers; ``variant`` is the one its timed row took."""
@@ -3433,7 +3586,8 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
     determinism and retrace sanitizers (counted from zero over that
     run); ``zoo_<model>_prefill`` / ``zoo_<model>_decode`` the zoo-archs
     phase's serving runs of each other architecture and
-    ``zoo_<model>_train`` the zoo-train phase's ``train()`` runs
+    ``zoo_<model>_train`` the zoo-train phase's ``train()`` runs and
+    ``dryrun_<model>_<shape>`` the dryrun phase's probes of each pair
     (``arch_paths``, counted from zero over each; the timed ones with
     their numbers), whose launches the totals include."""
     def split(counts, name, n):
@@ -3512,9 +3666,12 @@ def main():
     phase_zoo_checks(cfg, params, prompts)
     del params, prompts
     torch.cuda.empty_cache()
-    _, arch_paths = phase_zoo_archs()
-    for name, train_paths in phase_zoo_train().items():
-        arch_paths.setdefault(name, {}).update(train_paths)
+    _, arch_paths, arch_measured = phase_zoo_archs()
+    train_paths, train_measured = phase_zoo_train()
+    for name, p in train_paths.items():
+        arch_paths.setdefault(name, {}).update(p)
+    for name, p in phase_dryrun(arch_measured, train_measured).items():
+        arch_paths.setdefault(name, {}).update(p)
     print(json.dumps({"kernels": kernel_record(
         results, launches, by_variant, zoo_results, zoo_launches,
         zoo_by_variant, pipelined, admission, sanitized, arch_paths)}))

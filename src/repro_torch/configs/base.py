@@ -10,6 +10,7 @@ student drives ``models/ssm.py`` through the same class.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -95,6 +96,9 @@ class ModelConfig:
     act: str = "swiglu"              # swiglu | gelu
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    # Sliding-window override applied to *full-attention* layers for the
+    # long_500k shape (the assignment's sub-quadratic variant).
+    long_context_window: int = 8192
     source: str = ""                 # citation
 
     def __post_init__(self):
@@ -111,6 +115,68 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         """The parameter/activation dtype as a ``torch.dtype``."""
         return getattr(torch, self.dtype)
+
+    def with_window(self, window: int) -> "ModelConfig":
+        """Return a copy whose attention layers use a sliding window."""
+        if self.attn is None:
+            return self
+        return dataclasses.replace(
+            self, attn=dataclasses.replace(self.attn, window=window))
+
+    def param_count(self) -> int:
+        """Total parameters (embedding + blocks + head + encoder)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        total = v * d                      # embedding
+        if not self.tie_embeddings:
+            total += v * d                 # lm head
+        per_period = 0
+        for i, kind in enumerate(self.period):
+            if kind in (ATTN, CROSS):
+                a = self.attn
+                qkv = (d * a.n_heads * a.head_dim
+                       + 2 * d * a.n_kv_heads * a.head_dim)
+                out = a.n_heads * a.head_dim * d
+                per_period += qkv + out
+                if kind == CROSS:          # second attention projection set
+                    per_period += qkv + out
+            elif kind == MAMBA:
+                s = self.ssm
+                d_in = s.expand * d
+                n_h = d_in // s.head_dim
+                # in_proj -> [z, x, B, C, dt], conv, A, D, out_proj
+                per_period += d * (2 * d_in + 2 * s.d_state + n_h)
+                per_period += s.d_conv * (d_in + 2 * s.d_state)
+                per_period += 2 * n_h
+                per_period += d_in * d
+            # FFN
+            if i in self.moe_period_idx and self.moe is not None:
+                m = self.moe
+                per_period += m.num_experts * (3 * d * m.d_ff_expert)
+                per_period += d * m.num_experts          # router
+            elif f > 0:
+                n_mats = 3 if self.act == "swiglu" else 2
+                per_period += n_mats * d * f
+            per_period += 2 * d                          # norms
+        total += per_period * self.n_periods
+        if self.encoder is not None:
+            # encoder blocks: self-attn + ffn
+            a = self.attn
+            enc_block = (d * a.n_heads * a.head_dim
+                         + 2 * d * a.n_kv_heads * a.head_dim
+                         + a.n_heads * a.head_dim * d
+                         + (3 if self.act == "swiglu" else 2) * d * f + 2 * d)
+            total += enc_block * self.encoder.n_layers
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters active per token (MoE: top_k of num_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive_per_moe_layer = ((m.num_experts - m.top_k) * 3
+                                  * self.d_model * m.d_ff_expert)
+        n_moe_layers = len(self.moe_period_idx) * self.n_periods
+        return self.param_count() - inactive_per_moe_layer * n_moe_layers
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,12 @@ Each package ships three files, as in the reference:
               its launch counter)
   ops.py    — the public op with the reference's signature (less
               ``moe_gmm``'s TPU tiling arguments): a CUDA tensor launches
-              the kernel or raises, a CPU tensor runs the plain twin
+              the kernel or raises, a CPU tensor runs the plain twin, a
+              ``meta`` tensor (the dry-run's count) runs the kernel's
+              shape function (``*_meta`` in ``kernel.py``: the
+              launcher's checks, variant, outputs and scratch, no data
+              and no launch; no fall-back, since a ``meta`` tensor holds
+              nothing to compute on)
   ref.py    — the plain PyTorch twin, held against the JAX ``ref.py`` on
               the CPU and against the kernel on the card
 
@@ -23,7 +28,10 @@ wgmma fed by TMA; Hopper building blocks in ``csrc/sm90.cuh``) and
 cannot read); flash attention also ``"tiled"`` (fp32 register tiles).
 The SSD scan has ``"whole"`` (a chunk of up to 64 tokens) and
 ``"parallel"`` (four chunk-parallel passes, the zoo's chunk 256).
-``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.  Every TPU
+``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.  Each
+launch, on the card or in a ``meta`` shape function, reports its variant
+and its cost (``metrics.roofline``) to the active
+``metrics.cost.CostCounter``.  Every TPU
 kernel of the reference has its counterpart here: the first three serve
 the cascade's kernel ladder, all but the SSD scan the zoo's
 Mixtral-8x22B, and the SSD scan the zoo's MAMBA blocks

@@ -8,7 +8,12 @@ is the ``"single"`` variant (one launch that writes the output); more
 are ``"split"`` (partials, then a combine kernel).
 ``decode_attention_cuda.launches`` counts calls of the op (one per decode
 attention, whatever the variant) and nothing else;
-``decode_attention_cuda.launches_by_variant`` splits that count."""
+``decode_attention_cuda.launches_by_variant`` splits that count.
+``decode_attention_meta`` is the same call on the ``meta`` device
+(checks, split, output and scratch, no launch).  Both report each launch,
+its variant and its cost (``metrics.roofline.decode_cost``, every slot
+counted: the count cannot read the positions) to the active
+``metrics.cost.CostCounter``."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
@@ -16,6 +21,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.metrics.cost import report_kernel
+from repro_torch.metrics.roofline import decode_cost
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP_DIMS = 2048      # (H / K) * hd: the kernel's per-block outputs
@@ -48,18 +55,13 @@ def select_variant(B: int, K: int, W: int, n_sm: int = H100_SMS) -> str:
     return "split" if num_splits(B, K, W, n_sm) > 1 else "single"
 
 
-def decode_attention_cuda(q, k, v, pos, *, sm_scale: Optional[float] = None,
-                          n_split: Optional[int] = None) -> torch.Tensor:
-    """q: (B, 1, H, hd); k, v: (B, W, K, hd); pos: (B, W) int32 (-1 =
-    empty slot; a zero batch stride from ``expand`` is fine).  CUDA
-    tensors, fp32 or bf16 of one dtype, any strides.  ``n_split``: blocks
-    along the cache, ``num_splits``'s choice when None (a count is for
-    measuring the split's trade-off).  Returns a contiguous (B, 1, H, hd)
-    tensor of q's dtype."""
+def _plan(q, k, v, pos, n_split):
+    """The checks, the split, the variant, the output and the scratch of
+    one call: what the launcher and the ``meta`` shape function share.
+    Returns (variant, n_split, split_len, o, scratch), variant None when
+    nothing is launched (no query or no slot)."""
     B, _, H, hd = q.shape
     W, K = k.shape[1], k.shape[2]
-    if not all(t.is_cuda for t in (q, k, v, pos)):
-        raise ValueError("decode_attention_cuda takes CUDA tensors")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode_attention_cuda takes fp32 or bf16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -73,10 +75,9 @@ def decode_attention_cuda(q, k, v, pos, *, sm_scale: Optional[float] = None,
     G = H // K
     if G * hd > MAX_GROUP_DIMS:
         raise ValueError(f"(H/K)*hd = {G * hd} > {MAX_GROUP_DIMS}")
-    sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
     o = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     if o.numel() == 0 or W == 0:
-        return o.zero_() if W == 0 else o
+        return None, 0, 0, (o.zero_() if W == 0 else o), None
     if n_split is None:
         n_split = num_splits(B, K, W)
     if not 1 <= n_split <= W:
@@ -89,6 +90,31 @@ def decode_attention_cuda(q, k, v, pos, *, sm_scale: Optional[float] = None,
     rows = B * K * n_split * G if n_split > 1 else 0
     scratch = torch.empty(rows * (hd + 2), dtype=torch.float32,
                           device=q.device)
+    return variant, n_split, split_len, o, scratch
+
+
+def _report(q, k, variant):
+    report_kernel("decode_attention", variant,
+                  decode_cost(q.shape, k.shape, q.dtype))
+
+
+def decode_attention_cuda(q, k, v, pos, *, sm_scale: Optional[float] = None,
+                          n_split: Optional[int] = None) -> torch.Tensor:
+    """q: (B, 1, H, hd); k, v: (B, W, K, hd); pos: (B, W) int32 (-1 =
+    empty slot; a zero batch stride from ``expand`` is fine).  CUDA
+    tensors, fp32 or bf16 of one dtype, any strides.  ``n_split``: blocks
+    along the cache, ``num_splits``'s choice when None (a count is for
+    measuring the split's trade-off).  Returns a contiguous (B, 1, H, hd)
+    tensor of q's dtype."""
+    if not all(t.is_cuda for t in (q, k, v, pos)):
+        raise ValueError("decode_attention_cuda takes CUDA tensors")
+    variant, n_split, split_len, o, scratch = _plan(q, k, v, pos, n_split)
+    if variant is None:
+        return o
+    B, _, H, hd = q.shape
+    W, K = k.shape[1], k.shape[2]
+    sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
+    rows = scratch.numel() // (hd + 2)
     part_m = scratch.data_ptr()
     vec = _build.rows16(k) and _build.rows16(v)
     ci = _build.c_int
@@ -105,6 +131,22 @@ def decode_attention_cuda(q, k, v, pos, *, sm_scale: Optional[float] = None,
     _build.check("decode_attention", err)
     decode_attention_cuda.launches += 1
     decode_attention_cuda.launches_by_variant[variant] += 1
+    _report(q, k, variant)
+    return o
+
+
+def decode_attention_meta(q, k, v, pos, *, sm_scale: Optional[float] = None,
+                          n_split: Optional[int] = None) -> torch.Tensor:
+    """The kernel's shape function on the ``meta`` device: the launcher's
+    checks, split, variant, (empty) output and scratch, and one launch of
+    that variant reported to the active ``CostCounter``; no data, no
+    device."""
+    del sm_scale
+    if not all(t.is_meta for t in (q, k, v, pos)):
+        raise ValueError("decode_attention_meta takes meta tensors")
+    variant, _, _, o, _ = _plan(q, k, v, pos, n_split)
+    if variant is not None:
+        _report(q, k, variant)
     return o
 
 

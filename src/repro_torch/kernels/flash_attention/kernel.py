@@ -8,7 +8,10 @@ from the operands (``select_variant``: ``"tc"``, ``"tiled"`` or
 stream; ``flash_attention_cuda.launches`` counts its launches (one a
 call, and nothing else), so a run can show that its serving path went
 through the kernel; ``launches_by_variant`` splits that count by
-variant."""
+variant.  ``flash_attention_meta`` is the same call on the ``meta``
+device: checks, variant and output shape, no launch.  Both report each
+launch, its variant and its cost (``metrics.roofline.flash_cost``) to
+the active ``metrics.cost.CostCounter``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,6 +19,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.metrics.cost import report_kernel
+from repro_torch.metrics.roofline import flash_cost
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"simt": 0, "tc": 1, "tiled": 2}
@@ -70,19 +75,11 @@ def launch_choice(q, k, v, variant: Optional[str] = None) -> str:
     return variant
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True,
-                         window: Optional[int] = None,
-                         sm_scale: Optional[float] = None,
-                         variant: Optional[str] = None) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) CUDA tensors of one dtype
-    (fp32 or bf16), any strides; H % K == 0, hd <= 128.  Returns a
-    contiguous (B, Sq, H, hd) tensor of q's dtype.  ``variant`` forces a
-    variant, for measuring and testing the alternatives; one the operands
-    do not allow raises, and nothing falls back."""
+def _plan(q, k, v, causal, window, variant):
+    """The checks, the variant and the output of one call: what the
+    launcher and the ``meta`` shape function share."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention_cuda takes CUDA tensors")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_cuda takes fp32 or bf16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -95,10 +92,32 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     variant = launch_choice(q, k, v, variant)
-    sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    return variant, o
+
+
+def _report(q, k, variant, causal, window):
+    report_kernel("flash_attention", variant,
+                  flash_cost(q.shape, k.shape, q.dtype, causal, window))
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         sm_scale: Optional[float] = None,
+                         variant: Optional[str] = None) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) CUDA tensors of one dtype
+    (fp32 or bf16), any strides; H % K == 0, hd <= 128.  Returns a
+    contiguous (B, Sq, H, hd) tensor of q's dtype.  ``variant`` forces a
+    variant, for measuring and testing the alternatives; one the operands
+    do not allow raises, and nothing falls back."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention_cuda takes CUDA tensors")
+    variant, o = _plan(q, k, v, causal, window, variant)
     if o.numel() == 0:
         return o
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
     ci = _build.c_int
     fn = _build.entry("repro_flash_attention_fwd", 4, 22, 1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -110,6 +129,23 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     _build.check("flash_attention", err)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_variant[variant] += 1
+    _report(q, k, variant, causal, window)
+    return o
+
+
+def flash_attention_meta(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         sm_scale: Optional[float] = None,
+                         variant: Optional[str] = None) -> torch.Tensor:
+    """The kernel's shape function on the ``meta`` device: the launcher's
+    checks, variant and (empty) output, and one launch of that variant
+    reported to the active ``CostCounter``; no data, no device."""
+    del sm_scale
+    if not (q.is_meta and k.is_meta and v.is_meta):
+        raise ValueError("flash_attention_meta takes meta tensors")
+    variant, o = _plan(q, k, v, causal, window, variant)
+    if o.numel():
+        _report(q, k, variant, causal, window)
     return o
 
 

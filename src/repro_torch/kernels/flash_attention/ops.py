@@ -9,9 +9,13 @@ one of its three variants, which the launcher picks from the operands
 needs a gradient launches the kernel through ``kernels.autograd``, whose
 backward is the twin's.  A CPU tensor runs the plain PyTorch twin
 ``ref.attention_ref`` — that is how the CPU tests run.  There is no
-fall-back from one to the other.  The
-model layout (B, S, heads, hd) is read by the kernel through strides, so
-there are no transposes and no TPU pad-to-128 on the CUDA path.
+fall-back from one to the other.  A ``meta`` tensor (the dry-run's
+count) goes the CUDA tensor's way, through the kernel's shape function
+``kernel.flash_attention_meta``: a ``meta`` tensor holds no data, so
+this is no fall-back either, and its backward is the twin's on ``meta``
+as on the card.  The model layout (B, S, heads, hd) is read by the
+kernel through strides, so there are no transposes and no TPU
+pad-to-128 on the CUDA path.
 ``block_q`` / ``block_kv`` are accepted for the reference signature; the
 CUDA tile is the kernel's own and the result does not depend on them.
 """
@@ -23,7 +27,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.autograd import with_twin_grad
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_cuda, flash_attention_meta)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
@@ -35,8 +40,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     sm_scale = q.shape[-1] ** -0.5
     opts = dict(causal=causal, window=window, sm_scale=sm_scale)
     if q.device.type != "cpu":
+        kernel = flash_attention_meta if q.is_meta else flash_attention_cuda
         return with_twin_grad(
-            functools.partial(flash_attention_cuda, **opts),
+            functools.partial(kernel, **opts),
             functools.partial(_twin, **opts), q, k, v)
     return _twin(q, k, v, **opts)
 

@@ -12,6 +12,10 @@ the chunk scan, in scratch this wrapper allocates.  Both run the chunk
 asked for; neither re-chunks.  ``ssd_scan_cuda.launches`` counts the
 op's launches (one a call, whatever the number of passes) and nothing
 else, ``ssd_scan_cuda.launches_by_variant`` splits that count.
+``ssd_scan_meta`` is the same call on the ``meta`` device (checks,
+outputs and scratch, no launch).  Both report each launch, its variant
+and its cost (``metrics.roofline.ssd_cost``) to the active
+``metrics.cost.CostCounter``.
 ``ssd_passes_cuda`` launches chosen passes alone, uncounted, so that
 each pass can be held against its plain twin (``ref.py``)."""
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.metrics.cost import report_kernel
+from repro_torch.metrics.roofline import ssd_cost
 
 MAX_SMEM_BYTES = 232_448   # Hopper's per-block dynamic shared memory
 TILE = 64                  # "whole"'s longest chunk; the passes' token tile
@@ -112,13 +118,15 @@ def ssd_scratch(Bsz: int, S: int, H: int, hp: int, N: int, chunk: int,
                                device=device)}
 
 
-def _check(x, adt, dt, B, C, chunk, init_state):
+def _check(x, adt, dt, B, C, chunk, init_state, device_type="cuda"):
     Bsz, S, H, hp = x.shape
     N = B.shape[-1]
     ins = (x, adt, dt, B, C) + ((init_state,) if init_state is not None
                                 else ())
-    if not all(t.is_cuda for t in ins):
-        raise ValueError("ssd_scan_cuda takes CUDA tensors")
+    if not all(t.device.type == device_type for t in ins):
+        raise ValueError(f"ssd_scan_{device_type} takes "
+                         f"{'CUDA' if device_type == 'cuda' else 'meta'} "
+                         f"tensors")
     if any(t.dtype != torch.float32 for t in ins):
         raise TypeError("ssd_scan_cuda takes fp32 inputs")
     if (adt.shape != (Bsz, S, H) or dt.shape != adt.shape
@@ -153,6 +161,41 @@ def _launch(x, adt, dt, B, C, y, h0, hout, chunk, variant, passes=15,
     _build.check("ssd_scan", err)
 
 
+def _plan(x, adt, dt, B, C, chunk, init_state, return_state, variant):
+    """The variant, the outputs and the scratch of one (checked) call:
+    what the launcher and the ``meta`` shape function share.  Returns
+    (variant, init_state, y, h_final, scratch), variant None when there
+    is no token (the state stays the initial one; nothing is
+    launched)."""
+    Bsz, S, H, hp = x.shape
+    N = B.shape[-1]
+    if init_state is not None:
+        init_state = init_state.contiguous()
+    if variant is None:
+        variant = select_variant(hp, N, chunk)
+    elif variant not in _VARIANTS or not _takes(variant, hp, N, chunk):
+        raise ValueError(f"variant {variant!r} cannot take chunk {chunk} x "
+                         f"head dim {hp} x state {N}")
+    y = torch.empty((Bsz, S, H, hp), dtype=torch.float32, device=x.device)
+    h_final = (torch.empty((Bsz, H, hp, N), dtype=torch.float32,
+                           device=x.device) if return_state else None)
+    if y.numel() == 0:
+        if return_state:
+            h_final.zero_()
+            if init_state is not None:
+                h_final.copy_(init_state)
+        return None, init_state, y, h_final, None
+    scratch = (ssd_scratch(Bsz, S, H, hp, N, chunk, x.device)
+               if variant == "parallel" else None)
+    return variant, init_state, y, h_final, scratch
+
+
+def _report(x, N, chunk, init_state, return_state, variant):
+    report_kernel("ssd_scan", variant,
+                  ssd_cost(x.shape, N, chunk, init_state is not None,
+                           return_state))
+
+
 def ssd_scan_cuda(x, adt, dt, B, C, *, chunk: int,
                   init_state: Optional[torch.Tensor] = None,
                   return_state: bool = False,
@@ -164,31 +207,31 @@ def ssd_scan_cuda(x, adt, dt, B, C, *, chunk: int,
     chunk, (Bsz, H, hp, N) fp32).  ``variant`` forces a variant, for
     measuring and testing the other one; one the shape does not allow
     raises."""
-    Bsz, S, H, hp = x.shape
-    N = B.shape[-1]
     _check(x, adt, dt, B, C, chunk, init_state)
-    if init_state is not None:
-        init_state = init_state.contiguous()
-    if variant is None:
-        variant = select_variant(hp, N, chunk)
-    elif variant not in _VARIANTS or not _takes(variant, hp, N, chunk):
-        raise ValueError(f"variant {variant!r} cannot take chunk {chunk} x "
-                         f"head dim {hp} x state {N}")
-    y = torch.empty((Bsz, S, H, hp), dtype=torch.float32, device=x.device)
-    h_final = (torch.empty((Bsz, H, hp, N), dtype=torch.float32,
-                           device=x.device) if return_state else None)
-    if y.numel() == 0:          # no token: the state stays the initial one
-        if return_state:
-            h_final.zero_()
-            if init_state is not None:
-                h_final.copy_(init_state)
-        return (y, h_final) if return_state else y
-    scratch = (ssd_scratch(Bsz, S, H, hp, N, chunk, x.device)
-               if variant == "parallel" else None)
-    _launch(x, adt, dt, B, C, y, init_state, h_final, chunk, variant,
-            scratch=scratch)
-    ssd_scan_cuda.launches += 1
-    ssd_scan_cuda.launches_by_variant[variant] += 1
+    variant, init_state, y, h_final, scratch = _plan(
+        x, adt, dt, B, C, chunk, init_state, return_state, variant)
+    if variant is not None:
+        _launch(x, adt, dt, B, C, y, init_state, h_final, chunk, variant,
+                scratch=scratch)
+        ssd_scan_cuda.launches += 1
+        ssd_scan_cuda.launches_by_variant[variant] += 1
+        _report(x, B.shape[-1], chunk, init_state, return_state, variant)
+    return (y, h_final) if return_state else y
+
+
+def ssd_scan_meta(x, adt, dt, B, C, *, chunk: int,
+                  init_state: Optional[torch.Tensor] = None,
+                  return_state: bool = False,
+                  variant: Optional[str] = None):
+    """The kernel's shape function on the ``meta`` device: the launcher's
+    checks, variant, (empty) outputs and ``"parallel"``'s scratch, and one
+    launch of that variant reported to the active ``CostCounter``; no
+    data, no device."""
+    _check(x, adt, dt, B, C, chunk, init_state, "meta")
+    variant, init_state, y, h_final, _ = _plan(
+        x, adt, dt, B, C, chunk, init_state, return_state, variant)
+    if variant is not None:
+        _report(x, B.shape[-1], chunk, init_state, return_state, variant)
     return (y, h_final) if return_state else y
 
 

@@ -23,12 +23,14 @@ the SSD scan's four passes each under its own kernel's name) and
 Rows: flash attention at the cascade's buckets 64 / 32 / 16 / 8 (fp32)
 and the zoo's prefill (bf16; Mixtral's, Danube's at head dim 120, and,
 non-causal, seamless-m4t-medium's encoder and llama-3.2-vision-11b's
-cross-attention over its 1600 image tokens), decode attention (the
+cross-attention over its 1600 image tokens) and training (internlm2-1.8b
+at 4 x 2048, Mixtral at 1 x 2048), decode attention (the
 cascade's readout, Mixtral's step, Llama-3-405B's, 16 query heads a kv
 head, and the CROSS models' cross-attention over their whole memory,
 every slot valid: the vision model's 1600, seamless' 2048), the SSD
 scan (the cascade's buckets, and the zoo's chunk 256 x state 128 at
-mamba2-370m's and Jamba's layer shapes), and ``moe_gmm`` at the zoo's
+mamba2-370m's and Jamba's layer shapes, and mamba2-370m's training
+step's, 4 x 2048), and ``moe_gmm`` at the zoo's
 prefill and decode (bf16, and the fp32 prefill row), each kernel row
 with its plain PyTorch version (``plain`` names it:
 ``attention_ref``, ``decode_attention_ref``, ``ssd_scan_chunked_ref``,
@@ -227,6 +229,14 @@ def main(argv=None) -> int:
                   rnd(2, 2048, 16, 64, dtype=bf),
                   rnd(2, 2048, 16, 64, dtype=bf),
                   rnd(2, 2048, 16, 64, dtype=bf), None, False))
+    # the training path's forwards: internlm2-1.8b at 4 x 2048 and
+    # Mixtral (window 4096) at 1 x 2048
+    flash.append(("zoo internlm2 train", rnd(4, 2048, 16, 128, dtype=bf),
+                  rnd(4, 2048, 8, 128, dtype=bf),
+                  rnd(4, 2048, 8, 128, dtype=bf), None, True))
+    flash.append(("zoo mixtral train", rnd(1, 2048, 48, 128, dtype=bf),
+                  rnd(1, 2048, 8, 128, dtype=bf),
+                  rnd(1, 2048, 8, 128, dtype=bf), 4096, True))
     forced = _takes(flash_attention_cuda, "variant")
     for path, q, k, v, window, causal in flash:
         shape = [list(q.shape), list(k.shape)]
@@ -315,7 +325,8 @@ def main(argv=None) -> int:
     ssd = [(f"cascade B={B}", B, 128, 6, 64, 32, 64)
            for B in (64, 32, 16, 8)]
     ssd += [("zoo mamba2 prefill", 2, 2048, 32, 64, 128, 256),
-            ("zoo jamba prefill", 2, 2048, 256, 64, 128, 256)]
+            ("zoo jamba prefill", 2, 2048, 256, 64, 128, 256),
+            ("zoo mamba2 train", 4, 2048, 32, 64, 128, 256)]
     for path, B, S, H, hp, N, chunk in ssd:
         if only and "ssd_scan" not in only:
             break

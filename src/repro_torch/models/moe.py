@@ -46,6 +46,14 @@ def capacity_for(n_tokens: int, cfg: ModelConfig) -> int:
     return max(4, ((c + 3) // 4) * 4)
 
 
+def one_hot(idx, n: int, dtype=torch.float32):
+    """``jax.nn.one_hot(idx, n)`` as a comparison with ``arange(n)`` (a
+    zero row for an index outside [0, n)).  ``F.one_hot`` scatters on the
+    card and compares on ``meta``, so its bytes would differ between a
+    step and its dry-run count; this is one decomposition everywhere."""
+    return (idx.unsqueeze(-1) == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def route(x2d, router_w, cfg: ModelConfig):
     """x2d: (T, D) -> top-k indices/weights + aux losses (fp32)."""
     m = cfg.moe
@@ -54,7 +62,7 @@ def route(x2d, router_w, cfg: ModelConfig):
     top_w, top_idx = torch.topk(probs, m.top_k, dim=-1)      # (T, k)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # load-balance loss (Switch): E * sum_e f_e * p_e
-    assign = F.one_hot(top_idx, m.num_experts).float()
+    assign = one_hot(top_idx, m.num_experts)
     frac_tokens = assign.sum(1).mean(0)                      # (E,)
     frac_probs = probs.mean(0)
     lb = m.num_experts * (frac_tokens * frac_probs).sum() \
@@ -75,12 +83,11 @@ def _dispatch_combine(top_idx, top_w, n_tokens: int, capacity: int,
     combine = torch.zeros((n_tokens, E, capacity), device=dev)
     used = torch.zeros((E,), dtype=torch.int64, device=dev)
     for slot in range(k):
-        mask = F.one_hot(top_idx[:, slot], E)                   # (T, E)
+        mask = one_hot(top_idx[:, slot], E, torch.int64)        # (T, E)
         pos = torch.cumsum(mask, dim=0) - 1 + used[None, :]     # (T, E)
         keep = (pos < capacity) & (mask > 0)
-        # jax.nn.one_hot gives a zero row for an index outside [0, C);
-        # F.one_hot refuses one, and ``keep`` zeroes those rows anyway
-        pos_oh = F.one_hot(pos.clamp(0, capacity - 1), capacity).float()
+        # a token past the capacity has a zero row, as in the reference
+        pos_oh = one_hot(pos, capacity)
         sel = keep.float()[..., None] * pos_oh
         dispatch = dispatch + sel
         combine = combine + sel * top_w[:, slot][:, None, None]

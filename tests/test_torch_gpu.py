@@ -40,6 +40,9 @@ autograd's gradient through the plain twin (within 1e-6 x max|twin
 grad|, at a small shape and at the training path's), one that needs
 none launches the kernel alone, decode attention raises under grad, and
 a smoke-config training step with remat on the card equals the CPU's.
+The dry-run: a smoke config's probes on the card count the FLOPs and
+launches of their ``meta`` count, and their bytes and peak memory agree
+with it within ``launch.dryrun.AGREE``.
 Nothing here imports JAX (the GPU machine has none).
 """
 import numpy as np
@@ -1259,3 +1262,38 @@ def test_zoo_smoke_train_step_on_the_card_like_the_cpu(cuda, arch):
     n_mamba = cfg.n_periods * cfg.period.count("mamba")
     n_moe = cfg.n_periods * len(cfg.moe_period_idx) if cfg.moe else 0
     assert moved == [2 * n_attn, 2 * 3 * n_moe, 2 * n_mamba]
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("internlm2-1.8b", "train"), ("mixtral-8x22b", "prefill"),
+    ("mamba2-370m", "prefill"), ("jamba-1.5-large-398b", "train"),
+    ("seamless-m4t-medium", "decode"), ("llama-3.2-vision-11b", "prefill")])
+def test_dryrun_probe_on_the_card_equals_its_meta_count(cuda, arch, kind):
+    """A smoke config's probes on the card: FLOPs by dtype and launches
+    by variant equal the probe's ``meta`` count, bytes and the measured
+    peak within ``dryrun.AGREE`` (``dryrun.probe_problems``), and each
+    kernel's launcher moved by what the probes' counts imply."""
+    import dataclasses
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import InputShape
+    shape = {"train": InputShape("train_4k", "train", 128, 2),
+             "prefill": InputShape("prefill_32k", "prefill", 256, 2),
+             "decode": InputShape("decode_32k", "decode", 256, 2)}[kind]
+    counters = {"flash_attention": flash_attention_cuda,
+                "moe_gmm": moe_gmm_cuda, "ssd_scan": ssd_scan_cuda,
+                "decode_attention": decode_attention_cuda}
+    n0 = {k: c.launches for k, c in counters.items()}
+    rec = dryrun.dryrun_one(arch, dataclasses.replace(shape), device="cuda",
+                            smoke=True, reps=1, verbose=False)
+    torch.cuda.synchronize()
+    moved = {k: c.launches - n0[k] for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    for row in rec["probes"]:
+        assert "ms" in row, row
+        assert row["count_equal"], row
+        assert dryrun.probe_problems(row) == [], row
+        for k, n in row["card_count"].items():
+            if k.startswith("launches:"):
+                want[k.split(":")[1]] += 3 * n       # warm-up, counted, 1
+    assert moved == want and sum(want.values()) > 0
+    assert rec["measured"]["ms"] > 0 and rec["measured"]["kind"]

@@ -548,23 +548,40 @@ def test_build_hash_covers_every_csrc_file():
 # dispatch: a non-CPU tensor never takes the plain path
 # ---------------------------------------------------------------------------
 def test_meta_tensors_go_to_the_kernel_launcher_and_raise():
-    """Only a CPU tensor runs the plain twin; any other device goes to the
-    CUDA launcher, which refuses a non-CUDA tensor instead of falling
-    back."""
+    """Only a CPU tensor runs the plain twin; any other device takes the
+    kernel's way.  A ``meta`` tensor (the dry-run's count) reaches the
+    kernel's shape function, which launches nothing and leaves every
+    launch count as it was; the CUDA launcher itself still refuses it
+    instead of falling back."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.moe_gmm.kernel import moe_gmm_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    launchers = (flash_attention_cuda, decode_attention_cuda,
+                 ssd_scan_cuda, moe_gmm_cuda)
+    before = [f.launches for f in launchers]
     q = torch.empty((1, 8, 1, 4), device="meta")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        flash_attention(q, q, q)
     pos = torch.empty((1, 8), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        decode_attention(q[:, :1], q, q, pos)
     a = torch.empty((1, 8, 1), device="meta")
     b = torch.empty((1, 8, 2), device="meta")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        ssd_scan(q, a, a, b, b, chunk=8)
     x = torch.empty((2, 4, 8), device="meta")
     w = torch.empty((2, 8, 16), device="meta")
+    outs = [flash_attention(q, q, q), decode_attention(q[:, :1], q, q, pos),
+            ssd_scan(q, a, a, b, b, chunk=8), moe_gmm(x, w),
+            _expert_ffn(x, {"w_in": w, "w_gate": w,
+                            "w_out": w.transpose(1, 2)}, None)]
+    shapes = [(1, 8, 1, 4), (1, 1, 1, 4), (1, 8, 1, 4), (2, 4, 16),
+              (2, 4, 8)]
+    assert [tuple(o.shape) for o in outs] == shapes
+    assert all(o.is_meta for o in outs)
+    assert [f.launches for f in launchers] == before
     with pytest.raises(ValueError, match="CUDA tensors"):
-        moe_gmm(x, w)
+        flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _expert_ffn(x, {"w_in": w, "w_gate": w,
-                        "w_out": w.transpose(1, 2)}, None)
+        decode_attention_cuda(q[:, :1], q, q, pos)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_scan_cuda(q, a, a, b, b, chunk=8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        moe_gmm_cuda(x, w)
