@@ -254,7 +254,31 @@ Phases (any failure exits non-zero and prints no result line):
      ``fmt_table``.  Then the bounds of what phases 11 and 12 measured
      (each model's prefill of 2 x 2048, its decode step over that
      cache, each training step), counted on ``meta``, printed beside
-     the times measured in this run as the share.
+     the times measured in this run as the share;
+  14. mesh: lane sharding of the batched engine
+     (``BatchedCascadeEngine(mesh=)``, ``repro_torch.launch.mesh``):
+     (a) flash, decode attention and the SSD scan against their plain
+     versions at the rows one shard of a data=2 mesh gives them (4, 8,
+     16 and 32: buckets 8 to 64 halved; inputs captured from the
+     students' forwards), each timed beside its bound
+     (``metrics/roofline.py``) and the library call, and on the variant
+     the path takes ("tiled", ``select_variant``'s decode variant,
+     "whole"); (b) phase 4's stream (imdb, 2048 items, batch 64, seed
+     0, mu 3e-7, simulated expert) served with
+     ``make_mesh((2,), ("data",), ["cuda:0", "cuda:0"])`` and profiled
+     (items/s, ms a tick, device idle share), held to phase 8 (c)'s
+     profiled unmeshed run at max_delay 0 and depth 0, which is not
+     served again ((c) and (d) are served unprofiled, items/s only): the
+     unmeshed run equal to phase 4 (accuracy, expert calls, launches by
+     variant), the meshed one routing identically (every tick and lane; predictions,
+     expert calls, level counts), its params / dparams within rtol 1e-4
+     / atol 1e-6 of the unmeshed run's, every shard's replica equal to
+     the canonical state, forwards by bucket equal, and each kernel's
+     launches by variant exactly twice the unmeshed run's (once a shard,
+     at half the rows); (c) the same at max_delay 2 and pipeline depth
+     2, against phase 8 (c)'s unmeshed run with those options; (d) where more than one card is visible (and divides the
+     64 lanes), the same over every card, launches N times; else a line
+     says it did not run; then the phase's seconds.
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade, Mixtral and
 zoo-archs serving runs, each counted from zero, ``launches_by_variant``
@@ -275,6 +299,9 @@ the launches, the timed row at the step's shapes, the step's ms,
 tokens/s, profiled busy and idle share, peak GB, and the twin
 backward's ms beside its bound), and ``dryrun_<model>_<shape>`` phase
 13's runs of each pair (the launches over its probes, by variant);
+for the three cascade kernels, ``cascade_mesh`` phase 14 (b)'s meshed
+run (both shards' launches, by variant, its items/s and idle share) and
+``cascade_shard_b4`` the timed row at one shard's 4 rows;
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -1219,11 +1246,40 @@ def _matrix_pool(stream, expert):
         _fail("(b') the process backend mislabels or was not rebuilt")
 
 
+def _unprofiled_rep(m):
+    """A run served by ``run``: its items/s and ms a tick, no idle share."""
+    return {"items_per_sec": m["items_per_sec"],
+            "wall_ms_per_tick": 1e3 * MATRIX_BATCH / m["items_per_sec"],
+            "device_idle_share": "not measured"}
+
+
+def _unmeshed_side(eng, m, rep, by_variant):
+    """What phase 14 holds a meshed run to, kept from an unmeshed run so
+    that phase 14 need not serve it again: routing, predictions, expert
+    calls, level counts, forwards by bucket, the route state (params,
+    dparams) copied to the host, launches by variant, items/s, ms a tick
+    and the idle share."""
+    return {"routing": _routing_records(eng),
+            "m": {k: m[k] for k in ("accuracy", "expert_calls",
+                                    "predictions")},
+            "level_counts": np.array(eng.level_counts),
+            "forwards_by_batch": [dict(lvl.forwards_by_batch)
+                                  for lvl in eng.levels],
+            "state": [[x.detach().cpu() for x in
+                       tree_leaves((lvl.params, lvl.dparams))]
+                      for lvl in eng.levels],
+            "by_variant": {n: dict(c) for n, c in by_variant.items()},
+            "rep": rep}
+
+
 def _matrix_pipeline(stream, phase4_launches):
     """(c) the kernel ladder in the learning regime, depth 2 against 0, at
-    max_delay 0 and 2: identical runs, launches = layer-forwards."""
+    max_delay 0 and 2: identical runs, launches = layer-forwards.  Returns
+    the depth-2 run's launches at max_delay 0, and the (max_delay 0,
+    depth 0) and (max_delay 2, depth 2) runs as unmeshed sides."""
     from repro_torch.core import SimulatedExpert
     pipelined = None
+    unmeshed = {}
     for D in (0, 2):
         runs = {}
         for P in (0, 2):
@@ -1235,9 +1291,10 @@ def _matrix_pipeline(stream, phase4_launches):
                                  max_delay=D, pipeline_depth=P)
             tag = f"(c) kernel ladder, max_delay={D}, pipeline_depth={P}"
             if D == 0:
-                m, _ = _profiled(tag, eng, stream)
+                m, rep = _profiled(tag, eng, stream)
             else:
                 m = _matrix_run(tag, eng, stream)
+                rep = _unprofiled_rep(m)
             launches = {n: fn.launches for n, fn in LAUNCHERS.items()}
             expect = _layer_forwards(eng)[0]
             by_variant = {n: c for n, c in _variant_counts().items()
@@ -1254,6 +1311,8 @@ def _matrix_pipeline(stream, phase4_launches):
             if by_variant["ssd_scan"]["whole"] != launches["ssd_scan"]:
                 _fail(f"{tag}: an SSD launch left the whole-chunk variant")
             runs[P] = (eng, m, launches, by_variant)
+            if D == P:
+                unmeshed[D, P] = _unmeshed_side(eng, m, rep, by_variant)
         _same_run(f"(c) max_delay={D}: depth 0 vs 2", runs[0][0], runs[0][1],
                   runs[2][0], runs[2][1])
         if runs[0][2] != runs[2][2]:
@@ -1265,7 +1324,7 @@ def _matrix_pipeline(stream, phase4_launches):
             if runs[2][0].pipeline_stats["refetches"] <= 0:
                 _fail("(c) the learning regime refetched nothing")
             pipelined = runs[2][2:]
-    return pipelined
+    return pipelined, unmeshed
 
 
 def _matrix_converged(stream):
@@ -1351,17 +1410,19 @@ def _matrix_card_vs_cpu():
 def phase_engine_matrix(phase4_launches):
     """Phase 8: the engine matrix at full width (imdb, 2048 items, batch
     64, seed 0, mu 3e-7).  Returns the pipelined kernel-ladder run's
-    launches and launches by variant ((c), max_delay 0, depth 2)."""
+    launches and launches by variant ((c), max_delay 0, depth 2), and
+    (c)'s depth-0 / max_delay-0 and depth-2 / max_delay-2 runs as phase
+    14's unmeshed sides (``_unmeshed_side``)."""
     from repro_torch.data import make_stream
     stream = make_stream("imdb", seed=0, n_samples=MATRIX_ITEMS)
     expert = _matrix_async(stream)
     _matrix_pool(stream, expert)
     expert.close()
-    pipelined = _matrix_pipeline(stream, phase4_launches)
+    pipelined, unmeshed = _matrix_pipeline(stream, phase4_launches)
     _matrix_converged(stream)
     _matrix_faults(stream)
     _matrix_card_vs_cpu()
-    return pipelined
+    return pipelined, unmeshed
 
 
 # ---------------------------------------------------------------------------
@@ -3550,6 +3611,162 @@ def phase_dryrun(arch_measured, train_measured):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# mesh: lane sharding of the batched engine (phase 14)
+# ---------------------------------------------------------------------------
+# the per-shard rows a data=2 mesh gives the kernels at buckets 8..64,
+# and the mesh tolerance of the reference (tests/harness.py)
+MESH_SHARD_ROWS = (4, 8, 16, 32)
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-6
+
+
+def _mesh_kernel_rows(tokens, results):
+    """(a) each cascade kernel against its twin at the rows one shard of
+    a data=2 mesh gives it, timed beside its bound and the library
+    call."""
+    from repro_torch.models.kernel_students import (SSMStudentSpec,
+                                                    TinyTFFlashSpec)
+    gen = torch.Generator().manual_seed(2468)
+    for rows in MESH_SHARD_ROWS:
+        got = capture_path_inputs(rows, TinyTFFlashSpec(), SSMStudentSpec(),
+                                  tokens, gen)
+        (q, k, v), kw = got["flash_attention"]
+        check("flash_attention", f"shard B={rows} causal fp32",
+              lambda: fl_ops.flash_attention(q, k, v, **kw),
+              lambda: flash_plain(q, k, v), TOL["flash_attention"], results,
+              lambda: flash_library(q, k, v), flash_bound(q, k, v), True,
+              variant="tiled")
+        (q, k, v, pos), kw = got["decode_attention"]
+        check("decode_attention", f"shard B={rows} pads fp32",
+              lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
+              lambda: decode_plain(q, k, v, pos), TOL["decode_attention"],
+              results, lambda: decode_library(q, k, v, pos),
+              decode_bound(q, k, v, pos), True,
+              variant=decode_variant(rows, k.shape[2], k.shape[1]))
+        (x, adt, dt, B, C), kw = got["ssd_scan"]
+        check("ssd_scan", f"shard B={rows} chunk {kw['chunk']}",
+              lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, **kw),
+              lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, kw["chunk"]),
+              TOL["ssd_scan"], results, None,
+              ssd_bound(x, adt, dt, B, C, kw["chunk"]), True, scaled=True,
+              variant="whole")
+
+
+def _mesh_run(tag, stream, mesh, opts, profiled):
+    """The kernel ladder on ``stream`` (imdb, 64 lanes, mu 3e-7, seed 0,
+    simulated expert) over ``mesh``, ``profiled`` or served by ``run``
+    (idle share not measured); the engine, its metrics and report, and
+    its launches by variant counted from zero over the run."""
+    from repro_torch.core import SimulatedExpert
+    for fn in LAUNCHERS.values():
+        fn.launches = 0
+    _zero_variant_counts()
+    eng = _matrix_engine("kernel", SimulatedExpert(stream), mesh=mesh,
+                         **opts)
+    if profiled:
+        m, rep = _profiled(tag, eng, stream)
+    else:
+        m = _matrix_run(tag, eng, stream)
+        rep = _unprofiled_rep(m)
+    by_variant = {n: c for n, c in _variant_counts().items()
+                  if n in LAUNCHERS}
+    return eng, m, rep, by_variant
+
+
+def _mesh_pair(label, stream, mesh, opts, a, phase4=None, profiled=False):
+    """One cell: the meshed run held to ``a``, phase 8 (c)'s unmeshed run
+    with the same options (``_unmeshed_side``): routing, predictions,
+    expert calls, level counts identical; params / dparams at the mesh
+    tolerance; every shard's replica the canonical state; forwards by
+    bucket equal; launches by variant = shards x the unmeshed run's; and,
+    with ``phase4``, the unmeshed run equal to phase 4's."""
+    from repro_torch.sharding import lane_count
+    n = lane_count(mesh)
+    ma, ra, va = a["m"], a["rep"], a["by_variant"]
+    b, mb, rb, vb = _mesh_run(f"{label} mesh={mesh.shape} over "
+                              f"{[str(d) for d in mesh.devices.flat]}",
+                              stream, mesh, opts, profiled)
+    div = _first_divergence(a["routing"], _routing_records(b))
+    worst = 0.0
+    for xs, lb in zip(a["state"], b.levels):
+        for x, y in zip(xs, tree_leaves((lb.params, lb.dparams))):
+            excess = (y.cpu() - x).abs() - MESH_RTOL * x.abs()
+            worst = max(worst, float(excess.max()))
+    replicas_ok = all(
+        torch.equal(p, q)
+        for i, lvl in enumerate(b.levels) for rep in b._replicas[i]
+        for p, q in zip(tree_leaves(rep),
+                        tree_leaves((lvl.params, lvl.dparams))))
+    doubled = {k: {v: n * c for v, c in cs.items()} for k, cs in va.items()}
+    print(f"[mesh] {label}: items_per_sec unmeshed (phase 8 (c)) "
+          f"{ra['items_per_sec']:.1f} / meshed {rb['items_per_sec']:.1f}; "
+          f"wall_ms_per_tick {ra['wall_ms_per_tick']:.3f} / "
+          f"{rb['wall_ms_per_tick']:.3f}; device_idle_share "
+          f"{ra['device_idle_share']} / {rb['device_idle_share']}; "
+          f"accuracy {ma['accuracy']:.4f} / {mb['accuracy']:.4f}; "
+          f"expert_calls {ma['expert_calls']} / {mb['expert_calls']}; "
+          f"routing {'identical' if div is None else f'differs {div}'}; "
+          f"max(|meshed - unmeshed| - rtol|unmeshed|) over params / "
+          f"dparams {worst:.3g} (atol {MESH_ATOL}); replicas == canonical "
+          f"{replicas_ok}; launches by variant unmeshed {va} meshed {vb}",
+          flush=True)
+    if div is not None or not np.array_equal(ma["predictions"],
+                                             mb["predictions"]) \
+            or ma["expert_calls"] != mb["expert_calls"] \
+            or not np.array_equal(a["level_counts"], b.level_counts):
+        _fail(f"mesh {label}: the meshed run routes otherwise ({div})")
+    if not math.isfinite(worst) or worst > MESH_ATOL:
+        _fail(f"mesh {label}: state {worst} past the mesh tolerance")
+    if not replicas_ok:
+        _fail(f"mesh {label}: a shard's replica is not the canonical state")
+    if a["forwards_by_batch"] != [lvl.forwards_by_batch for lvl in b.levels]:
+        _fail(f"mesh {label}: forwards by bucket differ")
+    if vb != doubled or min(sum(c.values()) for c in va.values()) <= 0:
+        _fail(f"mesh {label}: launches by variant {vb} != {n} x {va}")
+    if phase4 is not None:
+        if (ma["accuracy"], ma["expert_calls"]) != \
+                (phase4["accuracy"], phase4["expert_calls"]) \
+                or va != phase4["by_variant"]:
+            _fail(f"mesh {label}: the unmeshed run is not phase 4's "
+                  f"({ma['accuracy']} / {ma['expert_calls']} / {va} vs "
+                  f"{phase4['accuracy']} / {phase4['expert_calls']} / "
+                  f"{phase4['by_variant']})")
+    return {"launches": {k: sum(c.values()) for k, c in vb.items()},
+            "by_variant": vb, "items_per_sec": rb["items_per_sec"],
+            "unmeshed_items_per_sec": ra["items_per_sec"],
+            "idle": rb["device_idle_share"],
+            "unmeshed_idle": ra["device_idle_share"]}
+
+
+def phase_mesh(tokens, phase4, unmeshed):
+    """14. mesh: (a) the three cascade kernels at a data=2 shard's rows;
+    (b) the kernel ladder served over two shards on card 0 against phase
+    8 (c)'s unmeshed run (``unmeshed``) and phase 4's; (c) the same at
+    max_delay 2 with pipeline depth 2; (d) over every card, where there
+    is more than one.  Returns the kernel rows and (b)'s numbers."""
+    from repro_torch.data import make_stream
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.time()
+    results = {}
+    _mesh_kernel_rows(tokens, results)
+    stream = make_stream("imdb", seed=0, n_samples=MATRIX_ITEMS)
+    mesh = make_mesh((2,), ("data",), ["cuda:0", "cuda:0"])
+    meshed = _mesh_pair("(b) kernel ladder", stream, mesh, {},
+                        unmeshed[0, 0], phase4, profiled=True)
+    _mesh_pair("(c) max_delay=2 pipeline_depth=2", stream, mesh,
+               {"max_delay": 2, "pipeline_depth": 2}, unmeshed[2, 2])
+    n = torch.cuda.device_count()
+    if n > 1 and MATRIX_BATCH % n == 0:
+        _mesh_pair(f"(d) data={n} over distinct cards", stream,
+                   make_mesh((n,), ("data",)), {}, unmeshed[0, 0])
+    else:
+        print(f"[mesh] (d) did not run: {n} CUDA device(s) visible "
+              f"(it needs more than one, dividing {MATRIX_BATCH} lanes)",
+              flush=True)
+    print(f"[mesh] phase seconds {time.time() - t_phase:.1f}", flush=True)
+    return results, meshed
+
+
 def _free_card():
     import gc
     gc.collect()
@@ -3568,7 +3785,7 @@ def _record_row(rows, launches, by_variant):
 
 def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
                   zoo_by_variant, pipelined, admission, sanitized,
-                  arch_paths):
+                  arch_paths, mesh_results, meshed):
     """One entry per kernel: the top-level numbers are those of the path
     each kernel was first ported for (cascade at batch 64; moe_gmm: zoo
     prefill), ``launches`` and ``launches_by_variant`` the totals over the
@@ -3638,43 +3855,80 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
                 n = counts[name]
                 paths[path] = {"launches": n, "launches_by_variant":
                                split(variants, name, n)}
+            # phase 14: the data=2 run (both shards' launches) and the
+            # timed row at one shard's 4 rows (bucket 8)
+            n = meshed["launches"][name]
+            paths["cascade_mesh"] = {
+                "launches": n, "launches_by_variant":
+                split(meshed["by_variant"], name, n),
+                "items_per_sec": meshed["items_per_sec"],
+                "device_idle_share": meshed["idle"]}
+            rows = [(lab, r) for lab, r in mesh_results[name]
+                    if lab.startswith("shard B=4 ")]
+            paths["cascade_shard_b4"] = _record_row(
+                rows, n, split(meshed["by_variant"], name, n))
         record.append({"name": name, "route": "cuda",
                        "source": SOURCE[name], "replaces": REPLACES[name],
                        **top, "paths": paths})
     return record
 
 
+_T0 = time.time()
+
+
+def _clock(phase):
+    """The script's seconds so far, at the end of ``phase``."""
+    print(f"[clock] {phase} ended at {time.time() - _T0:.1f} s", flush=True)
+
+
 def main():
     from repro_torch.data import hash_ids, make_stream
     phase_card()
     phase_build()
+    _clock("build")
     stream = make_stream("imdb", seed=0, n_samples=128)
     tokens = torch.from_numpy(np.stack(
         [hash_ids(d, 4096, 128) for d in stream.docs[:64]])).cuda()
     results = phase_kernels(tokens)
-    eng, launches, by_variant, _ = phase_serve()
+    _clock("kernels")
+    eng, launches, by_variant, m4 = phase_serve()
+    phase4 = {"accuracy": m4["accuracy"],
+              "expert_calls": m4["expert_calls"], "by_variant": by_variant}
     phase_students(eng, tokens)
+    _clock("serve+students")
     del eng
     phase_default_serve()
-    pipelined = phase_engine_matrix(launches)
+    _clock("default-serve")
+    pipelined, unmeshed = phase_engine_matrix(launches)
+    _clock("engine-matrix")
     admission = phase_checkpoint_admission()
+    _clock("checkpoint-admission")
     sanitized = phase_sanitize_distill()
+    _clock("sanitize-distill")
     cfg, params, prompts = zoo_model()
     zoo_results = phase_zoo_kernels(cfg, params, prompts)
     zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)
     phase_zoo_profile(cfg, params, {"tokens": prompts})
     phase_zoo_checks(cfg, params, prompts)
+    _clock("zoo")
     del params, prompts
     torch.cuda.empty_cache()
     _, arch_paths, arch_measured = phase_zoo_archs()
+    _clock("zoo-archs")
     train_paths, train_measured = phase_zoo_train()
+    _clock("zoo-train")
     for name, p in train_paths.items():
         arch_paths.setdefault(name, {}).update(p)
     for name, p in phase_dryrun(arch_measured, train_measured).items():
         arch_paths.setdefault(name, {}).update(p)
+    _free_card()
+    _clock("dryrun")
+    mesh_results, meshed = phase_mesh(tokens, phase4, unmeshed)
+    _clock("mesh")
     print(json.dumps({"kernels": kernel_record(
         results, launches, by_variant, zoo_results, zoo_launches,
-        zoo_by_variant, pipelined, admission, sanitized, arch_paths)}))
+        zoo_by_variant, pipelined, admission, sanitized, arch_paths,
+        mesh_results, meshed)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -110,7 +110,34 @@ it.  Under ``retrace`` the engine's route passes (``route_pass[i]``) and
 its ring scatter (``cache_scatter``) are probed, beside the levels' own
 steps.
 
-Not ported yet (ROADMAP Queue 1): lane sharding over a mesh (item 13).
+Lane sharding (``mesh=``, a ``repro_torch.launch.mesh.Mesh``) — the
+reference's single-controller model, run by hand: the cascade is one
+shared policy, so its state (params, opt_state, dparams, dopt_state)
+and the rings stay canonical on the mesh's first device, and every
+update runs there over the gathered lanes, exactly the unmeshed
+engine's computation.  Each dispatch's padded bucket of B rows splits
+into the mesh's N lane shards (``sharding.lane_count``; contiguous rows
+``[s·B/N, (s+1)·B/N)``), and shard s's route pass runs on its own device
+(``sharding.lane_devices``) against its own replica of (params,
+dparams), with pinned uploads and a ``HostPrefetch`` each; the outputs
+come back to the host in lane order.  Every route pass goes through
+that one function (``_queue_pass``): the level-0 dispatch, the walk, the
+every-gate calibration forwards and the pipelined refetch.  One replica
+is kept per shard, not per distinct device, so a stale replica shows on
+the CPU too, where every shard is one device; the replicas follow the
+canonical trees (updates, ``reset`` and ``restore_state`` replace them,
+never write in place) and are refreshed in place after the commits of
+each drain, after ``flush``, ``reset`` and ``restore_state``, and before
+any route pass.  ``n_streams`` must divide by the lane count, and
+``_bucket`` doubles from the lane count, so every bucket divides too.
+``_Level.forwards`` / ``forwards_by_batch`` count one forward at the
+global bucket per dispatch; the kernels' launch counters count each
+shard's launch.  Checkpoints carry no mesh (``_fingerprint``): a meshed
+engine's checkpoint restores into an unmeshed one and back.  Routing is
+host-deterministic and each route pass is row-wise, so a meshed engine
+routes as the unmeshed one on the same tick keys; parameters agree to
+float tolerance (a shard's forward at B/N rows may round apart from the
+same rows at B).
 """
 from __future__ import annotations
 
@@ -132,7 +159,10 @@ from repro_torch.core.experts import (ExpertShardError, ExpertShardTimeout,
                                       ExpertTicket)
 from repro_torch.core.rng import (generator_from_state, generator_state,
                                   sample_cache_indices, tick_rngs)
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, canonical_device, resolve_device
+from repro_torch.sharding import (LaneGather, jit_route_pass, lane_count,
+                                  lane_devices, on_device, put_lanes,
+                                  put_replicated, refresh_replicas)
 from repro_torch.transfer import HostPrefetch, PinnedStaging
 
 # autoscale unit: target one worker per this many uncommitted deferred
@@ -160,7 +190,7 @@ def lanes_due(k: int, age: int, max_delay: int, per_lane: bool) -> int:
 
 def ring_scatter(cache_x: List[torch.Tensor], cache_y: List[torch.Tensor],
                  feats: List[np.ndarray], y_full: np.ndarray,
-                 called: np.ndarray, ptr: List[int], upload) -> None:
+                 called: np.ndarray, ptr: List[int], upload):
     """Insert a tick's demonstrations into every level's ring, in place:
     the called lanes of the (S, ...) host rows ``feats[i]`` and labels
     ``y_full`` take consecutive slots after ``ptr[i]``, in lane order; if
@@ -224,7 +254,8 @@ class _InFlightTick:
     feats_cache: list             # per-level lazily built feature rows
     sel0: np.ndarray              # lanes alive at level 0 (post-jump)
     xb0: Optional[np.ndarray]     # padded level-0 host feature batch
-    handles: Optional[HostPrefetch]   # level-0 (probs, dprob), prefetching
+    handles: Optional[object]     # level-0 (probs, dprob), prefetching
+                                  # (HostPrefetch, or LaneGather on a mesh)
     version: int                  # engine commit counter at dispatch
     beta_after: List[float]       # per-level beta after this tick's decay
     lane_cache: Optional[list] = None   # per-lane cache rngs (per_lane)
@@ -243,7 +274,8 @@ class BatchedCascadeEngine:
     expert as one ``expert.submit_many(indices, docs)`` request.
     Pipelined serving goes through ``submit_tick`` / ``resolve_tick`` /
     ``drain``.  Runs on ``device`` (CUDA by default; ``device="cpu"``
-    explicitly).
+    explicitly), or lane-sharded over ``mesh`` with its state on the
+    mesh's first device (``device``, if given, must be that one).
     """
 
     def __init__(self, config: CascadeConfig, expert, n_streams: int = 64,
@@ -256,7 +288,7 @@ class BatchedCascadeEngine:
                  max_requeues: int = 2,
                  autoscale: Optional[Tuple[int, int]] = None,
                  readiness_commits: bool = False,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
         if updates_per_tick not in ("single", "scaled"):
@@ -290,7 +322,25 @@ class BatchedCascadeEngine:
                 raise ValueError(
                     "autoscale requires an expert with a mutable "
                     "`workers` fleet width")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            n_lane = lane_count(mesh)
+            if n_lane < 1 or n_streams % n_lane:
+                raise ValueError(
+                    f"n_streams={n_streams} must be a positive multiple "
+                    f"of the mesh's lane-device count {n_lane}")
+            self.lane_devices = lane_devices(mesh)
+            self.device = self.lane_devices[0]
+            if device is not None and \
+                    canonical_device(resolve_device(device)) != self.device:
+                raise ValueError(
+                    f"device={device} is not the mesh's first device "
+                    f"{self.device}, which holds the engine's state")
+            self._n_lane_devices = n_lane
+        else:
+            self.device = resolve_device(device)
+            self.lane_devices = [self.device]
+            self._n_lane_devices = 1
         self.cfg = config
         self.expert = expert
         self.n_streams = n_streams
@@ -316,10 +366,22 @@ class BatchedCascadeEngine:
         # the staged route passes and ring scatter, behind the retrace
         # sanitizer's probes (the functions themselves when it is off)
         self._route_pass = [
-            _san.trace_probe(f"route_pass[{i}]", lvl.route_pass)
+            _san.trace_probe(f"route_pass[{i}]", jit_route_pass(
+                lvl.route_pass if mesh is None else lvl.shard_pass, mesh))
             for i, lvl in enumerate(self.levels)]
         self._scatter = _san.trace_probe("cache_scatter", ring_scatter)
         self._staging = PinnedStaging(self.device)
+        if mesh is not None:
+            # pinned uploads for each shard's device; per level, one
+            # (params, dparams) replica a shard and the canonical trees
+            # they were last copied from
+            self._lane_staging = {d: PinnedStaging(d) for d in
+                                  dict.fromkeys(self.lane_devices)}
+            self._lane_staging[self.device] = self._staging
+            self._replicas = [put_replicated((lvl.params, lvl.dparams), mesh)
+                              for lvl in self.levels]
+            self._replica_src = [(lvl.params, lvl.dparams)
+                                 for lvl in self.levels]
         self._cache_x: List[torch.Tensor] = []
         self._cache_y: List[torch.Tensor] = []
         self._init_ring()
@@ -398,6 +460,7 @@ class BatchedCascadeEngine:
         if self.autoscale is not None:
             self.expert.workers = self.autoscale[0]
         self.close()
+        self._sync_replicas()
         # a recorded determinism trace belongs to the old stream
         _san.drop_trace(self)
 
@@ -425,13 +488,50 @@ class BatchedCascadeEngine:
         return hb is not None and self.expert_calls_total >= hb
 
     def _bucket(self, n: int) -> int:
-        """Padded batch size for a subset of n lanes: powers of two from 8
-        up to at least n, capped at n_streams (exactly 1 when S == 1 —
-        the reference's per-item shape, which keeps S=1 bitwise)."""
-        b = 1
+        """Padded batch size for a subset of n lanes: the lane-device
+        count doubled up to at least max(8, n), capped at n_streams, so
+        every bucket divides by the lane count (non-power-of-two meshes
+        too).  Without a mesh: powers of two from 8, and exactly 1 when
+        S == 1 (the reference's per-item shape, which keeps S=1
+        bitwise)."""
+        b = self._n_lane_devices
         while b < max(8, n):
             b *= 2
         return min(b, self.n_streams)
+
+    # -- lane sharding ---------------------------------------------------
+    def _sync_replicas(self) -> None:
+        """Copy each level's canonical (params, dparams) into every
+        shard's replica, in place, where the canonical trees were
+        replaced since the last copy (no-op without a mesh)."""
+        if self.mesh is None:
+            return
+        for i, lvl in enumerate(self.levels):
+            src = self._replica_src[i]
+            if src[0] is lvl.params and src[1] is lvl.dparams:
+                continue
+            refresh_replicas(self._replicas[i], (lvl.params, lvl.dparams))
+            self._replica_src[i] = (lvl.params, lvl.dparams)
+
+    def _lane_upload(self, x: np.ndarray, device: torch.device):
+        return self._lane_staging[device].upload(x)
+
+    def _queue_pass(self, i: int, xb: np.ndarray):
+        """Queue level i's route pass over the padded host batch ``xb``
+        and the copy of its (probs, dprob) to the host; returns the
+        handle whose ``result()`` is that host pair.  On a mesh, one
+        pass per lane shard against the shard's replica, counted as one
+        forward at the global batch."""
+        lvl = self.levels[i]
+        if self.mesh is None:
+            return HostPrefetch(self._route_pass[i](
+                lvl.params, lvl.dparams, self._staging.upload(xb)))
+        self._sync_replicas()
+        lvl._count_forward(xb.shape[0])
+        reps = self._replicas[i]
+        return LaneGather(self._route_pass[i](
+            [r[0] for r in reps], [r[1] for r in reps],
+            put_lanes(xb, self.mesh, upload=self._lane_upload)))
 
     # -- expert ---------------------------------------------------------
     def _expert_submit(self, idxs: Sequence[int], docs) -> ExpertTicket:
@@ -576,16 +676,15 @@ class BatchedCascadeEngine:
 
     def _dispatch_level(self, i: int, fi: np.ndarray, sel: np.ndarray):
         """Pad the gathered lane subset ``fi[sel]`` to its bucket and queue
-        the level-i route pass (no host sync).  Returns the (probs, dprob)
-        device pair and the padded host batch (kept for a refetch).
-        Shared by the level-0 dispatch, the walk and the every-gate
-        calibration forwards so the pad/bucket rule cannot drift."""
-        lvl = self.levels[i]
+        the level-i route pass (no host sync).  Returns the handle of its
+        (probs, dprob) host pair and the padded host batch (kept for a
+        refetch).  Shared by the level-0 dispatch, the walk and the
+        every-gate calibration forwards so the pad/bucket rule cannot
+        drift."""
         B = self._bucket(sel.size)
         xb = np.zeros((B,) + fi.shape[1:], fi.dtype)
         xb[:sel.size] = fi[sel]
-        xd = self._staging.upload(xb)
-        return self._route_pass[i](lvl.params, lvl.dparams, xd), xb
+        return self._queue_pass(i, xb), xb
 
     def _route_dispatch(self, indices: Sequence[int], docs, *,
                         lanes=None, stream_ids=None,
@@ -652,8 +751,7 @@ class BatchedCascadeEngine:
         if sel0.size:
             fi = np.stack([self.levels[0].featurize(d) for d in docs])
             feats_cache[0] = fi
-            pair, xb0 = self._dispatch_level(0, fi, sel0)
-            handles = HostPrefetch(pair)
+            handles, xb0 = self._dispatch_level(0, fi, sel0)
 
         # beta decays per consumed ITEM (decay^S per tick); the
         # re-exploration floor applies once per tick at the post-tick
@@ -697,9 +795,7 @@ class BatchedCascadeEngine:
             # forward read pre-update params; rerun it on the committed
             # state (the featurized batch is reused)
             self.pipeline_stats["refetches"] += 1
-            lvl = self.levels[0]
-            handles = HostPrefetch(self._route_pass[0](
-                lvl.params, lvl.dparams, self._staging.upload(rec.xb0)))
+            handles = self._queue_pass(0, rec.xb0)
 
         alive = np.ones(S, bool)            # walking, not yet exited
         jumped = np.zeros(S, bool)
@@ -718,10 +814,8 @@ class BatchedCascadeEngine:
                 # dispatched at stage A (sel == rec.sel0: same jump mask)
                 probs_np, dprob_np = handles.result()
             else:
-                (probs_d, dprob_d), _ = self._dispatch_level(i, feats(i),
-                                                             sel)
-                probs_np = probs_d.cpu().numpy()
-                dprob_np = dprob_d.cpu().numpy()
+                probs_np, dprob_np = self._dispatch_level(
+                    i, feats(i), sel)[0].result()
             probs_np = probs_np[:sel.size]
             dprob_np = dprob_np[:sel.size]
             eval_mask[i, sel] = True
@@ -755,8 +849,9 @@ class BatchedCascadeEngine:
             # budget overflow: the last student answers (a lane that
             # jumped too), costed as an evaluation of the last level
             x = self._staging.upload(feats(nlev - 1)[s])
-            predictions[s] = int(np.argmax(
-                last._predict(last, last.params, x).cpu().numpy()))
+            with on_device(self.device):
+                predictions[s] = int(np.argmax(
+                    last._predict(last, last.params, x).cpu().numpy()))
 
         levels_out = np.where(called, nlev,
                               np.where(overflow, nlev - 1, exit_level))
@@ -789,10 +884,10 @@ class BatchedCascadeEngine:
                 missing = np.flatnonzero(called & ~eval_mask[i])
                 if missing.size == 0:
                     continue
-                (probs_d, dprob_d), _ = self._dispatch_level(
-                    i, scatter_feats(i), missing)
-                probs_h[i, missing] = probs_d.cpu().numpy()[:missing.size]
-                dprob_h[i, missing] = dprob_d.cpu().numpy()[:missing.size]
+                probs_np, dprob_np = self._dispatch_level(
+                    i, scatter_feats(i), missing)[0].result()
+                probs_h[i, missing] = probs_np[:missing.size]
+                dprob_h[i, missing] = dprob_np[:missing.size]
 
             idxs_c = [rec.indices[s] for s in sel_c]
             docs_c = [docs[s] for s in sel_c]
@@ -888,6 +983,7 @@ class BatchedCascadeEngine:
             if rec.committed < k:
                 break
             self._pending.popleft()
+        self._sync_replicas()
 
     def _ready_count(self, rec: _PendingTick) -> int:
         """Lanes of the head record whose annotations have landed: per
@@ -1055,6 +1151,7 @@ class BatchedCascadeEngine:
             else:
                 self._commit(rec, self.t)
             n += 1
+        self._sync_replicas()
         return n
 
     # -- live-state checkpoints -------------------------------------------
@@ -1210,6 +1307,7 @@ class BatchedCascadeEngine:
                           for lo, n in pm["requeues"].items()}))
         # restored params invalidate anything dispatched before
         self._state_version += 1
+        self._sync_replicas()
         _san.drop_trace(self)
 
     # -- per-stream metrics ---------------------------------------------

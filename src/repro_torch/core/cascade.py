@@ -374,6 +374,13 @@ class _Level:
         returns device tensors (probs (B, C), dprob (B,)).  At a (1, ...)
         batch this is the reference's ``predict_and_defer``."""
         self._count_forward(xb.shape[0])
+        return self.shard_pass(params, dparams, xb)
+
+    @torch.no_grad()
+    def shard_pass(self, params, dparams, xb):
+        """``route_pass``'s computation, uncounted: a lane-sharded engine
+        runs it once per shard over the shard's rows and counts one
+        forward at the global batch per dispatch."""
         probs = self._predict_batch(params, xb)
         return probs, deferral_prob(dparams, probs)
 

@@ -35,6 +35,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def canonical_device(device: torch.device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` names the current
+    card, so two spellings of one card compare equal."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def sync(device: Optional[torch.device]) -> None:
     """Wait for queued work on ``device`` (a no-op on the CPU)."""
     if device is not None and torch.device(device).type == "cuda":

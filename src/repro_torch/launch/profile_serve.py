@@ -5,7 +5,10 @@ Serves a ladder (the kernel ladder by default, or the paper's
 any of the engine's serving options (``--async-delay``,
 ``--pipeline-depth``, ``--expert-workers``, ``--per-lane-commit``,
 ``--expert-timeout``, ``--autoscale``, ``--hard-budget``; the simulated
-expert or, with ``--expert model``, the trained model expert), and
+expert or, with ``--expert model``, the trained model expert; lane
+sharding with ``--mesh``, whose devices come from ``--device`` as in
+``serve.py``: ``--device cuda:0 --mesh data=2`` puts two shards on one
+card), and
 records a steady window (after ``--warmup-ticks``) under
 ``torch.profiler``.  Pipelined runs are driven through ``submit_tick``;
 the window ends with ``drain`` and ``flush``.  Reports, as one JSON
@@ -25,6 +28,8 @@ object on the last line:
       --samples 2048 --batch 64 --ladder kernel
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --ladder default --hard-budget 0 --pipeline-depth 2
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --device cuda:0 --mesh data=2
 """
 from __future__ import annotations
 
@@ -40,8 +45,10 @@ import torch
 from repro_torch.core import BatchedCascadeEngine
 from repro_torch.data import make_stream
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import parse_mesh_spec
 from repro_torch.launch.serve import (_ladder_config, _make_expert,
-                                      parse_autoscale)
+                                      mesh_devices, parse_autoscale,
+                                      sync_engine)
 
 # kernel-name marks of the port's CUDA kernels, both variants
 OURS = {"flash_fwd_kernel": "flash_attention",
@@ -112,7 +119,7 @@ def profiled_run(eng: BatchedCascadeEngine, stream, warmup_ticks: int):
     ticks = [list(range(s, min(s + batch, n))) for s in range(0, n, batch)]
     for idxs in ticks[:warmup_ticks]:
         serve(idxs)
-    torch.cuda.synchronize()
+    sync_engine(eng)
     window = ticks[warmup_ticks:]
     commit_s[0] = 0.0
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -124,7 +131,7 @@ def profiled_run(eng: BatchedCascadeEngine, stream, warmup_ticks: int):
         for out in eng.drain():
             preds[out["indices"]] = out["predictions"]
         eng.flush()
-        torch.cuda.synchronize()
+        sync_engine(eng)
         wall = time.perf_counter() - t0
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -144,7 +151,9 @@ def profiled_run(eng: BatchedCascadeEngine, stream, warmup_ticks: int):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     rep = {
         "card": _card(), "device": torch.cuda.get_device_name(0),
-        "batch": batch, "window_ticks": len(window),
+        "batch": batch,
+        "mesh": None if eng.mesh is None else dict(eng.mesh.shape),
+        "window_ticks": len(window),
         "window_items": n_items,
         "max_delay": eng.max_delay, "pipeline_depth": eng.pipeline_depth,
         "per_lane": eng.per_lane,
@@ -180,9 +189,13 @@ def profile(dataset: str, samples: int, batch: int, ladder: str,
             pipeline_depth: int = 0, expert_workers: int = 1,
             per_lane: bool = False, expert_backend: str = "thread",
             expert_timeout=None, autoscale=None,
-            hard_budget=None) -> dict:
-    """Serve ``samples`` items; profile every tick after the warm-up."""
-    dev = resolve_device("cuda")
+            hard_budget=None, device="cuda", mesh: str = "") -> dict:
+    """Serve ``samples`` items; profile every tick after the warm-up.
+    ``mesh`` is a ``--mesh`` spec over ``device`` (``serve.py``'s rule)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"profile_serve profiles a CUDA device, not {dev}")
+    mesh = parse_mesh_spec(mesh, mesh_devices(dev)) if mesh else None
     stream = make_stream(dataset, seed=seed, n_samples=samples)
     expert, train_s = _make_expert(
         stream, stream.spec.n_classes, expert_kind, samples, seed, dev,
@@ -196,7 +209,8 @@ def profile(dataset: str, samples: int, batch: int, ladder: str,
                                pipeline_depth=pipeline_depth,
                                per_lane=per_lane, history_limit=0,
                                expert_timeout=expert_timeout,
-                               autoscale=autoscale, device=dev)
+                               autoscale=autoscale, device=dev,
+                               mesh=mesh)
     try:
         rep, _ = profiled_run(eng, stream, warmup_ticks)
     finally:
@@ -228,6 +242,12 @@ def main(argv=None):
     ap.add_argument("--hard-budget", type=int, default=None,
                     help="the cascade's hard expert budget (0: the "
                          "converged regime, no expert traffic)")
+    ap.add_argument("--device", default="cuda",
+                    help="the CUDA device (a bare 'cuda' gives --mesh "
+                         "every visible card once, 'cuda:0' fills every "
+                         "slot with card 0)")
+    ap.add_argument("--mesh", default="",
+                    help="lane-shard the engine, e.g. 'data=2'")
     ap.add_argument("--out", default="",
                     help="also write the JSON report to this path")
     args = ap.parse_args(argv)
@@ -240,7 +260,8 @@ def main(argv=None):
                   expert_backend=args.expert_backend,
                   expert_timeout=args.expert_timeout,
                   autoscale=parse_autoscale(args.autoscale),
-                  hard_budget=args.hard_budget)
+                  hard_budget=args.hard_budget, device=args.device,
+                  mesh=args.mesh)
     text = json.dumps(rep)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as fh:

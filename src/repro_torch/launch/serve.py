@@ -10,7 +10,10 @@ Two engines:
   async expert queue), ``--pipeline-depth`` (pipelined route passes),
   ``--expert-workers`` / ``--expert-backend`` (the expert pool),
   ``--per-lane-commit``, ``--expert-timeout`` (fault requeues) and
-  ``--autoscale`` (the expert fleet); live-state checkpoints
+  ``--autoscale`` (the expert fleet); lane sharding over a device mesh
+  (``--mesh data=N``: the engine's lanes split into N shards, each
+  shard's route passes on its own device, the cascade's state on the
+  first); live-state checkpoints
   (``--checkpoint-every`` / ``--checkpoint-path``, ``--restore``); and
   the continuous-batching front-end (``--arrivals lockstep|poisson|
   burst`` over a pool of ``--lane-budget`` lanes, ``--admission queue|
@@ -54,6 +57,14 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --ladder kernel-ci --expert simulated --samples 64 --batch 8 \
       --sanitize determinism --trace-out build/a.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --ladder kernel-ci --expert simulated --samples 64 --batch 8 \
+      --mesh data=8
+
+``--mesh`` takes its devices from ``--device``: the bare ``cuda`` (the
+default) gives the mesh one distinct card a slot, and a spec that needs
+more cards than are visible raises; ``cpu`` or one indexed card
+(``cuda:0``) fills every slot with that device.
 """
 from __future__ import annotations
 
@@ -70,6 +81,7 @@ from repro_torch.core import (BatchedCascadeEngine, CascadeFrontEnd,
 from repro_torch.core.rng import tick_rngs
 from repro_torch.data import arrival_schedule, make_stream
 from repro_torch.device import DeviceLike, resolve_device, sync
+from repro_torch.launch.mesh import parse_mesh_spec
 from repro_torch.models.kernel_students import TINY_SSM_CI, TINY_TF_CI
 
 LADDERS = ("default", "kernel", "kernel-ci")
@@ -190,6 +202,20 @@ def _report(metrics: dict, n: int, dt: float, lanes: str,
           f"{[round(float(f), 3) for f in metrics['level_fractions']]}")
 
 
+def mesh_devices(device: DeviceLike):
+    """The devices ``--mesh`` takes for ``--device``: None (every visible
+    card, each once) for the bare ``cuda``, else that one device in
+    every slot."""
+    dev = resolve_device(device)
+    return None if dev.type == "cuda" and dev.index is None else dev
+
+
+def sync_engine(engine) -> None:
+    """Wait for the queued work of every device the engine runs on."""
+    for d in dict.fromkeys(engine.lane_devices):
+        sync(d)
+
+
 def _save_trace(engine, trace_out: str) -> None:
     """Write the engine's determinism trace to ``trace_out``, if both
     exist.  Two runs' saved traces (``--expert-workers 1`` against ``4``,
@@ -245,7 +271,7 @@ def _serve_frontend(engine, stream, arrivals: str, *, admission: str,
                          queue_limit=queue_limit)
     t0 = time.time()
     fe.serve(requests)
-    sync(engine.device)
+    sync_engine(engine)
     dt = time.time() - t0
     _save_trace(engine, trace_out)
     m = fe.metrics()
@@ -255,10 +281,12 @@ def _serve_frontend(engine, stream, arrivals: str, *, admission: str,
            if served.any() else 0.0)
     cs = engine.commit_stats
     goodput = m["items_done"] / max(dt, 1e-9)
+    mesh = ("" if engine.mesh is None
+            else f", mesh={dict(engine.mesh.shape)}")
     print(f"\nserved {m['items_done']} items of {m['requests']} "
           f"requests in {dt:.1f}s over {m['ticks']} ticks "
           f"(arrivals={arrivals}, lanes={engine.n_streams}, "
-          f"admission={admission}, device={engine.device})")
+          f"admission={admission}, device={engine.device}{mesh})")
     print(f"answered={m['answered']} shed={m['shed']}  "
           f"goodput={goodput:.0f} items/s  "
           f"occupancy={m['occupancy_mean']:.2f}/{engine.n_streams} "
@@ -291,7 +319,7 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
                          arrival_rate: float = 1.0, request_len: int = 8,
                          burst_size: int = 8, checkpoint_every: int = 0,
                          checkpoint_path: str = "", restore: str = "",
-                         trace_out: str = ""):
+                         trace_out: str = "", mesh=None):
     """Default serving path: the batched multi-stream engine, with the
     engine matrix's options (``async_delay`` = the engine's
     ``max_delay``; ``autoscale`` = (lo, hi) fleet bounds, the expert
@@ -302,7 +330,10 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
     front-end over a pool of ``lane_budget`` lanes (default ``batch``)
     under ``admission`` "queue" or "shed" (``queue_limit``).
     ``trace_out`` writes the determinism trace (``--sanitize
-    determinism``) after the run.  Returns the
+    determinism``) after the run.  ``mesh`` (a ``launch.mesh.Mesh``)
+    shards the lanes over its ('pod', 'data') axes; the cascade state
+    stays on its first device, and the batch must divide by its lane
+    count.  Returns the
     engine's ``run`` metrics (or, with arrivals, the front-end's) plus
     the engine itself (``"engine"``: its levels' forward counts,
     per-stream accounting, its expert, its pipeline / commit / fault
@@ -328,7 +359,8 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
                                   per_lane=per_lane, history_limit=0,
                                   commit_log=arrivals != "none" or None,
                                   expert_timeout=expert_timeout,
-                                  autoscale=autoscale, device=dev)
+                                  autoscale=autoscale, device=dev,
+                                  mesh=mesh)
     if restore:
         engine.restore_state(restore)
         print(f"restored live state from {restore} (resuming at tick "
@@ -350,11 +382,13 @@ def serve_stream_batched(dataset: str, samples: int, mu: float,
                              checkpoint_path=checkpoint_path or None)
     finally:
         engine.close()
-    sync(dev)
+    sync_engine(engine)
     dt = time.time() - t0
     _save_trace(engine, trace_out)
     lanes = (f"batch={batch} ladder={ladder} expert={expert_kind} "
              f"device={dev}")
+    if mesh is not None:
+        lanes += f" mesh={dict(mesh.shape)}"
     if async_delay:
         lanes += f" async_delay={async_delay}"
     if pipeline_depth:
@@ -572,6 +606,13 @@ def main(argv=None):
                          "LLM stand-in (real expert compute); 'simulated' "
                          "replays the stream's precomputed noisy-teacher "
                          "annotations (zero compute)")
+    ap.add_argument("--mesh", default="",
+                    help="lane-shard the batched engine over a device "
+                         "mesh, e.g. 'data=8' or 'pod=2,data=4': every "
+                         "visible card once with --device cuda, or the "
+                         "one --device (cpu, cuda:0) in every slot; the "
+                         "cascade's state stays on the first device, "
+                         "--batch must divide by the lane-device count")
     ap.add_argument("--ladder", default="default", choices=list(LADDERS),
                     help="'default' = lr -> tinytf dense students; "
                          "'kernel' = lr -> tinytf_flash -> ssm at the "
@@ -633,7 +674,10 @@ def _serve(args) -> None:
                              burst_size=args.burst_size,
                              checkpoint_every=args.checkpoint_every,
                              checkpoint_path=args.checkpoint_path,
-                             restore=args.restore, trace_out=args.trace_out)
+                             restore=args.restore, trace_out=args.trace_out,
+                             mesh=(parse_mesh_spec(
+                                 args.mesh, mesh_devices(args.device))
+                                 if args.mesh else None))
     else:
         serve_stream(args.dataset, args.samples, args.mu,
                      microbatch=args.microbatch, expert_kind=args.expert,

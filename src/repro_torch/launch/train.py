@@ -1,6 +1,7 @@
 """Training driver: train a zoo model on synthetic LM batches (port of
-``repro.launch.train``, without its mesh: lane sharding is a later
-slice, so one card holds the whole model).
+``repro.launch.train``, without its mesh: the zoo's model sharding is a
+later slice, ROADMAP Queue 1 item 14, so one card holds the whole
+model).
 
 Each step draws a batch from ``lm_batches``, runs ``train_loss`` through
 the zoo's teacher-forced forward (attention, MoE and SSD on the port's

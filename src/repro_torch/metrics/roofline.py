@@ -10,7 +10,9 @@ published rates:
 
 The counts come from ``metrics.cost.CostCounter`` (``launch/dryrun.py``).
 One card runs no collective, so the dry-run passes 0; the bytes of the
-port's own ``torch.distributed`` calls come with lane sharding.  The
+port's own ``torch.distributed`` calls come with the zoo's model
+sharding (ROADMAP Queue 1 item 14; the cascade's lane sharding runs no
+collective).  The
 reference's ``parse_collective_bytes`` reads XLA's HLO text, which the
 port never produces, so it has no counterpart here.
 

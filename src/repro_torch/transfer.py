@@ -21,6 +21,9 @@ overlap nothing.  Two pieces fix that on the card:
   ``sharding.host_prefetch``).  Reading the host tensors without the
   wait would return stale numbers with no error.
 
+Each event is recorded on the stream its copies were queued on (that
+of the device they touch), so both also hold for a device other than
+the current one: a lane-sharded engine's shards (``repro_torch.sharding``).
 On the CPU both are plain: ``upload`` wraps the array without a copy,
 and ``HostPrefetch`` reads the tensors as they are.
 """
@@ -56,7 +59,7 @@ class PinnedStaging:
                                 pin_memory=True), torch.cuda.Event())
         slot[0].numpy()[...] = x
         out = slot[0].to(self.device, non_blocking=True)
-        slot[1].record()
+        slot[1].record(torch.cuda.current_stream(self.device))
         pool.append(slot)
         return out
 
@@ -83,7 +86,7 @@ class HostPrefetch:
         for h, t in zip(self._host, self.tensors):
             h.copy_(t, non_blocking=True)
         self._event = torch.cuda.Event()
-        self._event.record()
+        self._event.record(torch.cuda.current_stream(self.tensors[0].device))
 
     def result(self) -> List[np.ndarray]:
         """The copied values, once the copies have landed."""

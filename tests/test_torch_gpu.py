@@ -42,7 +42,11 @@ none launches the kernel alone, decode attention raises under grad, and
 a smoke-config training step with remat on the card equals the CPU's.
 The dry-run: a smoke config's probes on the card count the FLOPs and
 launches of their ``meta`` count, and their bytes and peak memory agree
-with it within ``launch.dryrun.AGREE``.
+with it within ``launch.dryrun.AGREE``.  Lane sharding: the kernel
+ladder served with two lane shards on one card routes as the unmeshed
+engine, its state within the mesh tolerance, each kernel launched twice
+as often by variant (once a shard, at half the rows); over every card of
+a machine with more than one, the same.
 Nothing here imports JAX (the GPU machine has none).
 """
 import numpy as np
@@ -1297,3 +1301,76 @@ def test_dryrun_probe_on_the_card_equals_its_meta_count(cuda, arch, kind):
                 want[k.split(":")[1]] += 3 * n       # warm-up, counted, 1
     assert moved == want and sum(want.values()) > 0
     assert rec["measured"]["ms"] > 0 and rec["measured"]["kind"]
+
+
+# ---------------------------------------------------------------------------
+# lane sharding on the card
+# ---------------------------------------------------------------------------
+MESH_RTOL, MESH_ATOL = 1e-4, 1e-6
+
+
+def _mesh_pair(mesh, S):
+    """The CI kernel ladder served unmeshed and over ``mesh``, each run's
+    launches by variant counted from zero."""
+    from repro_torch.core import BatchedCascadeEngine, SimulatedExpert
+    from repro_torch.data import make_stream
+    stream = make_stream("hatespeech", seed=0, n_samples=8 * S)
+    counters = {"flash_attention": flash_attention_cuda,
+                "decode_attention": decode_attention_cuda,
+                "ssd_scan": ssd_scan_cuda}
+    runs = []
+    for m in (None, mesh):
+        before = {k: dict(c.launches_by_variant)
+                  for k, c in counters.items()}
+        eng = BatchedCascadeEngine(_ci_ladder(), SimulatedExpert(stream),
+                                   n_streams=S, device="cuda", mesh=m)
+        out = eng.run(stream)
+        for d in set(eng.lane_devices):
+            torch.cuda.synchronize(d)
+        moved = {k: {v: n - before[k][v]
+                     for v, n in c.launches_by_variant.items()}
+                 for k, c in counters.items()}
+        runs.append((eng, out, moved))
+    return runs
+
+
+def _assert_mesh_twins(runs, n_shards):
+    from repro_torch.tree import tree_leaves
+    (a, ma, la), (b, mb, lb) = runs
+    assert np.array_equal(ma["predictions"], mb["predictions"])
+    assert ma["expert_calls"] == mb["expert_calls"]
+    for key in ("level", "expert_called", "pred"):
+        assert np.array_equal(np.concatenate(a.history[key]),
+                              np.concatenate(b.history[key])), key
+    assert [lvl.forwards_by_batch for lvl in a.levels] == \
+        [lvl.forwards_by_batch for lvl in b.levels]
+    assert all(sum(c.values()) > 0 for c in la.values())
+    assert lb == {k: {v: n_shards * n for v, n in c.items()}
+                  for k, c in la.items()}
+    for x_lvl, y_lvl in zip(a.levels, b.levels):
+        for attr in ("params", "dparams"):
+            for x, y in zip(tree_leaves(getattr(x_lvl, attr)),
+                            tree_leaves(getattr(y_lvl, attr))):
+                torch.testing.assert_close(y, x, rtol=MESH_RTOL,
+                                           atol=MESH_ATOL)
+        for i, reps in enumerate(b._replicas):
+            for rep in reps:
+                assert all(torch.equal(p, q) for p, q in zip(
+                    tree_leaves(rep), tree_leaves(
+                        (b.levels[i].params, b.levels[i].dparams))))
+
+
+def test_two_shards_on_one_card_route_like_unmeshed(cuda):
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2,), ("data",), ["cuda:0", "cuda:0"])
+    _assert_mesh_twins(_mesh_pair(mesh, 8), 2)
+
+
+def test_shards_over_distinct_cards_route_like_unmeshed(cuda):
+    from repro_torch.launch.mesh import make_mesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs more than one CUDA device")
+    mesh = make_mesh((n,), ("data",))
+    assert len({str(d) for d in mesh.devices.flat}) == n
+    _assert_mesh_twins(_mesh_pair(mesh, 8 * n), n)

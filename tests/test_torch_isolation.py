@@ -46,10 +46,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                           env={"PYTHONPATH": str(SRC),
                                "PATH": "/usr/local/bin:/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # every package and module of the two slices was imported (the zoo
-    # slice added configs/mixtral_8x22b, models/{attention,moe,
-    # transformer} and kernels/moe_gmm/{__init__,kernel,ops,ref})
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 49
+    # every package and module of the port was imported: 77 with lane
+    # sharding (launch/mesh, sharding/{__init__,specs}), so a module
+    # dropped from the walk shows here
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 77
 
 
 def test_port_sources_never_name_the_reference_imports():
