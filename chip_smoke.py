@@ -278,7 +278,30 @@ Phases (any failure exits non-zero and prints no result line):
      at half the rows); (c) the same at max_delay 2 and pipeline depth
      2, against phase 8 (c)'s unmeshed run with those options; (d) where more than one card is visible (and divides the
      64 lanes), the same over every card, launches N times; else a line
-     says it did not run; then the phase's seconds.
+     says it did not run; then the phase's seconds;
+  15. model-sharding (run inside the zoo block, on the Mixtral weights
+     and prompts of phases 6 and 7 before they are freed): the zoo's tensor and
+     expert parallelism (``sharding.place`` by ``param_pspecs``, the
+     mesh installed, ``models.sharded``) over a (data 1, model 2) mesh
+     on cuda:0 twice: (a) Mixtral prefill + 4 decode steps fed the
+     unsharded greedy tokens, in tensor mode against zoo-serve's logits
+     and in expert mode against the unsharded run with the prompt in
+     one dispatch group (expert mode's dispatch over a data slice is
+     ungrouped, as the reference's), at the bf16 rule (atol = rtol =
+     6e-2), every greedy pick equal but for ties within that rule;
+     launches by variant = 2 x the unsharded ones (expert mode's
+     prefill: 3 products a MoE layer and rank), in the unsharded
+     variants ("tc", "split"); each kernel at its shard's shape held
+     against its plain version and timed beside its bound and the
+     library call, and beside the unsharded row; tensor mode profiled;
+     (b) mamba2-370m at full depth the same way, the SSD "parallel" at
+     16 heads a rank, its logits no farther from the fp32 run than 1.25
+     x the unsharded bf16 run's + 1e-3 (relative l2; phase 12's rule);
+     (c) one fp32 ``train_loss`` + backward of Mixtral at 1 layer, 1 x
+     2048 (layer 0 of the zoo's weights), the loss within 1e-5 and each
+     gathered gradient leaf within 1e-4 (relative l2) of the unsharded
+     step's; (d) (a) over two distinct cards where they exist, else a
+     line says it did not run; then the phase's seconds.
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade, Mixtral and
 zoo-archs serving runs, each counted from zero, ``launches_by_variant``
@@ -302,6 +325,8 @@ backward's ms beside its bound), and ``dryrun_<model>_<shape>`` phase
 for the three cascade kernels, ``cascade_mesh`` phase 14 (b)'s meshed
 run (both shards' launches, by variant, its items/s and idle share) and
 ``cascade_shard_b4`` the timed row at one shard's 4 rows;
+``model_sharding_<run>_<stage>`` phase 15's shard rows (Mixtral in
+tensor and expert mode, mamba2) with the launches of both ranks;
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -352,6 +377,7 @@ TABLE1_BUDGET = 106
 ZOO_ARCH = "mixtral-8x22b"
 ZOO_LAYERS = 2
 ZOO_BATCH, ZOO_PROMPT, ZOO_DECODE = 2, 2048, 16
+MS_DECODE = 4             # phase 15's greedy decode steps
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:29",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:27",
@@ -2274,7 +2300,9 @@ def _zero_zoo_counts():
 def phase_zoo_serve(cfg, params, tokens):
     """The zoo's serving path: prefill + ZOO_DECODE greedy steps.  Every
     kernel's count is set to zero just before each phase and read just
-    after it, so each phase's launches are its own."""
+    after it, so each phase's launches are its own.  Also returns the
+    prefill's and the first MS_DECODE steps' logits and the greedy tokens
+    fed, which phase 15 holds its meshed runs to."""
     from repro_torch.models import transformer as tfm
     B, S = tokens.shape
     torch.cuda.synchronize()
@@ -2292,16 +2320,20 @@ def phase_zoo_serve(cfg, params, tokens):
         by_variant["prefill"] = _variant_counts()
         _zero_zoo_counts()
         tok = last.argmax(-1)
+        outputs = {"logits": [last], "tokens": []}
         for step in range(ZOO_DECODE):
             out_tokens.append(tok)
             logits, cache = tfm.decode_step(params, cache, tok[:, None],
                                             S + step, cfg)
             tok = logits.argmax(-1)
+            if step < MS_DECODE:
+                outputs["logits"].append(logits)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches["decode"] = {n: fn.launches
                               for n, fn in ZOO_LAUNCHERS.items()}
         by_variant["decode"] = _variant_counts()
+    outputs["tokens"] = out_tokens[:MS_DECODE + 1]
     expect = _zoo_expected(cfg, B * S, ZOO_DECODE)
     m = {"prefill_ms": (t1 - t0) * 1e3,
          "decode_ms_per_step": (t2 - t1) * 1e3 / ZOO_DECODE,
@@ -2340,14 +2372,16 @@ def phase_zoo_serve(cfg, params, tokens):
               f"(B, vocab)")
     if not bool(((gen >= 0) & (gen < cfg.vocab)).all()):
         _fail("zoo greedy tokens outside the vocabulary")
-    return launches, by_variant, m
+    return launches, by_variant, m, outputs
 
 
-def phase_zoo_profile(cfg, params, batch, n_decode=4, tag="zoo-profile"):
+def phase_zoo_profile(cfg, params, batch, n_decode=4, tag="zoo-profile",
+                      whole=lambda t: t):
     """Device time of one zoo prefill of ``batch`` (its tokens and a
     CROSS model's memory) and of ``n_decode`` decode steps under
     torch.profiler: the union of kernel intervals against the wall clock
-    (idle share) and device time by kernel group."""
+    (idle share) and device time by kernel group.  ``whole`` turns a
+    step's logits into one tensor (over a mesh: ``unshard``)."""
     from repro_torch.launch.profile_serve import _group, _union_us
     from repro_torch.models import transformer as tfm
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2359,12 +2393,12 @@ def phase_zoo_profile(cfg, params, batch, n_decode=4, tag="zoo-profile"):
         state["last"], state["cache"] = tfm.prefill(params, batch, cfg)
 
     def decode():
-        tok = state["last"].argmax(-1)
+        tok = whole(state["last"]).argmax(-1)
         cache = state["cache"]
         for step in range(n_decode):
             logits, cache = tfm.decode_step(params, cache, tok[:, None],
                                             S + step, cfg)
-            tok = logits.argmax(-1)
+            tok = whole(logits).argmax(-1)
 
     for label, fn in (("prefill", prefill),
                       (f"decode x{n_decode}", decode)):
@@ -3767,6 +3801,483 @@ def phase_mesh(tokens, phase4, unmeshed):
     return results, meshed
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the zoo's model sharding (tensor / expert parallel over a
+# mesh's 'model' axis, both ranks on card 0 unless there are more cards)
+# ---------------------------------------------------------------------------
+MS_MAMBA = "mamba2-370m"
+# (c): the step in fp32 computes the unsharded step's function in
+# another order, phase 12's fp32 rule (TRAIN_TOL)
+MS_TRAIN_SEQ = 2048
+
+
+def _ms_mesh(devices):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((1, 2), ("data", "model"), devices)
+
+
+def _ms_expected(cfg, n_tokens, mode, ranks=2):
+    """Launches a meshed prefill and MS_DECODE steps imply: every rank
+    runs the unsharded layers' kernels at its shard's shape, so
+    ``ranks`` x the unsharded count, except the MoE in expert mode, whose
+    dispatch over the data slice is ungrouped (one (E/m, C, D) product
+    per projection and layer however many tokens)."""
+    exp = _zoo_expected(cfg, n_tokens, MS_DECODE)
+    out = {ph: {k: ranks * v for k, v in d.items()} for ph, d in exp.items()}
+    if mode == "expert" and cfg.moe is not None:
+        n_moe = cfg.n_periods * len(cfg.moe_period_idx)
+        out["prefill"]["moe_gmm"] = ranks * 3 * n_moe
+    return out
+
+
+def _ms_capture(fn):
+    """Run ``fn(stage)`` recording the inputs of the first call of each
+    kernel op by stage (layer 0 of rank 0; moe_gmm's up and down
+    projections of the first MoE group that got tokens), as
+    ``capture_zoo_inputs`` does."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    got, stage = {}, {"now": "prefill", "gmm": 0}
+    real = {(moe_mod, "moe_gmm"): moe_mod.moe_gmm,
+            (attn_mod, "flash_attention"): attn_mod.flash_attention,
+            (attn_mod, "decode_attention"): attn_mod.decode_attention,
+            (ssm_mod, "ssd_scan"): ssm_mod.ssd_scan}
+
+    def rec(name, f):
+        def g(*args, **kw):
+            if name == "moe_gmm":
+                # a rank's products come in threes (w_in, w_gate, w_out);
+                # keep the first up / down whose tokens are not all
+                # dropped (an expert-mode rank may get none in a step)
+                stage["gmm"] += 1
+                k = stage["gmm"] % 3
+                key = (stage["now"], "up" if k == 1 else "down")
+                if k != 2 and (key not in got
+                               or not bool(got[key][0][0].any())):
+                    got[key] = (args, kw)
+            else:
+                got.setdefault(name, (args, kw))
+            return f(*args, **kw)
+        return g
+
+    try:
+        for (mod, name), f in real.items():
+            setattr(mod, name, rec(name, f))
+        fn(stage)
+    finally:
+        for (mod, name), f in real.items():
+            setattr(mod, name, f)
+    torch.cuda.synchronize()
+    return got
+
+
+def _ms_serve(tag, cfg, placed, mesh, tokens, want, fp32=None):
+    """Prefill + MS_DECODE decode steps of ``placed`` over ``mesh`` fed
+    the unsharded run's greedy tokens (``want``), launches and variants
+    counted from zero around each phase; the logits held to ``want``'s
+    at the bf16 rule (with ``fp32``, the same run's logits in fp32:
+    no farther from them than phase 12's ratio x the unsharded bf16
+    run is), and each step's greedy pick equal to the unsharded one
+    unless the two are tied within the bf16 rule; the kernels' inputs
+    captured."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import collectives as col
+    from repro_torch.sharding import specs as shd
+    B, S = tokens.shape
+    launches, by_variant, res = {}, {}, {}
+
+    def read(phase):
+        launches[phase] = {n: fn.launches for n, fn in ARCH_LAUNCHERS.items()}
+        by_variant[phase] = {n: c for n, c in _variant_counts().items()
+                             if n in ARCH_LAUNCHERS}
+
+    def run(stage):
+        for fn in ARCH_LAUNCHERS.values():
+            fn.launches = 0
+        _zero_variant_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = tfm.prefill(placed, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        read("prefill")
+        for fn in ARCH_LAUNCHERS.values():
+            fn.launches = 0
+        _zero_variant_counts()
+        stage.update(now="decode", gmm=0)
+        res["logits"] = [col.unshard(last)]
+        for step in range(MS_DECODE):
+            logits, cache = tfm.decode_step(
+                placed, cache, want["tokens"][step][:, None], S + step, cfg)
+            res["logits"].append(col.unshard(logits))
+        res["tokens"] = [lg.argmax(-1) for lg in res["logits"]]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        read("decode")
+        res["prefill_ms"] = (t1 - t0) * 1e3
+        res["decode_ms_per_step"] = (t2 - t1) * 1e3 / MS_DECODE
+
+    shd.set_mesh(mesh)
+    try:
+        with torch.no_grad():
+            got = _ms_capture(run)
+    finally:
+        shd.set_mesh(None)
+    tol = ZOO_LOGIT_TOL["consistency"]
+    errs = [max_err(a, b) for a, b in zip(res["logits"], want["logits"])]
+    if fp32 is None:
+        bad = max(float(((a.float() - b.float()).abs()
+                         - tol * (1 + b.float().abs())).max())
+                  for a, b in zip(res["logits"], want["logits"]))
+    else:
+        ratio, slack = TRAIN_TOL["bf16_ratio"], TRAIN_TOL["bf16_slack"]
+        V = cfg.vocab               # the padded columns are -1e9
+        dist = [(_rel_l2(a[:, :V], f[:, :V]), _rel_l2(b[:, :V], f[:, :V]))
+                for a, b, f in zip(res["logits"], want["logits"], fp32)]
+        bad = max(dm - (ratio * du + slack) for dm, du in dist)
+        print(f"[model-sharding] {tag}: logits' relative l2 to the fp32 "
+              f"run, meshed / unsharded bf16, per step "
+              f"{[f'{dm:.4g} / {du:.4g}' for dm, du in dist]} (allowed "
+              f"{ratio} x + {slack})", flush=True)
+    same, ties = [], []
+    for mine, ref, lg in zip(res["tokens"], want["tokens"], want["logits"]):
+        same.append(bool(torch.equal(mine, ref)))
+        # a pick that differs must be a tie within the rule: its
+        # unsharded logit within tol (1 + |max|) of the unsharded max
+        top = lg.float().max(-1).values
+        at = lg.float().gather(-1, mine[:, None])[:, 0]
+        tied = (mine != ref) & (at >= top - tol * (1 + top.abs()))
+        ties.append(int(tied.sum()))
+        if bool(((mine != ref) & ~tied).any()):
+            _fail(f"{tag}: a meshed greedy token differs from the "
+                  f"unsharded one beyond a tie: gap "
+                  f"{(top - at)[mine != ref].tolist()}")
+    print(f"[model-sharding] {tag}: prefill_ms={res['prefill_ms']:.6g} "
+          f"decode_ms_per_step={res['decode_ms_per_step']:.6g}; logits vs "
+          f"unsharded max|diff| per step {[f'{e:.4g}' for e in errs]} "
+          f"(atol=rtol={tol}); greedy tokens equal {same}; picks that "
+          f"differ within a tie of the rule {ties}", flush=True)
+    if bad > 0 or not all(map(math.isfinite, errs)):
+        _fail(f"{tag}: meshed logits disagree with the unsharded run")
+    return launches, by_variant, res, got
+
+
+def _ms_one_group(cfg, params, tokens):
+    """The unsharded prefill + MS_DECODE greedy steps with every prompt
+    token in one MoE dispatch group.  Expert mode over a data slice
+    routes its T/dp tokens ungrouped at ``capacity_for(T/dp)`` (the
+    reference's ``shard_map`` body), not in groups of MOE_GROUP at a
+    group's capacity as the local path does, so at (data 1) its function
+    is this one, not zoo-serve's; the decode steps' two tokens are one
+    group either way."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    B, S = tokens.shape
+    real = moe_mod.MOE_GROUP
+    out = {"logits": [], "tokens": []}
+    try:
+        moe_mod.MOE_GROUP = B * S
+        with torch.no_grad():
+            last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
+            out["logits"].append(last)
+            out["tokens"].append(last.argmax(-1))
+            for step in range(MS_DECODE):
+                logits, cache = tfm.decode_step(
+                    params, cache, out["tokens"][-1][:, None], S + step, cfg)
+                out["logits"].append(logits)
+                out["tokens"].append(logits.argmax(-1))
+    finally:
+        moe_mod.MOE_GROUP = real
+    return out
+
+
+def _ms_check_launches(tag, cfg, n_tokens, mode, launches, by_variant,
+                       unsharded):
+    """Launches equal what the layers imply over two ranks, every one in
+    the model's unsharded variant; printed beside the unsharded counts."""
+    expect = _ms_expected(cfg, n_tokens, mode)
+    want = _arch_variants(cfg)
+    print(f"[model-sharding] {tag}: launches {launches} expected {expect}; "
+          f"by variant {by_variant}; unsharded {unsharded}", flush=True)
+    for phase in ("prefill", "decode"):
+        for n in ARCH_LAUNCHERS:
+            if launches[phase][n] != expect[phase][n]:
+                _fail(f"{tag} {n}: {launches[phase][n]} {phase} launches != "
+                      f"{expect[phase][n]}")
+            v_want = {v: expect[phase][n] if v == want[n] else 0
+                      for v in by_variant[phase][n]}
+            if by_variant[phase][n] != v_want:
+                _fail(f"{tag} {n}: {phase} launches by variant "
+                      f"{by_variant[phase][n]} != {v_want}")
+
+
+def _ms_rows(tag, got, results, attention=True, prefix="shard"):
+    """Each kernel at its shard's shape against its plain version, timed
+    with events beside its bound and the library call (labels start with
+    ``<prefix> <tag>``); ``attention=False`` leaves out the attention rows
+    (expert mode's attention is tensor mode's)."""
+    if attention and "flash_attention" in got:
+        (q, k, v), kw = got["flash_attention"]
+        check("flash_attention", f"{prefix} {tag} prefill S={q.shape[1]} "
+              f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
+              lambda: fl_ops.flash_attention(q, k, v, **kw),
+              lambda: flash_plain(q, k, v, **kw), ZOO_TOL["bf16"], results,
+              lambda: flash_library(q, k, v, **kw),
+              flash_bound(q, k, v, **kw), True, relative=True, reps=10,
+              variant="tc")
+    if attention and "decode_attention" in got:
+        (q, k, v, pos), kw = got["decode_attention"]
+        check("decode_attention", f"{prefix} {tag} decode W={k.shape[1]} "
+              f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}",
+              lambda: dec_ops.decode_attention(q, k, v, pos, **kw),
+              lambda: decode_plain(q, k, v, pos), ZOO_TOL["bf16"], results,
+              lambda: decode_library(q, k, v, pos),
+              decode_bound(q, k, v, pos), True, relative=True,
+              variant="split")
+    for stage in ("prefill", "decode"):
+        for proj in ("up", "down"):
+            if (stage, proj) not in got:
+                continue
+            (x, w), _ = got[(stage, proj)]
+            E, C, D = x.shape
+            check("moe_gmm", f"{prefix} {tag} {stage} {proj} E{E} C={C} "
+                  f"D={D} F={w.shape[2]}", lambda: gmm_ops.moe_gmm(x, w),
+                  lambda: gmm_ref(x, w), ZOO_TOL["bf16"], results,
+                  lambda: torch.bmm(x, w), gmm_bound(x, w), True,
+                  relative=True, reps=10, variant="tc")
+    if "ssd_scan" in got:
+        (x, adt, dt, B, C), kw = got["ssd_scan"]
+        L = kw["chunk"]
+        check("ssd_scan", f"{prefix} {tag} prefill H{x.shape[2]} chunk {L} "
+              f"N{B.shape[-1]}",
+              lambda: ssd_ops.ssd_scan(x, adt, dt, B, C, chunk=L),
+              lambda: ssd_scan_chunked_ref(x, adt, dt, B, C, L),
+              ZOO_SSD_TOL, results, None, ssd_bound(x, adt, dt, B, C, L),
+              True, scaled=True, reps=5, variant="parallel")
+
+
+def _ms_train(cfg, params, tokens):
+    """(c) One ``train_loss`` + backward of Mixtral at 1 layer, 1 x
+    MS_TRAIN_SEQ, in fp32 (layer 0 of the zoo's weights, upcast): (data
+    1, model 2) in tensor mode against the unsharded step, the loss and
+    each gathered gradient leaf (the ranks' copies summed) at phase 12's
+    fp32 rule."""
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import specs as shd
+    cfg1 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    p1 = {k: (tree_map(lambda t: t[:1].float(), v) if k == "blocks"
+              else tree_map(lambda t: t.float(), v))
+          for k, v in params.items()}
+    batch = {"tokens": tokens[:1, :MS_TRAIN_SEQ],
+             "targets": torch.roll(tokens[:1, :MS_TRAIN_SEQ], -1, 1)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss0, m0, g0 = loss_and_grads(p1, batch, cfg1, remat=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mesh = _ms_mesh(["cuda:0", "cuda:0"])
+    spec = shd.param_pspecs(p1, "tensor")
+    placed = [tree_map(lambda t: t.detach().requires_grad_(True), r)
+              for r in shd.place(p1, spec, mesh)]
+    del p1
+    for fn in ARCH_LAUNCHERS.values():
+        fn.launches = 0
+    shd.set_mesh(mesh)
+    try:
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss, m = tfm.train_loss(placed, batch, cfg1, remat=False)
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        shd.set_mesh(None)
+    launches = {n: fn.launches for n, fn in ARCH_LAUNCHERS.items()}
+    grads = shd.gather_tree([tree_map(lambda t: t.grad, r) for r in placed],
+                            spec, mesh, sum_replicas=True)
+    del placed
+    rel = abs(float(loss.detach()) - float(loss0)) / abs(float(loss0))
+    print(f"[model-sharding] (c) {cfg1.name} 1 layer fp32, 1 x "
+          f"{MS_TRAIN_SEQ}, model=2 tensor mode: loss "
+          f"{float(loss.detach()):.8g} vs "
+          f"unsharded {float(loss0):.8g} (rel {rel:.3g}, tol "
+          f"{TRAIN_TOL['fp32_loss']}); aux "
+          f"{float(m['aux'].detach()):.6g} vs "
+          f"{float(m0['aux']):.6g}; step ms meshed {(t3 - t2) * 1e3:.6g} "
+          f"unsharded {(t1 - t0) * 1e3:.6g}; launches {launches}",
+          flush=True)
+    if not rel <= TRAIN_TOL["fp32_loss"]:
+        _fail(f"model-sharding (c): loss off by {rel} relative")
+    _compare_grads("model-sharding (c) gathered gradients", grads, g0,
+                   TRAIN_TOL["fp32_grad"])
+    if min(launches.values()) < 0 or launches["flash_attention"] != 2 \
+            or launches["moe_gmm"] != 2 * 3:
+        _fail(f"model-sharding (c): launches {launches}; the forward runs "
+              f"one flash and one MoE layer's 3 grouped products a rank")
+
+
+def _ms_profile(tag, cfg, placed, mesh, tokens):
+    """zoo-profile's prefill and 4 decode steps of the placed model over
+    ``mesh``: device busy / idle and ms by kernel group."""
+    from repro_torch.sharding import collectives as col
+    from repro_torch.sharding import specs as shd
+    shd.set_mesh(mesh)
+    try:
+        phase_zoo_profile(cfg, placed, {"tokens": tokens},
+                          tag=f"model-sharding {tag} profile",
+                          whole=col.unshard)
+    finally:
+        shd.set_mesh(None)
+
+
+def _ms_beside(results, *unsharded):
+    """Each shard row's events ms beside the unsharded row of the same
+    kernel, stage and projection (zoo-kernels' rows; (b)'s own unsharded
+    SSD row)."""
+    plain = [(n, lab, r) for res in unsharded for n, rows in res.items()
+             for lab, r in rows if "kernel_ms" in r]
+    for name, rows in results.items():
+        for lab, r in rows:
+            words = lab.split()
+            stage = next(w for w in ("prefill", "decode") if w in words)
+            proj = next((w for w in ("up", "down") if w in words), "")
+            model = "mamba2" if "mamba2" in words else "zoo"
+            twin = [(pl, pr) for n, pl, pr in plain if n == name
+                    and stage in pl.split() and (not proj or proj in
+                                                 pl.split())
+                    and ((model == "mamba2") == ("mamba2" in pl.split()))]
+            if twin:
+                pl, pr = twin[0]
+                print(f"[model-sharding] {name} [{lab}] {r['kernel_ms']:.6g}"
+                      f" ms beside [{pl}] {pr['kernel_ms']:.6g} ms "
+                      f"(x{r['kernel_ms'] / pr['kernel_ms']:.3f})",
+                      flush=True)
+
+
+def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
+                         zoo_results):
+    """15. model-sharding: (a) the zoo's Mixtral (zoo-serve's weights and
+    prompts) over a (data 1, model 2) mesh on card 0 twice, tensor mode
+    against zoo-serve's unsharded outputs, expert mode against the
+    unsharded run with the prompt in one dispatch group
+    (``_ms_one_group``); (b) mamba2-370m
+    at full depth the same way against its own unsharded run; (c) one
+    training step at 1 layer in fp32; (d) (a) over distinct cards where
+    there are more than one.  Returns the kernel rows and each run's
+    launches for the record."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import specs as shd
+    t_phase = time.time()
+    results, runs = {}, {}
+    B, S = prompts.shape
+    mesh = _ms_mesh(["cuda:0", "cuda:0"])
+    unsharded = {ph: {n: zoo_by_variant[ph][n] for n in ZOO_LAUNCHERS}
+                 for ph in ("prefill", "decode")}
+    for mode in ("tensor", "expert"):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, sharding_mode=mode))
+        want = zoo_out if mode == "tensor" else _ms_one_group(cfg, params,
+                                                               prompts)
+        placed = shd.place(params, shd.param_pspecs(params, mode), mesh)
+        tag = f"(a) {cfg.name} {mode} mode"
+        launches, by_variant, res, got = _ms_serve(
+            tag, c, placed, mesh, prompts, want)
+        _ms_check_launches(tag, c, B * S, mode, launches, by_variant,
+                           unsharded)
+        _ms_rows(f"mixtral {mode}", got, results, mode == "tensor")
+        _ms_profile(f"(a) {mode}", c, placed, mesh, prompts)
+        runs[f"mixtral_{mode}"] = (launches, by_variant)
+        del placed, got, res
+        torch.cuda.empty_cache()
+    # (b) mamba2-370m at full depth
+    from repro_torch.configs import get_config
+    mcfg = get_config(MS_MAMBA)
+    mparams = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              mcfg)
+    mtok = prompts[:, :S] % mcfg.vocab
+    with torch.no_grad():
+        state = {}
+        plain_got = _ms_capture(lambda stage: state.update(zip(
+            ("last", "cache"), tfm.prefill(mparams, {"tokens": mtok},
+                                           mcfg))))
+        last, cache = state["last"], state["cache"]
+        want = {"logits": [last], "tokens": [last.argmax(-1)]}
+        for step in range(MS_DECODE):
+            logits, cache = tfm.decode_step(
+                mparams, cache, want["tokens"][-1][:, None], S + step, mcfg)
+            want["logits"].append(logits)
+            want["tokens"].append(logits.argmax(-1))
+        # the same steps in fp32: 48 bf16 layers carry a rounding that
+        # the row-parallel partial sums change, so (b) is held to the
+        # fp32 run (phase 12's rule) rather than to one bf16 run
+        m32 = dataclasses.replace(mcfg, dtype="float32")
+        p32 = tree_map(lambda t: t.float(), mparams)
+        last, cache = tfm.prefill(p32, {"tokens": mtok}, m32)
+        fp32 = [last]
+        for step in range(MS_DECODE):
+            logits, cache = tfm.decode_step(
+                p32, cache, want["tokens"][step][:, None], S + step, m32)
+            fp32.append(logits)
+    del cache, p32
+    placed = shd.place(mparams, shd.param_pspecs(mparams), mesh)
+    tag = f"(b) {mcfg.name} full depth"
+    launches, by_variant, _, got = _ms_serve(tag, mcfg, placed, mesh, mtok,
+                                             want, fp32)
+    _ms_check_launches(tag, mcfg, B * S, "tensor", launches, by_variant,
+                       "48 SSD scans at 32 heads (phase 11)")
+    _ms_profile("(b)", mcfg, placed, mesh, mtok)
+    _ms_rows("mamba2", got, results)
+    unsharded_rows = {}
+    _ms_rows("mamba2", plain_got, unsharded_rows, prefix="unsharded")
+    _ms_beside(results, zoo_results, unsharded_rows)
+    runs["mamba2"] = (launches, by_variant)
+    del placed, mparams, got, want, plain_got
+    torch.cuda.empty_cache()
+    # (c) training
+    _ms_train(cfg, params, prompts)
+    torch.cuda.empty_cache()
+    # (d) over distinct cards
+    n = torch.cuda.device_count()
+    if n > 1:
+        mesh_d = _ms_mesh(["cuda:0", "cuda:1"])
+        placed = shd.place(params, shd.param_pspecs(params), mesh_d)
+        launches, by_variant, _, _ = _ms_serve(
+            "(d) model=2 over cuda:0 and cuda:1", cfg, placed, mesh_d,
+            prompts, zoo_out)
+        _ms_check_launches("(d)", cfg, B * S, "tensor", launches,
+                           by_variant, unsharded)
+        del placed
+    else:
+        print(f"[model-sharding] (d) did not run: {n} CUDA device(s) "
+              f"visible (it needs two cards)", flush=True)
+    print(f"[model-sharding] phase seconds {time.time() - t_phase:.1f}",
+          flush=True)
+    return results, runs
+
+
+def model_sharding_paths(results, runs):
+    """The record's paths of phase 15: each kernel's timed shard row with
+    the launches (both ranks') of the run it was captured in."""
+    paths = {}
+    for name, rows in results.items():
+        for run, tag in (("mixtral_tensor", "mixtral tensor"),
+                         ("mixtral_expert", "mixtral expert"),
+                         ("mamba2", "mamba2")):
+            launches, by_variant = runs[run]
+            for phase in ("prefill", "decode"):
+                mine = [(lab, r) for lab, r in rows
+                        if lab.startswith(f"shard {tag} {phase}")]
+                if not mine:
+                    continue
+                n = launches[phase][name]
+                paths.setdefault(name, {})[
+                    f"model_sharding_{run}_{phase}"] = _record_row(
+                        mine, n, by_variant[phase][name])
+    return paths
+
+
 def _free_card():
     import gc
     gc.collect()
@@ -3907,11 +4418,15 @@ def main():
     _clock("sanitize-distill")
     cfg, params, prompts = zoo_model()
     zoo_results = phase_zoo_kernels(cfg, params, prompts)
-    zoo_launches, zoo_by_variant, _ = phase_zoo_serve(cfg, params, prompts)
+    zoo_launches, zoo_by_variant, _, zoo_out = phase_zoo_serve(
+        cfg, params, prompts)
     phase_zoo_profile(cfg, params, {"tokens": prompts})
     phase_zoo_checks(cfg, params, prompts)
     _clock("zoo")
-    del params, prompts
+    ms_results, ms_runs = phase_model_sharding(
+        cfg, params, prompts, zoo_out, zoo_by_variant, zoo_results)
+    _clock("model-sharding")
+    del params, prompts, zoo_out
     torch.cuda.empty_cache()
     _, arch_paths, arch_measured = phase_zoo_archs()
     _clock("zoo-archs")
@@ -3920,6 +4435,8 @@ def main():
     for name, p in train_paths.items():
         arch_paths.setdefault(name, {}).update(p)
     for name, p in phase_dryrun(arch_measured, train_measured).items():
+        arch_paths.setdefault(name, {}).update(p)
+    for name, p in model_sharding_paths(ms_results, ms_runs).items():
         arch_paths.setdefault(name, {}).update(p)
     _free_card()
     _clock("dryrun")

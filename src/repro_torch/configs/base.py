@@ -45,6 +45,12 @@ class MoEConfig:
     capacity_factor: float = 1.25
     load_balance_weight: float = 0.01
     router_z_weight: float = 1e-3
+    # 'tensor'  : experts replicated, d_ff_expert sharded over 'model'
+    # 'expert'  : expert dim sharded over 'model' (requires divisibility)
+    sharding_mode: str = "tensor"
+    # 'gshard'  : one-hot capacity dispatch einsums (dense, GSPMD friendly)
+    # 'ragged'  : sort + lax.ragged_dot grouped matmul (lower dispatch FLOPs)
+    dispatch_mode: str = "gshard"
 
 
 @dataclass(frozen=True)

@@ -1,5 +1,5 @@
 """One-card dry-run (port of ``repro.launch.dryrun``, without its mesh,
-which waits for the zoo's model sharding, ROADMAP Queue 1 item 14):
+whose half is ROADMAP Queue 1 item 14c):
 count every (arch x shape) on ``meta`` at full width, run its probes on
 the card, and write the reference's roofline record.
 

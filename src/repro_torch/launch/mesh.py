@@ -1,10 +1,12 @@
-"""Device meshes for lane sharding (port of ``repro.launch.mesh``).
+"""Device meshes (port of ``repro.launch.mesh``): the cascade's lane
+sharding and the zoo's model sharding.
 
 A ``Mesh`` is the port's own small record: axis names, their sizes and
 an array of ``torch.device``s in row-major order.  It is not
-``torch.distributed.DeviceMesh``: the batched engine shards its lanes
-from one process, which drives every device itself (the reference's
-single-controller model), so no process group is needed.
+``torch.distributed.DeviceMesh``: the batched engine shards its lanes,
+and the zoo its parameters, from one process, which drives every device
+itself (the reference's single-controller model), so no process group
+is needed.
 
 Devices default to the visible CUDA cards, each once.  A device repeats
 only where the caller asks for it: ``devices="cpu"`` (or one device of
@@ -97,6 +99,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     arr = np.empty(math.prod(shape), dtype=object)
     arr[:] = _device_list(devices, shape)
     return Mesh(arr.reshape(shape), axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: DevicesLike = None) -> Mesh:
+    """16x16 = 256 slots per pod, over ("data", "model"); 2 pods = 512
+    slots over ("pod", "data", "model").  Over the visible cards by
+    default (raising where there are fewer); one device given alone
+    (``"meta"`` for a count) fills every slot."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
 
 
 def make_host_mesh(devices: DevicesLike = None) -> Mesh:

@@ -1,7 +1,8 @@
 """Training driver: train a zoo model on synthetic LM batches (port of
-``repro.launch.train``, without its mesh: the zoo's model sharding is a
-later slice, ROADMAP Queue 1 item 14, so one card holds the whole
-model).
+``repro.launch.train``, without its mesh: ``train_loss`` runs over a
+mesh (``models.sharded``), but training on one, with the parameters
+placed by ``param_pspecs``, is ROADMAP Queue 1 item 14c, so here one
+card holds the whole model).
 
 Each step draws a batch from ``lm_batches``, runs ``train_loss`` through
 the zoo's teacher-forced forward (attention, MoE and SSD on the port's

@@ -9,12 +9,14 @@ published rates:
   collective = collective bytes / link rate
 
 The counts come from ``metrics.cost.CostCounter`` (``launch/dryrun.py``).
-One card runs no collective, so the dry-run passes 0; the bytes of the
-port's own ``torch.distributed`` calls come with the zoo's model
-sharding (ROADMAP Queue 1 item 14; the cascade's lane sharding runs no
-collective).  The
-reference's ``parse_collective_bytes`` reads XLA's HLO text, which the
-port never produces, so it has no counterpart here.
+One card runs no collective, so the dry-run passes 0.  The zoo's model
+sharding moves bytes between ranks with the port's own collectives
+(``sharding/collectives.py``: all-reduce, all-gather and reduce-scatter
+over a mesh's ranks, from one process; no ``torch.distributed``); the
+dry-run's mesh half, which counts them, is ROADMAP Queue 1 item 14c.
+The cascade's lane sharding runs no collective.  The reference's
+``parse_collective_bytes`` reads XLA's HLO text, which the port never
+produces, so it has no counterpart here.
 
 The kernel cost functions (``flash_cost``, ``decode_cost``, ``ssd_cost``,
 ``gmm_cost``) take shapes and dtypes and count what a kernel must do:

@@ -105,6 +105,17 @@ def embed(params, tokens, cfg: ModelConfig):
     return params["table"][tokens]
 
 
+def embed_shard(params, tokens, v0: int):
+    """One model rank's part of a vocab-parallel lookup: its table holds
+    rows [v0, v0 + rows); an id outside them gives a zero row, so the
+    ranks' parts add up to ``embed`` (an all-reduce over 'model')."""
+    table = params["table"]
+    local = tokens - v0
+    ok = (local >= 0) & (local < table.shape[0])
+    rows = table[local.clamp(0, table.shape[0] - 1)]
+    return rows * ok[..., None].to(rows.dtype)
+
+
 def init_lm_head(gen, cfg: ModelConfig):
     """LM head weights; empty when cfg ties them to the embedding."""
     if cfg.tie_embeddings:
@@ -125,6 +136,19 @@ def lm_logits(params, embed_params, x, cfg: ModelConfig):
         pad_mask = (torch.arange(v, device=x.device) >= cfg.vocab).float()
         logits = logits - 1e9 * pad_mask
     return logits
+
+
+def lm_logits_shard(params, embed_params, x, cfg: ModelConfig, v0: int):
+    """One model rank's vocab columns [v0, v0 + cols) of ``lm_logits``:
+    its shard of ``lm_head/w`` (or of the tied table), pad columns
+    masked as there."""
+    if cfg.tie_embeddings:
+        w = embed_params["table"].T
+    else:
+        w = params["w"]
+    logits = torch.einsum("...d,dv->...v", x, w).float()
+    cols = torch.arange(v0, v0 + w.shape[1], device=x.device)
+    return logits - 1e9 * (cols >= cfg.vocab).float()
 
 
 def softmax_xent(logits, targets, mask=None):

@@ -7,10 +7,14 @@ positions first; tokens past an expert's capacity are dropped), run
 through each expert's SwiGLU FFN — three grouped matmuls on the port's
 CUDA ``moe_gmm`` kernel — and combined back with their gate weights.
 
-The reference's ``shard_map`` path (tokens over the data axes, experts
-over 'model') waits for the zoo's model sharding (ROADMAP Queue 1 item
-14); without a mesh the reference takes this local path too.  Aux losses
-(load-balance + router-z) are returned as in the reference.
+Over a mesh (``moe_ffn_sharded``, the reference's ``shard_map`` path)
+the tokens split over the data axes and the weights over 'model': in
+tensor mode every rank holds all experts with a slice of the expert ff
+dim, in expert mode a slice of the experts.  Without a mesh, or without
+a data axis to split the tokens over, the local path runs (over a
+'model' axis its weights are the rank's slice and the ranks' outputs
+are added).  Aux losses (load-balance + router-z) are returned as in the
+reference.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.models.layers import dense_init, trunc_normal
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.specs import _axis_size, batch_axes, get_mesh
 
 MOE_GROUP = 2048  # tokens per dispatch group (GShard 'group size')
 
@@ -116,20 +122,42 @@ def _moe_group(x2d, params, cfg: ModelConfig, capacity: int):
     return y.to(x2d.dtype), aux
 
 
-def moe_ffn_local(x2d, params, cfg: ModelConfig, capacity: int = None):
+def _moe_experts(x2d, params, cfg: ModelConfig, capacity: int, e0: int):
+    """``_moe_group`` on one model rank in expert mode: routing and
+    dispatch over all E experts, computed redundantly on every rank,
+    then only the rank's experts [e0, e0 + E_loc) run and are combined.
+    Returns the rank's fp32 addend of y (the ranks' sum is y) and aux."""
+    top_idx, top_w, aux = route(x2d, params["router"], cfg)
+    dispatch, combine = _dispatch_combine(top_idx, top_w, x2d.shape[0],
+                                          capacity, cfg)
+    e1 = e0 + params["w_in"].shape[0]
+    inp = torch.einsum("tec,td->ecd", dispatch[:, e0:e1],
+                       x2d.float()).to(cfg.torch_dtype)
+    out = _expert_ffn(inp, params, cfg)
+    return torch.einsum("tec,ecd->td", combine[:, e0:e1], out.float()), aux
+
+
+def moe_ffn_local(x2d, params, cfg: ModelConfig, capacity: int = None,
+                  expert0: int = None):
     """Single-shard GShard MoE: x2d (T, D) -> (y (T, D), aux loss).
 
     Tokens are processed in groups of MOE_GROUP (the reference's
     ``lax.scan`` over groups is a loop here): capacity, and with it the
-    (T, E, C) dispatch one-hot, scales with the group, not the shard."""
+    (T, E, C) dispatch one-hot, scales with the group, not the shard.
+    With ``expert0``, ``params`` hold experts [expert0, expert0 + E_loc)
+    and y is their fp32 addend (``_moe_experts``)."""
+    def group(xg, cap):
+        if expert0 is None:
+            return _moe_group(xg, params, cfg, cap)
+        return _moe_experts(xg, params, cfg, cap, expert0)
+
     T = x2d.shape[0]
     if T <= MOE_GROUP or T % MOE_GROUP != 0:
-        capacity = capacity or capacity_for(T, cfg)
-        return _moe_group(x2d, params, cfg, capacity)
+        return group(x2d, capacity or capacity_for(T, cfg))
     cap = capacity or capacity_for(MOE_GROUP, cfg)
     ys, auxs = [], []
     for g0 in range(0, T, MOE_GROUP):
-        y, aux = _moe_group(x2d[g0:g0 + MOE_GROUP], params, cfg, cap)
+        y, aux = group(x2d[g0:g0 + MOE_GROUP], cap)
         ys.append(y)
         auxs.append(aux)
     return torch.cat(ys, dim=0), torch.stack(auxs).mean()
@@ -140,3 +168,76 @@ def moe_ffn(x, params, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, D = x.shape
     y, aux = moe_ffn_local(x.reshape(B * S, D), params, cfg)
     return y.reshape(B, S, D), aux
+
+
+def _tokens_shardable(n_tokens: int) -> bool:
+    mesh = get_mesh()
+    if mesh is None:
+        return False
+    baxes = batch_axes(mesh)
+    if not baxes:
+        return False
+    dp = _axis_size(mesh, baxes)
+    return n_tokens % dp == 0 and n_tokens // dp >= 1
+
+
+def moe_ffn_sharded(x: "col.Sharded", params, cfg: ModelConfig):
+    """The MoE over the installed mesh.  ``x``: each rank's (B_loc, S, D)
+    tokens, the batch split over the data axes or whole (a
+    ``Sharded`` of spec (batch, (), ())); ``params``: each rank's MoE
+    params (``sharding.place``).  Returns (y in ``x``'s layout, each
+    rank's aux).
+
+    Where the tokens split over the data axes (``_tokens_shardable``),
+    data rank i takes rows [i, i+1) x T/dp of the flattened (B*S, D)
+    tokens, the reference's ``shard_map`` blocks:
+      * tensor mode: ``moe_ffn_local(x_loc, capacity=None)`` (grouped)
+        on the rank's ff slice, the ranks' y all-reduced over 'model';
+      * expert mode: ungrouped routing and dispatch at
+        ``capacity_for(T/dp)``, the rank's experts only, all-reduced.
+    aux is then the mean over the data slices and over 'model' (the
+    reference's ``pmean``s).  Otherwise the local path runs on every
+    token, on each rank's weight slice, and y is all-reduced."""
+    mesh = get_mesh()
+    baxes = batch_axes(mesh)
+    B, S, D = x.shape
+    T = B * S
+    expert = cfg.moe.sharding_mode == "expert" and \
+        "model" in mesh.axis_names
+    e_loc = params[0]["w_in"].shape[0]
+
+    def e0(r):
+        return col.axis_rank(r, "model") * e_loc if expert else None
+
+    if not _tokens_shardable(T):
+        outs = col.rank_map(lambda r, p, xr: moe_ffn_local(
+            xr.reshape(-1, D), p, cfg, expert0=e0(r)), params, x.parts)
+        ys = col.all_reduce([y for y, _ in outs], "model")
+        ys = [y.to(x.parts[0].dtype).reshape(xr.shape)
+              for y, xr in zip(ys, x.parts)]
+        return col.Sharded(ys, x.spec), [a for _, a in outs]
+
+    dp = _axis_size(mesh, baxes)
+    t_loc = T // dp
+    cap = capacity_for(t_loc, cfg)
+    local_rows = x.spec[0] == baxes
+
+    def one(r, p, xr):
+        x2d = xr.reshape(-1, D)
+        if not local_rows:
+            i = col.axis_rank(r, baxes)
+            x2d = x2d[i * t_loc:(i + 1) * t_loc]
+        if expert:
+            return _moe_experts(x2d, p, cfg, cap, e0(r))
+        return moe_ffn_local(x2d, p, cfg, capacity=None)
+
+    outs = col.rank_map(one, params, x.parts)
+    ys = [y.to(x.parts[0].dtype) for y in
+          col.all_reduce([y for y, _ in outs], "model")]
+    if not local_rows:
+        ys = col.all_gather(ys, baxes, dim=0)
+    ys = [y.reshape(xr.shape) for y, xr in zip(ys, x.parts)]
+    aux = [a / dp for a in col.all_reduce([a for _, a in outs], baxes)]
+    m = col.axis_size("model")
+    aux = [a / m for a in col.all_reduce(aux, "model")]
+    return col.Sharded(ys, x.spec), aux

@@ -144,35 +144,42 @@ def ssd_kernel(x, adt, dt, Bmat, Cmat, chunk: int, init_state=None):
                        init_state)
 
 
-def _split_proj(proj, cfg: ModelConfig):
+def _split_proj(proj, d_in: int, n_heads: int, cfg: ModelConfig):
     s = cfg.ssm
-    d_in, n_heads, _ = dims(cfg)
     return torch.split(proj, [d_in, d_in, s.d_state, s.d_state, n_heads],
                        dim=-1)
 
 
-def _gate_out(params, y, z, cfg: ModelConfig):
-    """Gated RMSNorm (Mamba2) and the output projection."""
-    y = y * F.silu(z.float())
-    ms = torch.mean(torch.square(y), dim=-1, keepdim=True)
+def _block_dims(params):
+    """(d_inner, n_heads) of a block's params: the config's, or one model
+    rank's share of them (``models.sharded``)."""
+    return params["gate_norm"].shape[0], params["A_log"].shape[0]
+
+
+def gate_out(params, y, ms, cfg: ModelConfig):
+    """The gated RMSNorm's scaling of ``y`` (y * silu(z), fp32) by the
+    mean square ``ms`` over d_inner, and the output projection."""
     y = y * torch.rsqrt(ms + 1e-6) * params["gate_norm"]
     return y.to(cfg.torch_dtype) @ params["out_proj"]
 
 
-def mamba_forward(params, x, cfg: ModelConfig, conv_prev=None,
-                  ssm_state=None, return_state=False, ssd_impl=None):
-    """Full-sequence Mamba2 block.  x: (B, S, D) -> (B, S, D), or with
-    ``return_state`` (out, (conv_state (B, K-1, d_xbc), ssm_state (B, H,
-    P, N) fp32)).
+def _gate_out(params, y, cfg: ModelConfig):
+    """Gated RMSNorm (Mamba2) and the output projection; ``y`` is
+    already gated."""
+    ms = torch.mean(torch.square(y), dim=-1, keepdim=True)
+    return gate_out(params, y, ms, cfg)
 
-    ``ssd_impl(x, adt, dt, B, C, chunk, init_state=) -> (y, final_state)``
-    swaps the inner SSD scan; the default is the differentiable
-    ``ssd_chunked``."""
+
+def mamba_scan(params, x, cfg: ModelConfig, conv_prev=None, ssm_state=None,
+               ssd_impl=None):
+    """The block up to its gated norm: (y * silu(z) (B, S, d_in) fp32,
+    (conv_state, the scan's final state)).  ``mamba_forward`` is this
+    and ``_gate_out``."""
     s = cfg.ssm
-    d_in, n_heads, _ = dims(cfg)
+    d_in, n_heads = _block_dims(params)
     B, S, D = x.shape
     proj = x @ params["in_proj"]                            # (B, S, ...)
-    z, xi, Bm, Cm, dt = _split_proj(proj, cfg)
+    z, xi, Bm, Cm, dt = _split_proj(proj, d_in, n_heads, cfg)
     xbc = torch.cat([xi, Bm, Cm], dim=-1)
     xbc, conv_new = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                  conv_prev)
@@ -186,22 +193,35 @@ def mamba_forward(params, x, cfg: ModelConfig, conv_prev=None,
     impl = ssd_impl if ssd_impl is not None else ssd_chunked
     y, h_final = impl(xh, adt, dt, Bm, Cm, s.chunk, init_state=ssm_state)
     y = y + params["D"][None, None, :, None] * xh.float()
-    out = _gate_out(params, y.reshape(B, S, d_in), z, cfg)
+    y = y.reshape(B, S, d_in) * F.silu(z.float())
+    return y, (conv_new, h_final)
+
+
+def mamba_forward(params, x, cfg: ModelConfig, conv_prev=None,
+                  ssm_state=None, return_state=False, ssd_impl=None):
+    """Full-sequence Mamba2 block.  x: (B, S, D) -> (B, S, D), or with
+    ``return_state`` (out, (conv_state (B, K-1, d_xbc), ssm_state (B, H,
+    P, N) fp32)).
+
+    ``ssd_impl(x, adt, dt, B, C, chunk, init_state=) -> (y, final_state)``
+    swaps the inner SSD scan; the default is the differentiable
+    ``ssd_chunked``."""
+    y, (conv_new, h_final) = mamba_scan(params, x, cfg, conv_prev,
+                                        ssm_state, ssd_impl)
+    out = _gate_out(params, y, cfg)
     if return_state:
         return out, (conv_new, h_final.float())
     return out
 
 
-def mamba_decode_step(params, x, cfg: ModelConfig, conv_prev, ssm_state):
-    """Single-token step.  x: (B, 1, D); states threaded explicitly.
-
-    conv_prev: (B, d_conv-1, d_xbc); ssm_state: (B, H, P, N) fp32.
-    Returns (out (B, 1, D), (conv_state, ssm_state))."""
+def mamba_decode_scan(params, x, cfg: ModelConfig, conv_prev, ssm_state):
+    """``mamba_decode_step`` up to its gated norm: (y * silu(z) (B, 1,
+    d_in) fp32, (conv_state, ssm_state))."""
     s = cfg.ssm
-    d_in, n_heads, _ = dims(cfg)
+    d_in, n_heads = _block_dims(params)
     B = x.shape[0]
     proj = x @ params["in_proj"]
-    z, xi, Bm, Cm, dt = _split_proj(proj, cfg)
+    z, xi, Bm, Cm, dt = _split_proj(proj, d_in, n_heads, cfg)
     xbc = torch.cat([xi, Bm, Cm], dim=-1)                   # (B, 1, d_xbc)
     xbc, conv_new = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                  conv_prev)
@@ -219,5 +239,14 @@ def mamba_decode_step(params, x, cfg: ModelConfig, conv_prev, ssm_state):
     h_new = ssm_state * dA[:, :, None, None] + upd
     y = torch.einsum("bn,bhpn->bhp", Cv, h_new)
     y = y + params["D"][None, :, None] * xh
-    out = _gate_out(params, y.reshape(B, 1, d_in), z, cfg)
-    return out, (conv_new, h_new)
+    y = y.reshape(B, 1, d_in) * F.silu(z.float())
+    return y, (conv_new, h_new)
+
+
+def mamba_decode_step(params, x, cfg: ModelConfig, conv_prev, ssm_state):
+    """Single-token step.  x: (B, 1, D); states threaded explicitly.
+
+    conv_prev: (B, d_conv-1, d_xbc); ssm_state: (B, H, P, N) fp32.
+    Returns (out (B, 1, D), (conv_state, ssm_state))."""
+    y, state = mamba_decode_scan(params, x, cfg, conv_prev, ssm_state)
+    return _gate_out(params, y, cfg), state

@@ -27,8 +27,16 @@ Public API (all functional: inputs are not modified):
 A batch carries the memory of a ``CROSS`` model beside its tokens: the
 encoder's ``frames`` (B, S_enc, d_model) or the vision stub's
 ``image_embeds`` (B, n_image_tokens, d_model), the modality front ends
-being the reference's sanctioned stubs.  There is no mesh, so the
-reference's sharding constraints are dropped.
+being the reference's sanctioned stubs.
+
+Over a mesh: with one installed (``sharding.set_mesh``), ``encode``,
+``forward``, ``train_loss``, ``prefill`` and ``decode_step`` take each
+rank's parameters (``sharding.place(params, param_pspecs(params,
+moe_mode), mesh)``) and run ``models.sharded``, where the reference's
+sharding constraints are explicit collectives: their outputs are then
+``Sharded`` (``sharding.collectives.unshard`` gives the whole value)
+and the cache is each rank's (``sharded.gather_cache``).  With none
+installed, nothing here changes.
 
 Training: ``train_loss(params, batch, cfg, remat, loss_chunk)`` ->
 (loss, {"xent", "aux"}), differentiable with autograd.  The kernels
@@ -59,6 +67,7 @@ from repro_torch.models.layers import (
     init_mlp, init_norm, lm_logits, param_device, rms_norm_headwise,
     softmax_xent)
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.sharding.specs import get_mesh
 from repro_torch.tree import tree_map
 
 
@@ -388,10 +397,20 @@ def _stack_decode(params_blocks, h, cfg: ModelConfig, cache, pos: int):
 # ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
+def _meshed():
+    """``models.sharded`` when a mesh is installed, else None."""
+    if get_mesh() is None:
+        return None
+    from repro_torch.models import sharded
+    return sharded
+
+
 def encode(params, frames, cfg: ModelConfig):
     """Encoder forward (enc-dec archs).  frames: (B, S_enc, D) embeddings
     (the modality frontend is the sanctioned stub) -> memory (B, S_enc,
     D) in the model dtype."""
+    if _meshed():
+        return _meshed().encode(params, frames, cfg)
     enc_cfg = _encoder_cfg(cfg)
     h = frames.to(cfg.torch_dtype)
     h, _, _ = _stack_full(params["encoder"]["blocks"], h, enc_cfg,
@@ -418,6 +437,8 @@ def _hidden_for_loss(params, batch, cfg: ModelConfig, remat: bool):
 
 def forward(params, batch, cfg: ModelConfig, remat: bool = False):
     """Teacher-forced decoder forward.  Returns (logits, aux)."""
+    if _meshed():
+        return _meshed().forward(params, batch, cfg, remat)
     h, aux = _hidden_for_loss(params, batch, cfg, remat)
     logits = lm_logits(params.get("lm_head", {}), params["embed"], h, cfg)
     return logits, aux
@@ -431,6 +452,8 @@ def train_loss(params, batch, cfg: ModelConfig, remat: bool = True,
     chunks, each checkpointed, so the (B, S, vocab) fp32 logits and
     their gradient are never held at once; as in the reference it
     averages over every token, so it takes no ``mask``."""
+    if _meshed():
+        return _meshed().train_loss(params, batch, cfg, remat, loss_chunk)
     if loss_chunk <= 0:
         logits, aux = forward(params, batch, cfg, remat=remat)
         loss = softmax_xent(logits, batch["targets"], batch.get("mask"))
@@ -467,6 +490,8 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
     cache_len defaults to prompt length (full attention) or the attention
     window (SWA archs).
     """
+    if _meshed():
+        return _meshed().prefill(params, batch, cfg, cache_len)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     if cache_len is None:
@@ -485,6 +510,8 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     """One decode step.  tokens: (B, 1) int; pos: int (the absolute
     position being written).  Returns (logits (B, V), new_cache)."""
+    if _meshed():
+        return _meshed().decode_step(params, cache, tokens, pos, cfg)
     pos = int(pos)
     h = embed(params["embed"], tokens, cfg)
     h, new_cache = _stack_decode(params["blocks"], h, cfg, cache, pos)

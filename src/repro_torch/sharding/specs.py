@@ -16,9 +16,16 @@ come back to the host and are concatenated in the same order.  A
 not once per distinct device, so a mesh whose shards share one device
 (the CPU tests; one card) still keeps N copies.
 
-The parameter rules, ``constrain`` / ``constrain_tokens`` and sequence
-parallelism belong to the zoo's model sharding, which is not ported
-here.  ``host_prefetch``'s counterpart is ``repro_torch.transfer``
+The zoo's model sharding keeps the same model: the parameter rules
+(``param_pspecs``, the reference's path regexes) say which dims of a
+leaf split over which mesh axes, ``place`` puts each rank's shard on its
+device (the reference's ``device_put`` of ``tree_named_shardings``) and
+``gather_tree`` is its inverse.  Rank r is the mesh's r-th device in
+row-major order.  ``constrain`` / ``constrain_tokens`` and the
+collectives they imply are in ``sharding.collectives``; sequence
+parallelism is the flag ``SEQ_PARALLEL`` (``set_seq_parallel``).
+
+``host_prefetch``'s counterpart is ``repro_torch.transfer``
 ``HostPrefetch``; ``LaneGather`` runs one per shard.  The reference's
 ``jit_cache_scatter`` only donates the demonstration rings to its
 scatter; the port donates nothing and keeps the rings on the mesh's
@@ -28,7 +35,8 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+import re
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +45,19 @@ from repro_torch.transfer import HostPrefetch
 from repro_torch.tree import tree_leaves, tree_map
 
 _CURRENT_MESH = None
+
+# Sequence parallelism (Megatron-SP): shard the sequence dim of
+# inter-block activations over 'model' as well as the batch over
+# (pod, data).  The tensor-parallel all-reduces then become
+# reduce-scatter / all-gather pairs and the stored activations shrink by
+# the model-axis size.
+SEQ_PARALLEL = False
+
+
+def set_seq_parallel(v: bool) -> None:
+    """Toggle the Megatron-SP activation-sharding pattern globally."""
+    global SEQ_PARALLEL
+    SEQ_PARALLEL = v
 
 
 def set_mesh(mesh) -> None:
@@ -196,3 +217,221 @@ def jit_route_pass(fn, mesh=None):
 
     return sharded
 
+
+
+# ---------------------------------------------------------------------------
+# ranks
+# ---------------------------------------------------------------------------
+def _axes(axes) -> Tuple[str, ...]:
+    """A spec entry (None, a name or a tuple of names) as a tuple."""
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def rank_devices(mesh) -> List[torch.device]:
+    """The device of each rank, in rank (row-major mesh) order."""
+    return list(mesh.devices.flat)
+
+
+def rank_index(mesh, r: int, axes) -> int:
+    """Rank r's row-major index over ``axes`` (0 for no axes); the
+    shard of a dim split over ``axes`` that rank r holds."""
+    coords = dict(zip(mesh.axis_names,
+                      np.unravel_index(r, mesh.devices.shape)))
+    idx = 0
+    for a in _axes(axes):
+        idx = idx * mesh.shape[a] + int(coords[a])
+    return idx
+
+
+# ---------------------------------------------------------------------------
+# parameter partition specs (path-based rules)
+# ---------------------------------------------------------------------------
+# Each rule: (path regex, spec builder taking ndim -> tuple).  The leading
+# n_periods stacking dim (present on block params) is always replicated.
+# Specs below are for the *unstacked* suffix dims.
+_RULES = [
+    # embeddings / lm head: shard vocab over model
+    (r"embed/table$",        lambda nd: ("model", None)),
+    (r"lm_head/w$",          lambda nd: (None, "model")),
+    # attention projections
+    (r"(attn|self_attn|cross_attn)/wq$", lambda nd: (None, "model")),
+    (r"(attn|self_attn|cross_attn)/wk$", lambda nd: (None, "model")),
+    (r"(attn|self_attn|cross_attn)/wv$", lambda nd: (None, "model")),
+    (r"(attn|self_attn|cross_attn)/wo$", lambda nd: ("model", None)),
+    # dense mlp
+    (r"mlp/w_gate$",         lambda nd: (None, "model")),
+    (r"mlp/w_in$",           lambda nd: (None, "model")),
+    (r"mlp/w_out$",          lambda nd: ("model", None)),
+    # moe: tensor mode shards expert ff dim; router replicated
+    (r"moe/w_gate$",         lambda nd: (None, None, "model")),
+    (r"moe/w_in$",           lambda nd: (None, None, "model")),
+    (r"moe/w_out$",          lambda nd: (None, "model", None)),
+    (r"moe/router$",         lambda nd: (None, None)),
+    # mamba: shard d_inner / heads over model
+    (r"mamba/in_proj$",      lambda nd: (None, "model")),
+    (r"mamba/conv_w$",       lambda nd: (None, "model")),
+    (r"mamba/conv_b$",       lambda nd: ("model",)),
+    (r"mamba/A_log$",        lambda nd: ("model",)),
+    (r"mamba/D$",            lambda nd: ("model",)),
+    (r"mamba/dt_bias$",      lambda nd: ("model",)),
+    (r"mamba/gate_norm$",    lambda nd: ("model",)),
+    (r"mamba/out_proj$",     lambda nd: ("model", None)),
+]
+
+_EXPERT_MODE_RULES = [
+    # expert-parallel: shard the expert dim instead of ff
+    (r"moe/w_gate$",         lambda nd: ("model", None, None)),
+    (r"moe/w_in$",           lambda nd: ("model", None, None)),
+    (r"moe/w_out$",          lambda nd: ("model", None, None)),
+]
+
+
+def _path_str(path: Sequence) -> str:
+    """A leaf's path of dict keys and list indices as "a/b/0/c"."""
+    return "/".join(str(p) for p in path)
+
+
+def spec_for_path(path_str: str, ndim: int, stacked: bool,
+                  moe_mode: str = "tensor") -> Tuple:
+    """The spec of a parameter path via the placement rule table: one
+    entry a dim, an axis name or None (the reference's
+    ``PartitionSpec``)."""
+    rules = list(_RULES)
+    if moe_mode == "expert":
+        rules = _EXPERT_MODE_RULES + rules
+    for pat, builder in rules:
+        if re.search(pat, path_str):
+            suffix = builder(ndim)
+            if stacked:
+                # leading n_periods dim replicated; pad/trim to ndim
+                suffix = (None,) + tuple(suffix)
+            suffix = tuple(suffix)[:ndim]
+            return suffix + (None,) * (ndim - len(suffix))
+    return (None,) * ndim
+
+
+def _map_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_pspecs(params, moe_mode: str = "tensor"):
+    """Tree of specs (tuples) matching ``params`` (tensors, or anything
+    with a ``shape``)."""
+    def one(path, leaf):
+        ps = _path_str(path)
+        stacked = "/blocks/" in ("/" + ps + "/") or ps.startswith("blocks/")
+        return spec_for_path(ps, len(leaf.shape), stacked, moe_mode)
+    return _map_path(one, params)
+
+
+def _zip_specs(fn, tree, specs, path=()):
+    """``fn(path, leaf, spec)`` over ``tree``'s leaves; ``specs`` is the
+    matching tree whose leaves are spec tuples."""
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, v, specs[k], path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_specs(fn, v, specs[i], path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree, specs)
+
+
+def _split_dims(mesh, path, shape, spec):
+    """(dim, axes, parts) for each dim ``spec`` splits; an axis the mesh
+    lacks splits nothing, and a dim its axes do not divide raises,
+    naming the leaf (``device_put`` of an uneven sharding raises too:
+    nothing is placed replicated in its stead)."""
+    out = []
+    for d, entry in enumerate(spec):
+        axes = tuple(a for a in _axes(entry) if a in mesh.axis_names)
+        n = _axis_size(mesh, axes)
+        if n == 1:
+            continue
+        if shape[d] % n:
+            raise ValueError(
+                f"{_path_str(path)}: dim {d} of size {shape[d]} does not "
+                f"divide evenly over mesh axes {axes} of size {n}")
+        out.append((d, axes, n))
+    return out
+
+
+def place(tree, specs, mesh) -> List[Any]:
+    """Each rank's shard of ``tree`` on its device, in rank order (the
+    reference's ``device_put(tree, tree_named_shardings(mesh, specs))``).
+
+    A dim split over axes of total size n holds its contiguous 1/n part
+    at the rank's index over those axes.  Every rank gets tensors of its
+    own (a view where a shard needs no copy): a replicated leaf is
+    held once per rank, as ``put_replicated`` does, and each rank's copy
+    collects the gradient of the work done with it (``gather_tree(...,
+    sum_replicas=True)`` adds them).  The shards are built with
+    differentiable ops, so a gradient also reaches ``tree``'s own
+    leaves."""
+    devs = rank_devices(mesh)
+
+    def shard(r, path, leaf, spec):
+        t = leaf[...]
+        for d, axes, n in _split_dims(mesh, path, leaf.shape, spec):
+            size = leaf.shape[d] // n
+            t = t.narrow(d, rank_index(mesh, r, axes) * size, size)
+        return t.contiguous().to(devs[r])
+
+    return [_zip_specs(lambda *a, r=r: shard(r, *a), tree, specs)
+            for r in range(len(devs))]
+
+
+def gather_tree(parts: Sequence, specs, mesh, sum_replicas: bool = False):
+    """The whole tree from each rank's shard (``place``'s inverse), on
+    rank 0's device.  Each split dim is concatenated in rank-index
+    order.  The ranks that hold one shard are its replicas: by default
+    the first one's value is taken; with ``sum_replicas`` they are
+    added (the gradient of a replicated parameter is the sum of its
+    copies' gradients, what the reference's GSPMD all-reduces)."""
+    devs = rank_devices(mesh)
+
+    def one(path, leaf0, spec):
+        splits = _split_dims(mesh, path, _global_shape(mesh, leaf0.shape,
+                                                        spec), spec)
+        leaves = [_leaf_at(parts[r], path) for r in range(len(devs))]
+        blocks = {}
+        for r, t in enumerate(leaves):
+            key = tuple(rank_index(mesh, r, axes) for _, axes, _ in splits)
+            t = t.to(devs[0])
+            if key not in blocks:
+                blocks[key] = t
+            elif sum_replicas:
+                blocks[key] = blocks[key] + t
+        return _assemble(blocks, splits, ())
+
+    return _zip_specs(one, parts[0], specs)
+
+
+def _global_shape(mesh, shape, spec):
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        axes = tuple(a for a in _axes(entry) if a in mesh.axis_names)
+        out[d] *= _axis_size(mesh, axes)
+    return tuple(out)
+
+
+def _leaf_at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _assemble(blocks, splits, key):
+    """Concatenate ``blocks`` (keyed by each split dim's shard index)
+    over the split dims, the first split dim outermost."""
+    if len(key) == len(splits):
+        return blocks[key]
+    d, _, n = splits[len(key)]
+    return torch.cat([_assemble(blocks, splits, key + (i,))
+                      for i in range(n)], dim=d)

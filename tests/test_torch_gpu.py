@@ -46,7 +46,10 @@ with it within ``launch.dryrun.AGREE``.  Lane sharding: the kernel
 ladder served with two lane shards on one card routes as the unmeshed
 engine, its state within the mesh tolerance, each kernel launched twice
 as often by variant (once a shard, at half the rows); over every card of
-a machine with more than one, the same.
+a machine with more than one, the same.  Model sharding: smoke Mixtral
+(tensor and expert mode) and Jamba over a (data 1, model 2) mesh on one
+card serve as unsharded, each kernel launched twice as often in the same
+variants.
 Nothing here imports JAX (the GPU machine has none).
 """
 import numpy as np
@@ -1374,3 +1377,72 @@ def test_shards_over_distinct_cards_route_like_unmeshed(cuda):
     mesh = make_mesh((n,), ("data",))
     assert len({str(d) for d in mesh.devices.flat}) == n
     _assert_mesh_twins(_mesh_pair(mesh, 8 * n), n)
+
+
+def _zoo_counts():
+    launchers = {"moe_gmm": moe_gmm_cuda,
+                 "flash_attention": flash_attention_cuda,
+                 "decode_attention": decode_attention_cuda,
+                 "ssd_scan": ssd_scan_cuda}
+    return {k: dict(c.launches_by_variant) for k, c in launchers.items()}, \
+        launchers
+
+
+def _zoo_run(params, cfg, toks, n_decode):
+    """prefill + ``n_decode`` greedy steps, each kernel's launches by
+    variant counted over the run; the logits whole (``unshard``)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import unshard
+    before, launchers = _zoo_counts()
+    logits = []
+    with torch.no_grad():
+        last, cache = tfm.prefill(params, {"tokens": toks}, cfg)
+        logits.append(unshard(last))
+        for step in range(n_decode):
+            out, cache = tfm.decode_step(
+                params, cache, logits[-1].argmax(-1)[:, None],
+                toks.shape[1] + step, cfg)
+            logits.append(unshard(out))
+    torch.cuda.synchronize()
+    moved = {k: {v: n - before[k][v]
+                 for v, n in c.launches_by_variant.items()}
+             for k, c in launchers.items()}
+    return logits, moved
+
+
+@pytest.mark.parametrize("arch,mode", [
+    ("mixtral-8x22b", "tensor"), ("mixtral-8x22b", "expert"),
+    ("jamba-1.5-large-398b", "tensor")])
+def test_model_sharding_on_one_card_serves_like_unsharded(cuda, arch, mode):
+    """Phase 15 (a) at the smoke config in fp32: a (data 1, model 2) mesh
+    over cuda:0 twice serves as the unsharded model on the card (logits
+    within 1e-4, the same greedy tokens), and each kernel launches twice
+    as often, in the unsharded run's variants (one launch a rank at its
+    shard's shape)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import param_pspecs, place, set_mesh
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, sharding_mode=mode))
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    want, plain = _zoo_run(params, cfg, toks, 3)
+    mesh = make_mesh((1, 2), ("data", "model"), ["cuda:0", "cuda:0"])
+    placed = place(params, param_pspecs(params, mode), mesh)
+    set_mesh(mesh)
+    try:
+        got, meshed = _zoo_run(placed, cfg, toks, 3)
+    finally:
+        set_mesh(None)
+    for g, w in zip(got, want):
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    assert sum(sum(c.values()) for c in plain.values()) > 0
+    assert meshed == {k: {v: 2 * n for v, n in c.items()}
+                      for k, c in plain.items()}

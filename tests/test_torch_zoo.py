@@ -77,11 +77,12 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("name", ["ModelConfig", "AttnConfig", "MoEConfig",
                                   "SSMConfig", "EncoderConfig"])
 def test_config_field_defaults_match_reference(name):
-    """Every field the port has is the reference's, with its default (the
-    port's ModelConfig.dtype once defaulted to float32)."""
+    """The port has every field of the reference, and only those, each
+    with its default (the port's ModelConfig.dtype once defaulted to
+    float32; its MoEConfig once lacked sharding_mode and dispatch_mode)."""
     mine = {f.name: f for f in dataclasses.fields(getattr(t_base, name))}
     ref = {f.name: f for f in dataclasses.fields(getattr(j_base, name))}
-    assert set(mine) <= set(ref), set(mine) - set(ref)
+    assert set(mine) == set(ref), set(mine) ^ set(ref)
     for n, f in mine.items():
         assert f.default == ref[n].default, n
         assert f.default_factory == ref[n].default_factory, n
