@@ -163,11 +163,12 @@ Phases (any failure exits non-zero and prints no result line):
      fp32, from the same weights;
   11. zoo-archs: the zoo's nine other architectures, one at a time, each
      at full width with weights from a seeded CUDA generator and freed
-     before the next: mamba2-370m (48 layers), internlm2-1.8b (24),
-     h2o-danube-3-4b (24), qwen3-8b (36), seamless-m4t-medium (12
-     encoder + 12 CROSS decoder layers) and llama-3.2-vision-11b (40
-     layers, 8 of them CROSS) at full depth, llama3-405b and dbrx-132b
-     cut to 2 layers, and jamba-1.5-large-398b cut to the first half of
+     before the next: internlm2-1.8b (24 layers), h2o-danube-3-4b (24)
+     and seamless-m4t-medium (12 encoder + 12 CROSS decoder layers) at
+     full depth; mamba2-370m cut to 16 of 48 layers, qwen3-8b to 12 of
+     36, llama-3.2-vision-11b to 20 of 40 (4 of them CROSS), llama3-405b
+     and dbrx-132b to 2 layers (the script's time limit), and
+     jamba-1.5-large-398b cut to the first half of
      its period (MAMBA, MAMBA, MAMBA, ATTN; MoE at 1 and 3; 4 layers: a
      whole period needs about 90 GB).  The CROSS models' memory is the
      reference's modality stub, drawn from a seeded CUDA generator:
@@ -208,10 +209,10 @@ Phases (any failure exits non-zero and prints no result line):
      seconds;
   12. zoo-train: the zoo's training path (``repro_torch.launch.train``)
      on the card, bf16 at published widths, seeded weights, batches from
-     ``lm_batches(seed=0)``, one model at a time: internlm2-1.8b (24
-     ATTN layers) and mamba2-370m (48 MAMBA layers) at full depth, batch
-     4 x seq 2048, and mixtral-8x22b cut to 1 of 56 layers, batch 1 x seq
-     2048 (one MoE group).  Each: one ``train_loss`` step without and
+     ``lm_batches(seed=0)``, one model at a time: internlm2-1.8b (8 of
+     24 ATTN layers) and mamba2-370m (8 of 48 MAMBA layers; the script's
+     time limit), batch 4 x seq 2048, and mixtral-8x22b cut to 1 of 56
+     layers, batch 1 x seq 2048 (one MoE group).  Each: one ``train_loss`` step without and
      one with remat (ms, tokens/s), (a) every parameter leaf's gradient
      finite and present, non-zero upstream of each kernel (``wq`` /
      ``wk`` / ``wv``, ``in_proj``, ``w_in`` / ``w_gate`` / ``w_out``);
@@ -294,14 +295,34 @@ Phases (any failure exits non-zero and prints no result line):
      variants ("tc", "split"); each kernel at its shard's shape held
      against its plain version and timed beside its bound and the
      library call, and beside the unsharded row; tensor mode profiled;
-     (b) mamba2-370m at full depth the same way, the SSD "parallel" at
+     (b) mamba2-370m at 16 of 48 layers the same way, the SSD "parallel" at
      16 heads a rank, its logits no farther from the fp32 run than 1.25
      x the unsharded bf16 run's + 1e-3 (relative l2; phase 12's rule);
      (c) one fp32 ``train_loss`` + backward of Mixtral at 1 layer, 1 x
      2048 (layer 0 of the zoo's weights), the loss within 1e-5 and each
      gathered gradient leaf within 1e-4 (relative l2) of the unsharded
      step's; (d) (a) over two distinct cards where they exist, else a
-     line says it did not run; then the phase's seconds.
+     line says it did not run; then the phase's seconds;
+  16. mesh-train-dryrun (last): (a) fp32 ``train()`` of internlm2-1.8b
+     at full width, 2 layers, 4 x 2048, 3 steps with remat, unmeshed and
+     over (data 2, model 2) on cuda:0 four times from the same seed: the
+     losses within 1e-5 relative, the final gathered weights within 0.1
+     lr a step (tests/test_torch_train.py's AdamW rule), launches 4 x by
+     variant, flash at a rank's shape held and timed; (b) bf16 Mixtral
+     at 1 layer, 1 x 2048, 3 AdamW steps unmeshed and over (data 1,
+     model 2) in tensor mode (warm-up, timed, profiled): ms a step, idle
+     share, the loss within 2e-3, launches 2 x, flash and moe_gmm at a
+     rank's shape; (c) an internlm2-1.8b train_4k dry-run probe (2
+     periods, batch 2) over (data 1, model 2) counted on meta and run on
+     cuda:0 twice under the counter: FLOPs by dtype, launches by variant
+     and collective bytes by kind equal, and the counted run's launches
+     over both ranks twice rank 0's; (d) after every timed run, the
+     16x16 meta records of qwen3-8b and Mixtral (zero) train_4k, counted
+     by ``launch.dryrun`` in two processes (no card), printed
+     with their count seconds and collective term (files under
+     chiprun_out/dryrun_mesh); then the phase's seconds (alone:
+     python3 -c "import chip_smoke as c; c.phase_build();
+     c.phase_mesh_train_dryrun()").
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade, Mixtral and
 zoo-archs serving runs, each counted from zero, ``launches_by_variant``
@@ -327,6 +348,9 @@ run (both shards' launches, by variant, its items/s and idle share) and
 ``cascade_shard_b4`` the timed row at one shard's 4 rows;
 ``model_sharding_<run>_<stage>`` phase 15's shard rows (Mixtral in
 tensor and expert mode, mamba2) with the launches of both ranks;
+``mesh_train_internlm2`` / ``mesh_train_mixtral`` phase 16 (a) / (b)'s
+meshed runs (every rank's launches) with the timed rank row, and
+``mesh_dryrun_internlm2_train`` (c)'s counted card run (both ranks);
 flash attention's ``variants`` names its three, and its
 ``cascade_forced_simt`` path times "simt" at the path shape, off every
 served path, so its ``launches`` is null);
@@ -1849,15 +1873,19 @@ DISTILL_EPOCHS = 3        # as benchmarks/common.py runs the reference
 
 def _san_run(counts, tag, eng, stream):
     """Serve ``stream`` on ``eng`` with every kernel's launches counted
-    from zero against its layer forwards; prints items/s and wall s."""
+    from zero against its layer forwards; prints items/s, wall s, the
+    level fractions and the share of items a student answered (the last
+    level is the expert)."""
     t0 = time.time()
     m, got, by_variant = counts.run(tag, lambda: [eng],
                                     lambda: eng.run(stream))
     wall = time.time() - t0
+    fr = [float(f) for f in m["level_fractions"]]
     print(f"[sanitize-distill] {tag}: items_per_sec="
           f"{m['items_per_sec']:.1f} wall_s={wall:.2f} accuracy="
-          f"{m['accuracy']:.4f} expert_calls={m['expert_calls']}",
-          flush=True)
+          f"{m['accuracy']:.4f} expert_calls={m['expert_calls']} "
+          f"level_fractions={[round(f, 4) for f in fr]} "
+          f"student_routed={1.0 - fr[-1]:.4f}", flush=True)
     return m, got, by_variant
 
 
@@ -2491,15 +2519,15 @@ ARCH_LAUNCHERS = {**ZOO_LAUNCHERS, "ssd_scan": ssd_scan_cuda}
 # (name, short name for the record's paths, depth: None = full, "half" =
 # the first half of Jamba's 8-block period)
 ZOO_ARCHS = (
-    ("mamba2-370m", "mamba2", None),
+    ("mamba2-370m", "mamba2", 16),
     ("internlm2-1.8b", "internlm2", None),
     ("h2o-danube-3-4b", "danube", None),
-    ("qwen3-8b", "qwen3", None),
+    ("qwen3-8b", "qwen3", 12),
     ("llama3-405b", "llama3", 2),
     ("dbrx-132b", "dbrx", 2),
     ("jamba-1.5-large-398b", "jamba", "half"),
     ("seamless-m4t-medium", "seamless", None),
-    ("llama-3.2-vision-11b", "vision", None),
+    ("llama-3.2-vision-11b", "vision", 20),
 )
 # a kernel call's role on a zoo path, from the function of
 # ``models/attention.py`` it came through (an SSD scan's is "prefill")
@@ -2968,8 +2996,8 @@ def phase_zoo_archs():
 # zoo-train: the zoo's training path at published widths (phase 12)
 # ---------------------------------------------------------------------------
 # (name, short name, depth cut (None = full), batch); seq TRAIN_SEQ
-ZOO_TRAIN = (("internlm2-1.8b", "internlm2", None, 4),
-             ("mamba2-370m", "mamba2", None, 4),
+ZOO_TRAIN = (("internlm2-1.8b", "internlm2", 8, 4),
+             ("mamba2-370m", "mamba2", 8, 4),
              ("mixtral-8x22b", "mixtral", 1, 1))
 TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2048, 8, 1e-3
 # (b) kernels against twins, one remat step each.  In fp32 (the
@@ -3805,7 +3833,7 @@ def phase_mesh(tokens, phase4, unmeshed):
 # phase 15: the zoo's model sharding (tensor / expert parallel over a
 # mesh's 'model' axis, both ranks on card 0 unless there are more cards)
 # ---------------------------------------------------------------------------
-MS_MAMBA = "mamba2-370m"
+MS_MAMBA, MS_MAMBA_LAYERS = "mamba2-370m", 16
 # (c): the step in fp32 computes the unsharded step's function in
 # another order, phase 12's fp32 rule (TRAIN_TOL)
 MS_TRAIN_SEQ = 2048
@@ -4163,7 +4191,7 @@ def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
     against zoo-serve's unsharded outputs, expert mode against the
     unsharded run with the prompt in one dispatch group
     (``_ms_one_group``); (b) mamba2-370m
-    at full depth the same way against its own unsharded run; (c) one
+    at MS_MAMBA_LAYERS the same way against its own unsharded run; (c) one
     training step at 1 layer in fp32; (d) (a) over distinct cards where
     there are more than one.  Returns the kernel rows and each run's
     launches for the record."""
@@ -4191,9 +4219,10 @@ def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
         runs[f"mixtral_{mode}"] = (launches, by_variant)
         del placed, got, res
         torch.cuda.empty_cache()
-    # (b) mamba2-370m at full depth
+    # (b) mamba2-370m, depth cut to MS_MAMBA_LAYERS
     from repro_torch.configs import get_config
-    mcfg = get_config(MS_MAMBA)
+    mcfg = dataclasses.replace(get_config(MS_MAMBA),
+                               n_layers=MS_MAMBA_LAYERS)
     mparams = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
                               mcfg)
     mtok = prompts[:, :S] % mcfg.vocab
@@ -4222,11 +4251,11 @@ def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
             fp32.append(logits)
     del cache, p32
     placed = shd.place(mparams, shd.param_pspecs(mparams), mesh)
-    tag = f"(b) {mcfg.name} full depth"
+    tag = f"(b) {mcfg.name} {MS_MAMBA_LAYERS} layers"
     launches, by_variant, _, got = _ms_serve(tag, mcfg, placed, mesh, mtok,
                                              want, fp32)
     _ms_check_launches(tag, mcfg, B * S, "tensor", launches, by_variant,
-                       "48 SSD scans at 32 heads (phase 11)")
+                       f"{MS_MAMBA_LAYERS} SSD scans at 32 heads")
     _ms_profile("(b)", mcfg, placed, mesh, mtok)
     _ms_rows("mamba2", got, results)
     unsharded_rows = {}
@@ -4275,6 +4304,383 @@ def model_sharding_paths(results, runs):
                 paths.setdefault(name, {})[
                     f"model_sharding_{run}_{phase}"] = _record_row(
                         mine, n, by_variant[phase][name])
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training and the dry-run over a mesh (ranks on card 0)
+# ---------------------------------------------------------------------------
+MT_ARCH, MT_LAYERS = "internlm2-1.8b", 2
+MT_BATCH, MT_SEQ, MT_STEPS = 4, 2048, 3
+MT_MOE = "mixtral-8x22b"
+# (a): tests/test_torch_train.py's AdamW rule, 0.1 lr a weight a step
+# (where |g| is within rounding of zero an Adam step's sign can tilt),
+# and phase 12's fp32 loss rule TRAIN_TOL["fp32_loss"]
+MT_STEP_TOL = 0.1
+# (c): the probe counted on meta and on the card
+MT_PROBE = ("internlm2-1.8b", 2, 2)          # arch, periods, batch
+# (d): 16x16 records counted on meta in processes of their own after
+# (a)-(c) (``launch.dryrun`` counts each one's probes at once)
+MT_RECORDS = (("qwen3-8b", "train_4k", ()),
+              ("mixtral-8x22b", "train_4k", ("--zero",)))
+MT_RECORD_S = 600
+
+
+def _mt_records_start():
+    """(d) Start one ``launch.dryrun --mesh 16x16 --device meta`` process
+    a record (no card: CUDA_VISIBLE_DEVICES is empty)."""
+    import os
+    out = ROOT / "chiprun_out" / "dryrun_mesh"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, extra in MT_RECORDS:
+        tag = "".join(e.strip("-").replace("-", "_") for e in extra)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "16x16", "--device",
+               "meta", "--out", str(out), "--tag",
+               f"_16x16{'_' + tag if tag else ''}", *extra]
+        procs.append((arch, shape, extra, out / f"{arch}__{shape}_16x16"
+                      f"{'_' + tag if tag else ''}.json",
+                      subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      time.time()))
+    return procs
+
+
+def _mt_records_finish(procs):
+    """(d) Each record's count seconds, per-device counts and collective
+    term; a process that fails or outlives MT_RECORD_S fails the
+    phase."""
+    try:
+        for arch, shape, extra, path, proc, t0 in procs:
+            try:
+                out, _ = proc.communicate(timeout=max(
+                    1.0, MT_RECORD_S - (time.time() - t0)))
+            except subprocess.TimeoutExpired:
+                _fail(f"mesh-train-dryrun (d): {arch} x {shape} not counted "
+                      f"in {MT_RECORD_S} s")
+            if proc.returncode != 0:
+                _fail(f"mesh-train-dryrun (d): {arch} x {shape} exited "
+                      f"{proc.returncode}: {out[-2000:]}")
+            rec = json.loads(path.read_text())
+            if not rec["collective_bytes_per_device"] > 0:
+                _fail(f"mesh-train-dryrun (d): {arch} x {shape}: no "
+                      f"collective bytes")
+            t = rec["roofline"]
+            print(f"[mesh-train-dryrun] (d) {arch} x {shape} on "
+                  f"{rec['mesh']} ({rec['n_devices']} devices, "
+                  f"{rec['counted_ranks']} ranks counted) options "
+                  f"{rec['options']}: count {rec['lower_s']} s "
+                  f"(collected {time.time() - t0:.1f} s after its "
+                  f"start); per device "
+                  f"flops {rec['flops_by_dtype']} bytes "
+                  f"{rec['bytes_per_device']:.6g} collectives "
+                  f"{rec['collectives']} (collective term "
+                  f"{t['collective_s']:.6g} s at "
+                  f"{roofline.H100.link_bw:.3g} B/s; compute "
+                  f"{t['compute_s']:.6g} s, memory {t['memory_s']:.6g} s, "
+                  f"dominant {t['dominant']}); hbm/device "
+                  f"{rec['hbm_per_device_gb']:.6g} GB fits "
+                  f"{rec['fits_hbm']}; launches {rec['launches']}; notes "
+                  f"{rec['notes']}", flush=True)
+    finally:
+        _mt_records_stop(procs)
+
+
+def _mt_records_stop(procs):
+    """Stop any of (d)'s processes still running."""
+    for *_, proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _mt_zero():
+    for fn in ARCH_LAUNCHERS.values():
+        fn.launches = 0
+    _zero_variant_counts()
+
+
+def _mt_counts():
+    return ({n: fn.launches for n, fn in ARCH_LAUNCHERS.items()},
+            _variant_counts())
+
+
+def _mt_check_doubled(tag, ranks, plain, meshed):
+    """Every rank runs the unmeshed layers' kernels at its shard's shape:
+    ``ranks`` x the unmeshed launches, kernel by kernel and variant by
+    variant."""
+    for name in ARCH_LAUNCHERS:
+        if meshed[0][name] != ranks * plain[0][name]:
+            _fail(f"mesh-train-dryrun {tag}: {name} launched "
+                  f"{meshed[0][name]} times, {ranks} x {plain[0][name]} "
+                  f"unmeshed")
+        for v, n in plain[1].get(name, {}).items():
+            if meshed[1][name].get(v, 0) != ranks * n:
+                _fail(f"mesh-train-dryrun {tag}: {name} {v} "
+                      f"{meshed[1][name]} against {ranks} x {plain[1][name]}")
+
+
+def _mt_capture(cfg, placed, batch, mesh):
+    """The kernel ops' inputs of rank 0's layer 0 in one meshed training
+    forward (``_ms_capture``)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import specs as shd
+    shd.set_mesh(mesh)
+    try:
+        with torch.no_grad():
+            return _ms_capture(lambda stage: tfm.train_loss(
+                placed, batch, cfg, remat=False))
+    finally:
+        shd.set_mesh(None)
+
+
+def _mt_fp32_train(results):
+    """(a) fp32 ``train()`` of internlm2-1.8b at full width, 2 layers,
+    MT_BATCH x MT_SEQ, MT_STEPS steps with remat: unmeshed, then over
+    (data 2, model 2) on card 0 four times from the same seed; the
+    losses, the final gathered parameters, and the launches (4 x the
+    unmeshed, by variant)."""
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import model_config, train
+    from repro_torch.sharding import specs as shd
+    kw = dict(smoke=False, steps=MT_STEPS, batch=MT_BATCH, seq=MT_SEQ,
+              lr=TRAIN_LR, seed=0, layers=MT_LAYERS, dtype="float32",
+              log_every=0, remat=True, return_params=True)
+    # one step first, so that neither timed run pays the card's warm-up
+    train(MT_ARCH, device="cuda:0", **dict(kw, steps=1))
+    _mt_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l0, p0 = train(MT_ARCH, device="cuda:0", **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain = _mt_counts()
+    _mt_zero()
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    l1, p1 = train(MT_ARCH, device="cuda:0", mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    meshed = _mt_counts()
+    rel = [abs(a - b) / abs(b) for a, b in zip(l1, l0)]
+    print(f"[mesh-train-dryrun] (a) {MT_ARCH} fp32, {MT_LAYERS} layers, "
+          f"{MT_BATCH} x {MT_SEQ}, {MT_STEPS} steps: losses meshed {l1} vs "
+          f"unmeshed {l0} (rel {max(rel):.3g}, tol "
+          f"{TRAIN_TOL['fp32_loss']}); train() wall s (init, placement "
+          f"and steps) meshed {t2 - t1:.6g} unmeshed {t1 - t0:.6g}; "
+          f"launches meshed {meshed[0]} unmeshed {plain[0]}", flush=True)
+    if not max(rel) <= TRAIN_TOL["fp32_loss"]:
+        _fail(f"mesh-train-dryrun (a): loss off by {max(rel)} relative")
+    tol = MT_STEP_TOL * TRAIN_LR * MT_STEPS
+    worst, worst_l2 = (0.0, ""), 0.0
+    pp = _leaf_paths(p0)
+    for path, t in _leaf_paths(p1).items():
+        err = float((t - pp[path]).abs().max())
+        worst, worst_l2 = max(worst, (err, path)), max(
+            worst_l2, _rel_l2(t, pp[path]))
+        if not err <= tol:
+            _fail(f"mesh-train-dryrun (a): {path} off by {err} > {tol}")
+    print(f"[mesh-train-dryrun] (a) final gathered parameters: largest "
+          f"|meshed - unmeshed| {worst[0]:.4g} at {worst[1]} (tol "
+          f"{tol:.3g}), largest relative l2 {worst_l2:.4g}", flush=True)
+    _mt_check_doubled("(a)", 4, plain, meshed)
+    cfg = model_config(MT_ARCH, False, MT_LAYERS)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    pspecs = shd.param_pspecs(p1)
+    placed = shd.place(p1, pspecs, mesh)
+    b = next(lm_batches(cfg.vocab, MT_BATCH, MT_SEQ, 1, 0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    got = _mt_capture(cfg, placed, batch, mesh)
+    del p0, p1, placed
+    (q, k, v), fkw = got["flash_attention"]
+    label = (f"mesh-train internlm2 fp32 S={q.shape[1]} B{q.shape[0]} "
+             f"H{q.shape[2]}/K{k.shape[2]} hd{q.shape[3]}")
+    check("flash_attention", label,
+          lambda: fl_ops.flash_attention(q, k, v, **fkw),
+          lambda: flash_plain(q, k, v, **fkw), ZOO_TOL["fp32"], results,
+          lambda: flash_library(q, k, v, **fkw), flash_bound(q, k, v, **fkw),
+          True, relative=True, reps=10)
+    return {"flash_attention": {"mesh_train_internlm2": _record_row(
+        [(label, results["flash_attention"][-1][1])],
+        meshed[0]["flash_attention"], meshed[1]["flash_attention"])}}
+
+
+def _mt_profiled(step):
+    """(ms a step, idle share): one warm-up step that returns the loss,
+    one timed, one under torch.profiler (phase 12's method)."""
+    from repro_torch.launch.profile_serve import _union_us
+    loss = step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        _fail("mesh-train-dryrun (b): no device events recorded")
+    busy = _union_us((e.time_range.start, e.time_range.end) for e in dev)
+    return float(loss), ms, wall_us / 1e3, busy / 1e3, 1 - busy / wall_us
+
+
+def _mt_moe_train(results):
+    """(b) bf16 Mixtral at 1 layer, 1 x MT_SEQ, AdamW with remat: 3
+    steps unmeshed, then 3 over (data 1, model 2) in tensor mode on card
+    0 twice, each run from the same parameters and state (the first
+    step warms up and gives the loss, the second is timed, the third
+    profiled); launches 2 x the unmeshed ones."""
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (loss_and_grads, mesh_init,
+                                          mesh_step, model_config)
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import specs as shd
+    cfg = model_config(MT_MOE, False, 1)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    b = next(lm_batches(cfg.vocab, 1, MT_SEQ, 1, 0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+    opt = adamw(TRAIN_LR)
+    state = opt.init(params)
+
+    def plain_step():
+        loss, _, grads = loss_and_grads(params, batch, cfg, True)
+        with torch.no_grad():
+            opt.step(params, grads, state)
+        return loss
+
+    _mt_zero()
+    plain_run = _mt_profiled(plain_step)
+    plain = _mt_counts()
+    del state
+    _free_card()
+    mesh = make_mesh((1, 2), ("data", "model"), ["cuda:0"] * 2)
+    pspecs = shd.param_pspecs(params, "tensor")
+    placed = shd.place(params, pspecs, mesh)
+    del params
+    _free_card()
+    shd.set_mesh(mesh)
+    try:
+        mstate = mesh_init(opt, placed, pspecs)
+
+        def mesh_train_step():
+            loss, _, grads = loss_and_grads(placed, batch, cfg, True)
+            with torch.no_grad():
+                mesh_step(opt, placed, grads, mstate, pspecs)
+            return loss
+
+        _mt_zero()
+        mesh_run = _mt_profiled(mesh_train_step)
+        meshed = _mt_counts()
+    finally:
+        shd.set_mesh(None)
+    del mstate
+    _free_card()
+    rel = abs(mesh_run[0] - plain_run[0]) / abs(plain_run[0])
+    for tag, r in (("unmeshed", plain_run), ("(data 1, model 2)", mesh_run)):
+        print(f"[mesh-train-dryrun] (b) {MT_MOE} bf16 1 layer 1 x {MT_SEQ} "
+              f"{tag}: loss {r[0]:.6g} step_ms={r[1]:.6g} "
+              f"profiled_wall_ms={r[2]:.6g} device_busy_ms={r[3]:.6g} "
+              f"idle_share={r[4]:.4f}", flush=True)
+    print(f"[mesh-train-dryrun] (b) meshed / unmeshed ms a step "
+          f"{mesh_run[1] / plain_run[1]:.4g}; loss rel {rel:.3g} (tol "
+          f"{TRAIN_TOL['loss']}); launches meshed {meshed[0]} unmeshed "
+          f"{plain[0]}", flush=True)
+    if not rel <= TRAIN_TOL["loss"]:
+        _fail(f"mesh-train-dryrun (b): loss off by {rel} relative")
+    _mt_check_doubled("(b)", 2, plain, meshed)
+    got = _mt_capture(cfg, placed, batch, mesh)
+    _ms_rows("mixtral", got, results, prefix="mesh-train")
+    del placed, got
+    _free_card()
+    paths = {}
+    for name in ("flash_attention", "moe_gmm"):
+        rows = [(lab, r) for lab, r in results[name]
+                if lab.startswith("mesh-train mixtral")]
+        paths[name] = {"mesh_train_mixtral": _record_row(
+            rows, meshed[0][name], meshed[1][name])}
+    return paths
+
+
+def _mt_dryrun_probe():
+    """(c) One dry-run probe over (data 1, model 2): counted on meta,
+    then run with both ranks on card 0 under the counter; FLOPs by
+    dtype, launches by variant and collective bytes by kind must be
+    equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.shapes import INPUT_SHAPES
+    arch, periods, batch = MT_PROBE
+    cfg = dr._with_periods(get_config(arch), periods)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], batch=batch)
+    opts = dict(opt_dtype="float32", remat=True, loss_chunk=0, zero=False,
+                shard_params_data=False)
+    t0 = time.time()
+    meta = dr._count_on_mesh(cfg, shape, dr.make_count_mesh(
+        (1, 2), "meta", False), "meta", False, opts)
+    t1 = time.time()
+    card = dr._card_mesh_probe(cfg, shape, (1, 2), False, opts, meta,
+                               DRYRUN_REPS)
+    keys = sorted(k for k in set(meta) | set(card["card_count"])
+                  if k.startswith(("flops:", "launches:", "collective:")))
+    print(f"[mesh-train-dryrun] (c) {arch} train_4k probe P={periods} "
+          f"B={batch} over (data 1, model 2): meta count {t1 - t0:.1f} s; "
+          f"card {card['ms']:.6g} ms (both ranks on card 0, median of "
+          f"{DRYRUN_REPS}); " + " ".join(
+              f"{k}={meta.get(k, 0):.6g}/{card['card_count'].get(k, 0):.6g}"
+              for k in keys) + f"; bytes {card['counted_bytes_accessed']:.6g}"
+          f"/{card['bytes_accessed']:.6g} (meta/card); count equal "
+          f"{card['count_equal']}", flush=True)
+    if not card["count_equal"]:
+        _fail("mesh-train-dryrun (c): the card's FLOPs, launches or "
+              "collective bytes differ from the meta count")
+    # the record's launches: the counted card run's, over both ranks
+    every = card["launches_every_rank"]
+    print(f"[mesh-train-dryrun] (c) launches of the counted card run, both "
+          f"ranks: {every}", flush=True)
+    out = {}
+    for name, by_var in every.items():
+        for variant, n in by_var.items():
+            if n != 2 * card["card_count"].get(
+                    f"launches:{name}:{variant}", 0):
+                _fail(f"mesh-train-dryrun (c): {name} {variant} launched "
+                      f"{n} times over both ranks, rank 0 "
+                      f"{card['card_count'].get(f'launches:{name}:{variant}')}")
+        out[name] = {"mesh_dryrun_internlm2_train": {
+            "launches": int(sum(by_var.values())),
+            "launches_by_variant": {v: int(n) for v, n in by_var.items()}}}
+    return out
+
+
+def phase_mesh_train_dryrun():
+    """16. mesh-train-dryrun: (a) fp32 training over (data 2, model 2),
+    (b) bf16 Mixtral training over (data 1, model 2), (c) a dry-run probe
+    counted on meta and on the card, then (d) two 16x16 records counted
+    on meta in processes of their own, after every timed run of the
+    script.  Returns the record's paths."""
+    t_phase = time.time()
+    results, paths = {}, {}
+    for part in (_mt_fp32_train, _mt_moe_train):
+        for name, p in part(results).items():
+            paths.setdefault(name, {}).update(p)
+        _free_card()
+    for name, p in _mt_dryrun_probe().items():
+        paths.setdefault(name, {}).update(p)
+    _free_card()
+    _mt_records_finish(_mt_records_start())
+    print(f"[mesh-train-dryrun] phase seconds {time.time() - t_phase:.1f}",
+          flush=True)
     return paths
 
 
@@ -4442,6 +4848,10 @@ def main():
     _clock("dryrun")
     mesh_results, meshed = phase_mesh(tokens, phase4, unmeshed)
     _clock("mesh")
+    _free_card()
+    for name, p in phase_mesh_train_dryrun().items():
+        arch_paths.setdefault(name, {}).update(p)
+    _clock("mesh-train-dryrun")
     print(json.dumps({"kernels": kernel_record(
         results, launches, by_variant, zoo_results, zoo_launches,
         zoo_by_variant, pipelined, admission, sanitized, arch_paths,

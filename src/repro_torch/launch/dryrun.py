@@ -1,7 +1,7 @@
-"""One-card dry-run (port of ``repro.launch.dryrun``, without its mesh,
-whose half is ROADMAP Queue 1 item 14c):
-count every (arch x shape) on ``meta`` at full width, run its probes on
-the card, and write the reference's roofline record.
+"""The dry-run (port of ``repro.launch.dryrun``): count every (arch x
+shape) on ``meta`` at full width, on one card or for one device of a
+mesh, run its probes on the card, and write the reference's roofline
+record.
 
 The reference lowers and compiles each combination for 512 TPU devices
 and reads XLA's cost and memory analyses.  Here ``metrics.cost.
@@ -31,10 +31,36 @@ full width, seeded inputs, one warm-up, one run under the same counter
 runs with CUDA events.  Time and peak are extended along the same law
 into the record's ``measured`` block.
 
+Over a mesh (``--mesh 16x16``, ``--multipod`` for 2x16x16; the
+reference's options ``--moe-mode``, ``--zero``, ``--seq-parallel`` and
+``shard_params_data``) the record is one device's: the step runs over
+the mesh's ranks in one process (``models.sharded``, ``launch.train``'s
+``mesh_step``), the parameters and the optimizer state placed by the
+reference's rules (``param_pspecs``, ``zero_shard_specs``), the batch
+split as ``batch_pspecs`` says and a decode step's cache in the port's
+layout (``shard_cache``; ``cache_layouts`` sets it beside the
+reference's ``cache_pspecs``).  The counter holds each op and storage to
+the rank it belongs to, and the record takes one rank's FLOPs, bytes,
+launches and collective bytes (by kind, forward and backward) and the
+largest any one rank holds (``count_mesh_step``).  Every data rank runs
+the same shapes, so a production mesh is counted over its ranks at data
+index 0 only (``data_slice``: 16 ranks stand for 256 or 512);
+tests/test_torch_dryrun_mesh.py holds that to all the ranks of small
+meshes.  Probes are at batch dp and 2·dp, as in the reference; a
+production mesh's are counted at once, a process each
+(``count_probes``).  A mesh
+of at most ``CARD_RANKS`` ranks also runs its probes with every rank on
+card 0 (its FLOPs, launches and collective bytes must equal the count);
+a production mesh is counted on ``meta`` only.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape decode_32k
   python -m repro_torch.launch.dryrun --all --device meta   # no card
+  python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k \
+      --mesh 16x16 --device meta
 Options: --opt-dtype bfloat16  --no-remat  --loss-chunk N  --no-extrapolate
+         --mesh DxM | --multipod  --moe-mode tensor|expert  --zero
+         --seq-parallel
 """
 from __future__ import annotations
 
@@ -42,6 +68,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -61,7 +88,9 @@ from repro_torch.metrics.roofline import (H100, HW, compute_seconds,
                                           model_flops_6nd, roofline_terms)
 from repro_torch.models import transformer as tf_model
 from repro_torch.optim import adamw
-from repro_torch.tree import tree_map
+from repro_torch.sharding.specs import (_axes, _map_path, _zip_specs,
+                                        batch_axes)
+from repro_torch.tree import tree_leaves, tree_map
 
 FIT_SHARE = 0.9          # a card probe runs only where its peak fits here
 PROBE_PERIODS = (2, 3)   # the depths the law is fitted at (_probe_points)
@@ -77,6 +106,100 @@ PROBE_BATCHES = (1, 2)
 SEED = 0                 # the card's weights and inputs
 AGREE = {"bytes": 0.01, "peak_rel": 0.05, "peak_abs": 256 * 2 ** 20,
          "share": 1.05}
+
+
+# ---------------------------------------------------------------------------
+# Sharding spec builders (the reference's rules; a spec is a tuple, one
+# entry a dim: None, an axis name, or a tuple of names)
+# ---------------------------------------------------------------------------
+def _div(n, mesh, axes) -> bool:
+    if isinstance(axes, str):
+        axes = (axes,)
+    axes = tuple(a for a in axes if a in mesh.axis_names)
+    if not axes:
+        return False
+    size = math.prod(mesh.shape[a] for a in axes)
+    return n % size == 0 and n >= size
+
+
+def _entry(axes):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def batch_pspecs(batch_struct, mesh):
+    """Specs sharding every batch leaf's dim 0 over the batch axes (dim 1
+    where dim 0 does not divide)."""
+    baxes = batch_axes(mesh)
+
+    def one(leaf):
+        dims = [None] * len(leaf.shape)
+        if baxes and _div(leaf.shape[0], mesh, baxes):
+            dims[0] = _entry(baxes)
+        elif len(leaf.shape) >= 2 and baxes and _div(leaf.shape[1], mesh,
+                                                     baxes):
+            dims[1] = _entry(baxes)
+        return tuple(dims)
+
+    return tree_map(one, batch_struct)
+
+
+def cache_pspecs(cache_struct, mesh):
+    """The reference's KV / SSM cache specs: batch over (pod, data) when
+    divisible, else the cache length; kv heads / SSD heads / conv
+    channels over 'model' when divisible, else the cache length over
+    'model'.  The port's meshed decode holds another layout where these
+    split the length (``models.sharded.shard_cache``); the dry-run's
+    record sets the two side by side (``cache_layouts``)."""
+    baxes = batch_axes(mesh)
+
+    def one(path, leaf):
+        name = path[-1] if path and isinstance(path[-1], str) else ""
+        shape = leaf.shape
+        dims = [None] * len(shape)
+        if name in ("k", "v", "xk", "xv"):
+            # (Pd, B, W, K, hd)
+            if baxes and _div(shape[1], mesh, baxes):
+                dims[1] = _entry(baxes)
+            elif baxes and _div(shape[2], mesh, baxes):
+                dims[2] = _entry(baxes)
+            if _div(shape[3], mesh, ("model",)):
+                dims[3] = "model"
+            elif dims[2] is None and _div(shape[2], mesh, ("model",)):
+                dims[2] = "model"
+        elif name == "ssm":
+            # (Pd, B, H, hp, N)
+            if baxes and _div(shape[1], mesh, baxes):
+                dims[1] = _entry(baxes)
+            if _div(shape[2], mesh, ("model",)):
+                dims[2] = "model"
+        elif name == "conv":
+            # (Pd, B, d_conv-1, d_xbc)
+            if baxes and _div(shape[1], mesh, baxes):
+                dims[1] = _entry(baxes)
+            if _div(shape[3], mesh, ("model",)):
+                dims[3] = "model"
+        return tuple(dims)
+
+    return _map_path(one, cache_struct)
+
+
+def zero_shard_specs(specs, struct, mesh):
+    """ZeRO-style sharding: the batch axes on the first unsharded,
+    divisible dim of each leaf (the optimizer's moments; with
+    ``shard_params_data`` the weights too)."""
+    baxes = batch_axes(mesh)
+    if not baxes:
+        return specs
+
+    def one(path, leaf, spec):
+        dims = list(spec) + [None] * (len(leaf.shape) - len(spec))
+        for i, (d, s) in enumerate(zip(leaf.shape, dims)):
+            if s is None and _div(d, mesh, baxes):
+                dims[i] = _entry(baxes)
+                break
+        return tuple(dims)
+
+    return _zip_specs(one, struct, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +334,258 @@ def count_extended(cfg, build) -> Dict[str, float]:
     return _law(pts, cfg.n_periods, 1)
 
 
+# ---------------------------------------------------------------------------
+# The mesh half: one rank's count of a step over a mesh
+# ---------------------------------------------------------------------------
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+def parse_mesh(mesh: Union[None, str, Tuple[int, ...]],
+               multi_pod: bool = False) -> Optional[Tuple[int, ...]]:
+    """``"16x16"`` / ``(16, 16)`` / ``multi_pod`` (2x16x16) -> the mesh's
+    shape, None for the one-card mode."""
+    if multi_pod:
+        return (2, 16, 16)
+    if mesh is None:
+        return None
+    shape = tuple(int(x) for x in mesh.split("x")) if isinstance(mesh, str) \
+        else tuple(int(x) for x in mesh)
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ValueError(f"a mesh is (data, model) or (pod, data, model), "
+                         f"got {mesh!r}")
+    return shape
+
+
+def mesh_name(shape: Tuple[int, ...]) -> str:
+    return "x".join(str(n) for n in shape)
+
+
+def data_slice(mesh):
+    """``mesh`` with only its ranks at index 0 of its leading batch axes
+    ('pod', 'data') run: the first size / dp ranks in row-major order.
+    The others are counted, not run: a collective over a batch axis
+    stands in for the absent ranks' parts with a present one's (shapes
+    only, on ``meta``), which is exact for a count because every data
+    rank runs the same shapes (tests/test_torch_dryrun_mesh.py holds it
+    to all the ranks)."""
+    from repro_torch.launch.mesh import Mesh
+    lead = 0
+    while lead < len(mesh.axis_names) and \
+            mesh.axis_names[lead] in ("pod", "data"):
+        lead += 1
+    if any(a in ("pod", "data") for a in mesh.axis_names[lead:]):
+        raise ValueError(f"the batch axes must lead: {mesh.axis_names}")
+    dp = math.prod(mesh.devices.shape[:lead])
+    return Mesh(mesh.devices, mesh.axis_names, run=mesh.size // dp)
+
+
+def make_count_mesh(shape: Tuple[int, ...], device, sliced: bool = True):
+    """The (data, model) or (pod, data, model) mesh of ``shape`` with
+    every slot on ``device``; ``sliced``: only the ranks at data index 0
+    run (``data_slice``)."""
+    from repro_torch.launch.mesh import make_mesh
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                      "model")
+    mesh = make_mesh(shape, axes, device)
+    return data_slice(mesh) if sliced else mesh
+
+
+def _rank_tensors(x) -> list:
+    """Rank 0's tensors of a step's arguments or outputs (a per-rank list
+    is rank 0's entry; a ``Sharded`` or ``RankCaches`` its first part)."""
+    from repro_torch.models.sharded import RankCaches
+    from repro_torch.sharding.collectives import Sharded
+    if isinstance(x, (Sharded, RankCaches)):
+        return tree_leaves(x.parts[0])
+    if isinstance(x, tuple):
+        return [t for v in x for t in _rank_tensors(v)]
+    if isinstance(x, list):
+        return tree_leaves(x[0])
+    return tree_leaves(x)
+
+
+def _nbytes(tensors, exclude=()) -> int:
+    seen = set(exclude)
+    total = 0
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and id(t) not in seen:
+            seen.add(id(t))
+            total += t.numel() * t.element_size()
+    return total
+
+
+def _split_bytes(tree, specs, mesh) -> float:
+    """Bytes of one rank's share of whole tensors laid out by ``specs``."""
+    out = []
+    _zip_specs(lambda path, t, spec: out.append(
+        t.numel() * t.element_size() / math.prod(
+            mesh.shape[a] for e in spec for a in _axes(e)
+            if a in mesh.axis_names)), tree, specs)
+    return sum(out)
+
+
+def build_mesh_step(cfg, shape: InputShape, mesh, device, *,
+                    opt_dtype="float32", remat=True, loss_chunk=0,
+                    zero=False, shard_params_data=False):
+    """The step of ``shape.kind`` over ``mesh`` (installed here; the
+    caller uninstalls it) and its arguments: each rank's parameters
+    from ``place`` (a storage of its own each, so that a count holds
+    each rank's), its optimizer state (``zero``: the moments split over
+    the data axes too), and the whole batch, or each rank's cache
+    (``models.sharded.shard_cache``).  ``shard_params_data`` (serving)
+    also splits the weights over the data axes, all-gathered at the
+    step's entry.  Returns (step, args, one rank's argument bytes)."""
+    from repro_torch.launch.train import (gather_zero, mesh_init,
+                                          mesh_step)
+    from repro_torch.models.sharded import shard_cache
+    from repro_torch.sharding import specs as shd
+    if shard_params_data and shape.kind == "train":
+        raise ValueError("shard_params_data is for serving: a training "
+                         "step's weights are the optimizer's (use zero)")
+    ins = input_specs(cfg, shape)
+    cfg = resolve_config(cfg, shape)
+    dev = torch.device(device)
+    shd.set_mesh(mesh)
+    if dev.type == "meta":
+        params, inputs = tf_model.init_params(None, cfg), ins
+    else:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = tf_model.init_params(gen, cfg)
+        inputs = _materialize(ins, gen, cfg, shape.seq)
+    mode = cfg.moe.sharding_mode if cfg.moe is not None else "tensor"
+    pspecs = shd.param_pspecs(params, mode)
+    held = zero_shard_specs(pspecs, params, mesh) if shard_params_data \
+        else pspecs
+    mspecs = zero_shard_specs(pspecs, params, mesh) if zero else None
+    parts = [tree_map(lambda t: t.clone(), p)
+             for p in shd.place(params, held, mesh)]
+    del params
+    if shape.kind == "train":
+        opt = adamw(3e-4, state_dtype=opt_dtype)
+        state = mesh_init(opt, parts, pspecs, mspecs)
+
+        def train_step(parts, state, batch):
+            ps = [tree_map(lambda p: p.detach().requires_grad_(True), r)
+                  for r in parts]
+            with phase("forward"):
+                loss, _ = tf_model.train_loss(ps, batch, cfg, remat=remat,
+                                              loss_chunk=loss_chunk)
+            with phase("backward"):
+                loss.backward()
+            grads = tree_map(lambda p: p.grad, ps)
+            with phase("optimizer"), torch.no_grad():
+                new, st = mesh_step(opt, ps, grads, state, pspecs, mspecs)
+            return loss.detach(), new, st
+
+        batch = inputs["batch"]
+        args_b = (_nbytes(_rank_tensors((parts, state)))
+                  + _split_bytes(batch, batch_pspecs(batch, mesh), mesh))
+        return train_step, (parts, state, batch), args_b
+
+    def weights(parts):
+        return gather_zero(parts, pspecs, held) if shard_params_data \
+            else parts
+
+    if shape.kind == "prefill":
+        def prefill_step(parts, batch):
+            with torch.no_grad():
+                return tf_model.prefill(weights(parts), batch, cfg)
+
+        batch = inputs["batch"]
+        args_b = (_nbytes(_rank_tensors((parts,)))
+                  + _split_bytes(batch, batch_pspecs(batch, mesh), mesh))
+        return prefill_step, (parts, batch), args_b
+
+    def decode_step(parts, cache, tokens, pos):
+        with torch.no_grad():
+            return tf_model.decode_step(weights(parts), cache, tokens, pos,
+                                        cfg)
+
+    cache = shard_cache(inputs["cache"], cfg)
+    tok = inputs["tokens"]
+    args_b = (_nbytes(_rank_tensors((parts, cache)))
+              + _split_bytes(tok, batch_pspecs(tok, mesh), mesh))
+    return decode_step, (parts, cache, tok, shape.seq - 1), args_b
+
+
+def count_mesh_step(step, args, args_b: float,
+                    counter: Optional[CostCounter] = None
+                    ) -> Dict[str, float]:
+    """Run a meshed ``step(*args)`` under a ``CostCounter`` over the
+    installed mesh's ranks: one rank's counts, its argument bytes
+    ``args_b`` and the bytes of its outputs that are not arguments.
+
+    The rank is rank 0: its FLOPs, bytes, launches and collective
+    results (``by_rank``; it alone seeds the loss's backward, a few
+    scalar ops), plus its 1/n of the ops that belong to no one rank (a
+    backward's masks built from nothing: one set per rank).  The peak is
+    the largest any one rank holds.  The ranks run the same shapes, so
+    this is each device's count (``tests/test_torch_dryrun_mesh.py``
+    holds a mesh's data slice to all its ranks).  ``counter``: a
+    ``CostCounter`` over the ranks run to count in (a new one)."""
+    from repro_torch.sharding.specs import get_mesh, rank_devices
+    n = len(rank_devices(get_mesh()))
+    counter = counter or CostCounter(n_ranks=n)
+    for a in args:
+        if isinstance(a, list) or hasattr(a, "parts"):
+            for r in range(n):
+                counter.own(a[r] if isinstance(a, list) else a.parts[r], r)
+    arg_ids = {id(t) for t in _rank_tensors(tuple(args))}
+    with counter:
+        out = step(*args)
+    summary = counter.summary()
+    empty = {"flops": {}, "bytes": 0, "launches": {}, "collectives": {}}
+    own = summary["by_rank"].get("0", empty)
+    shared = summary["by_rank"].get("shared", empty)
+    flat = {f"flops:{d}": own["flops"].get(d, 0) + shared["flops"].get(d, 0)
+            / n for d in set(own["flops"]) | set(shared["flops"])}
+    flat.update({f"launches:{k}": c for k, c in own["launches"].items()})
+    flat.update({f"collective:{k}": b
+                 for k, b in own["collectives"].items()})
+    flat["collective_ops"] = summary["collective_ops"] / n
+    flat.update({f"peak:{k}": v for k, v in summary["phase_peaks"].items()})
+    flat.update(bytes_accessed=own["bytes"] + shared["bytes"] / n,
+                peak_bytes=summary["peak_bytes"], argument_bytes=args_b,
+                output_bytes=_nbytes(_rank_tensors(out), arg_ids))
+    return flat
+
+
+def _collectives(flat: Dict[str, float]) -> Dict[str, float]:
+    """The record's ``collectives``: result bytes per device by kind (the
+    reference's five, the two the port never runs at 0) and the count."""
+    got = _by_kind(flat, "collective:")
+    out = {k: got.get(k, 0.0) for k in COLLECTIVE_KINDS}
+    out["count"] = flat.get("collective_ops", 0.0)
+    return out
+
+
+def cache_layouts(cfg, shape: InputShape, mesh) -> Dict[str, dict]:
+    """Each cache leaf of a decode shape: the reference's spec
+    (``cache_pspecs``), its bytes a device under it and under the port's
+    layout (``shard_cache``, on ``meta``), and whether they differ."""
+    from repro_torch.models.sharded import shard_cache
+    from repro_torch.sharding import specs as shd
+    cache = input_specs(cfg, shape)["cache"]
+    ref = cache_pspecs(cache, mesh)
+    prev = shd.get_mesh()
+    shd.set_mesh(mesh)
+    try:
+        port = shard_cache(cache, resolve_config(cfg, shape)).parts[0]
+    finally:
+        shd.set_mesh(prev)
+    out = {}
+    for b, leaves in cache.items():
+        for name, t in leaves.items():
+            rb = _split_bytes(t, ref[b][name], mesh)
+            pb = _nbytes([port[b][name]])
+            out[f"{b}/{name}"] = {"reference_spec": list(ref[b][name]),
+                                  "reference_bytes_per_device": rb,
+                                  "port_bytes_per_device": pb,
+                                  "differ": rb != pb}
+    return out
+
+
 def bound_s(count: Dict[str, float], hw: HW = H100) -> float:
     """The least time the card could take a counted step: its FLOPs at
     their dtypes' peaks, or its arguments and outputs once over HBM,
@@ -233,15 +608,7 @@ def _card_probe(cfg, shape, opts, counted, reps):
     card = count_step(step, args)
     torch.cuda.synchronize()
     measured_peak = torch.cuda.max_memory_allocated() - base
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for _ in range(reps):
-        start.record()
-        step(*args)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    times = _events_ms(step, args, reps)
     ms = statistics.median(times)
     del step, args
     gc.collect()
@@ -255,6 +622,20 @@ def _card_probe(cfg, shape, opts, counted, reps):
             "count_equal": all(card.get(k, 0) == counted.get(k, 0)
                                for k in keys),
             "card_count": {k: card[k] for k in sorted(card)}}
+
+
+def _events_ms(step, args, reps) -> list:
+    """``reps`` runs of ``step(*args)``, each timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        step(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def _law(points: Dict[Tuple[int, int], Dict[str, float]], n_periods: int,
@@ -292,6 +673,14 @@ def _law(points: Dict[Tuple[int, int], Dict[str, float]], n_periods: int,
     return out
 
 
+def below_zero(full: Dict[str, float]) -> list:
+    """A note for each count the law extends below zero: the probes do not
+    follow the law there (or a probe's count is wrong).  The record keeps
+    the raw value."""
+    return [f"the law extends {k} below zero ({v!r}): the probes do not "
+            f"follow it" for k, v in sorted(full.items()) if v < 0]
+
+
 def probe_problems(row: dict) -> list:
     """What in one card probe of a record's ``probes`` breaks ``AGREE``
     (empty when it holds, or when the probe did not run)."""
@@ -311,15 +700,17 @@ def probe_problems(row: dict) -> list:
     return bad
 
 
-def _probe_points(cfg, shape, extrapolate: bool):
+def _probe_points(cfg, shape, extrapolate: bool, dp: int = 1):
     """The (periods, batch) probes and the law's name.  Depth is probed
     at 2 and 3 periods, not the reference's 1 and 2: one period's caches
     are views (``transformer._stack``), two or more are stacked copies,
-    so a one-period probe lies off the law its bytes follow."""
+    so a one-period probe lies off the law its bytes follow.  Over a
+    mesh of ``dp`` data ranks the batch is probed at dp and 2·dp, as in
+    the reference, where it splits evenly and reaches 2·dp."""
     if extrapolate and cfg.n_periods > PROBE_PERIODS[1]:
-        if shape.batch >= 2:
-            return ([(p, b) for b in PROBE_BATCHES for p in PROBE_PERIODS],
-                    "bilinear(P,B)")
+        if shape.batch >= 2 * dp and shape.batch % dp == 0:
+            return ([(p, b * dp) for b in PROBE_BATCHES
+                     for p in PROBE_PERIODS], "bilinear(P,B)")
         return [(p, shape.batch) for p in PROBE_PERIODS], "linear(P)"
     return [(cfg.n_periods, shape.batch)], False
 
@@ -354,24 +745,46 @@ def _launches(flat: Dict[str, float]) -> Dict[str, Dict[str, float]]:
 
 
 def dryrun_one(arch: str, shape_name: Union[str, InputShape], *,
+               multi_pod: bool = False, mesh=None,
+               moe_mode: Optional[str] = None, zero: bool = False,
                opt_dtype: str = "float32", remat: bool = True,
-               loss_chunk: int = 0, extrapolate: bool = True,
+               seq_parallel: bool = False, loss_chunk: int = 0,
+               shard_params_data: bool = False, extrapolate: bool = True,
                device="cuda", smoke: bool = False, reps: int = 3,
                hw: HW = H100, verbose: bool = True) -> dict:
     """Count one combination on ``meta`` (and, on the card, run its
     probes); returns the roofline record.  ``device`` is ``"cuda"`` (the
     default; raises without a card) or ``"meta"`` (counts only).
     ``smoke`` takes the architecture's smoke config and ``shape_name``
-    may be an ``InputShape`` of one's own (the tests' small sizes)."""
+    may be an ``InputShape`` of one's own (the tests' small sizes).
+
+    Without ``mesh`` or ``multi_pod``, one card holds the whole step.
+    With ``mesh`` ("16x16", (1, 2), ...) or ``multi_pod`` (2x16x16) the
+    record is one device's of that mesh (``_dryrun_mesh``), under the
+    reference's options ``moe_mode``, ``zero``, ``seq_parallel`` and
+    ``shard_params_data``."""
     dev = resolve_device(device)
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"the dry-run counts on meta or runs on the card, "
                          f"not on {dev.type}")
     shape = (shape_name if isinstance(shape_name, InputShape)
              else INPUT_SHAPES[shape_name])
-    cfg = resolve_config((get_smoke_config if smoke else get_config)(arch),
-                         shape)
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    if moe_mode and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, sharding_mode=moe_mode))
+    cfg = resolve_config(cfg, shape)
     opts = dict(opt_dtype=opt_dtype, remat=remat, loss_chunk=loss_chunk)
+    mesh_shape = parse_mesh(mesh, multi_pod)
+    if mesh_shape is not None:
+        return _dryrun_mesh(arch, cfg, shape, mesh_shape, dict(
+            opts, zero=zero, shard_params_data=shard_params_data),
+            dict(moe_mode=moe_mode, zero=zero, seq_parallel=seq_parallel,
+                 shard_params_data=shard_params_data), dev, extrapolate,
+            reps, hw, verbose)
+    if moe_mode or zero or seq_parallel or shard_params_data:
+        raise ValueError("moe_mode, zero, seq_parallel and "
+                         "shard_params_data are options of a mesh")
     pts, extrapolated = _probe_points(cfg, shape, extrapolate)
     n_periods, b_full = cfg.n_periods, shape.batch
 
@@ -406,24 +819,7 @@ def dryrun_one(arch: str, shape_name: Union[str, InputShape], *,
                       f"{r['count_equal']}", flush=True)
 
     full = _law(counts, n_periods, b_full)
-    flops = _by_kind(full, "flops:")
-    flops_dev = sum(flops.values())
-    bytes_dev = full["bytes_accessed"]
-    terms = roofline_terms(flops, bytes_dev, 0.0, hw)
-    args_b, out_b = full["argument_bytes"], full["output_bytes"]
     peak_b = full["peak_bytes"]
-    # the floor: what must cross HBM at least once, the arguments and the
-    # outputs that are not arguments (the port's steps donate nothing)
-    bytes_floor = args_b + out_b
-    terms["memory_floor_s"] = bytes_floor / hw.hbm_bw
-    per_dev_hbm = args_b + peak_b
-
-    if shape.kind == "train":
-        model_flops = model_flops_6nd(cfg, shape.batch * shape.seq)
-    elif shape.kind == "prefill":
-        model_flops = model_flops_6nd(cfg, shape.batch * shape.seq) / 3.0
-    else:
-        model_flops = model_flops_6nd(cfg, shape.batch) / 3.0
 
     def probe_row(p, b):
         row = {"periods": p, "batch": b, "count": counts[p, b]}
@@ -436,28 +832,67 @@ def dryrun_one(arch: str, shape_name: Union[str, InputShape], *,
             row["share"] = row["bound_s"] / (c["ms"] / 1e3)
         return row
 
-    result = {
-        "arch": arch, "shape": shape.name, "mesh": "1", "n_devices": 1,
-        "kind": shape.kind,
+    result = _record(
+        arch, cfg, shape, full, hw, "1", 1, {}, count_s, extrapolated,
+        {"moe_mode": None, "zero": False, "opt_dtype": opt_dtype,
+         "remat": remat, "seq_parallel": False, "loss_chunk": loss_chunk,
+         "shard_params_data": False}, dev,
+        "counted on meta: the peak of the storages the step creates, "
+        "extended from the probes phase by phase along the same law"
+        if extrapolated else "counted on meta at full depth and batch")
+    result["probes"] = [probe_row(p, b) for p, b in pts]
+    if dev.type == "cuda":
+        result["measured"] = _measured(result, card, n_periods, b_full,
+                                       peak_b)
+    if verbose:
+        print(f"== {arch} x {shape.name} on one {hw.name} ({dev.type}) ==")
+        _print(result)
+        if "measured" in result:
+            print(f"measured: {result['measured']}", flush=True)
+    return result
+
+
+def _record(arch, cfg, shape, full, hw, mesh, n_dev, colls, count_s,
+            extrapolated, options, dev, memory_source) -> dict:
+    """The reference's record of one device's extended count ``full``
+    (``colls``: its collectives by kind, {} on one card)."""
+    flops = _by_kind(full, "flops:")
+    flops_dev = sum(flops.values())
+    bytes_dev = full["bytes_accessed"]
+    coll_dev = sum(colls.get(k, 0.0) for k in COLLECTIVE_KINDS)
+    terms = roofline_terms(flops, bytes_dev, coll_dev, hw)
+    args_b, out_b = full["argument_bytes"], full["output_bytes"]
+    peak_b = full["peak_bytes"]
+    # the floor: what must cross HBM at least once, the arguments and the
+    # outputs that are not arguments (the port's steps donate nothing)
+    bytes_floor = args_b + out_b
+    terms["memory_floor_s"] = bytes_floor / hw.hbm_bw
+    per_dev_hbm = args_b + peak_b
+    if shape.kind == "train":
+        model_flops = model_flops_6nd(cfg, shape.batch * shape.seq)
+    elif shape.kind == "prefill":
+        model_flops = model_flops_6nd(cfg, shape.batch * shape.seq) / 3.0
+    else:
+        model_flops = model_flops_6nd(cfg, shape.batch) / 3.0
+    return {
+        "arch": arch, "shape": shape.name, "mesh": mesh,
+        "n_devices": n_dev, "kind": shape.kind,
         "flops_per_device": flops_dev,
         "flops_by_dtype": flops,
         "bytes_per_device": bytes_dev,
-        "collective_bytes_per_device": 0.0,
-        "collectives": {},
+        "collective_bytes_per_device": coll_dev,
+        "collectives": colls,
         "roofline": terms,
         "model_flops": model_flops,
-        "hlo_flops_global": flops_dev,
-        "model_flops_ratio": (model_flops / flops_dev if flops_dev
-                              else None),
+        "hlo_flops_global": flops_dev * n_dev,
+        "model_flops_ratio": (model_flops / (flops_dev * n_dev)
+                              if flops_dev else None),
         "memory": {"argument_size_in_bytes": args_b,
                    "output_size_in_bytes": out_b,
                    "temp_size_in_bytes": max(peak_b - out_b, 0),
                    "alias_size_in_bytes": 0,
                    "generated_code_size_in_bytes": None},
-        "memory_source": ("counted on meta: the peak of the storages the "
-                          "step creates, extended from the probes phase "
-                          "by phase along the same law" if extrapolated else
-                          "counted on meta at full depth and batch"),
+        "memory_source": memory_source,
         "bytes_floor_per_device": bytes_floor,
         "hbm_per_device_gb": per_dev_hbm / 1e9,
         "fits_hbm": bool(per_dev_hbm <= hw.hbm_bytes),
@@ -465,30 +900,180 @@ def dryrun_one(arch: str, shape_name: Union[str, InputShape], *,
         "lower_s": round(count_s, 2),       # the meta counts' seconds
         "compile_s": None,                  # nothing is compiled
         "extrapolated": extrapolated,
-        "options": {"moe_mode": None, "zero": False,
-                    "opt_dtype": opt_dtype, "remat": remat,
-                    "seq_parallel": False, "loss_chunk": loss_chunk,
-                    "shard_params_data": False},
+        "options": options,
         "hw": hw.name, "device": dev.type,
-        "probes": [probe_row(p, b) for p, b in pts],
     }
-    if dev.type == "cuda":
-        result["measured"] = _measured(result, card, n_periods, b_full,
-                                       peak_b)
+
+
+def _print(rec) -> None:
+    t = rec["roofline"]
+    print(f"count (extrapolated={rec['extrapolated']}): flops/dev="
+          f"{rec['flops_per_device']:.4e} "
+          f"{ {d: f'{f:.3e}' for d, f in rec['flops_by_dtype'].items()} } "
+          f"bytes/dev={rec['bytes_per_device']:.4e} "
+          f"launches={rec['launches']}")
+    if rec["collectives"]:
+        print(f"collectives/dev: {rec['collectives']}")
+    print(f"roofline: compute={t['compute_s']:.6f}s "
+          f"memory={t['memory_s']:.6f}s (floor {t['memory_floor_s']:.6f}s) "
+          f"collective={t['collective_s']:.6f}s dominant={t['dominant']}")
+    print(f"hbm/dev={rec['hbm_per_device_gb']:.3f} GB "
+          f"fits={rec['fits_hbm']} count {rec['lower_s']:.1f} s", flush=True)
+
+
+# the most ranks a card probe of a mesh puts on card 0: a production
+# mesh's 256 or 512 ranks on one card would measure nothing per device
+CARD_RANKS = 8
+
+
+def _count_on_mesh(cfg, shape, mesh, device, seq_parallel, opts):
+    from repro_torch.sharding import specs as shd
+    shd.set_seq_parallel(seq_parallel)
+    try:
+        return count_mesh_step(*build_mesh_step(cfg, shape, mesh, device,
+                                                **opts))
+    finally:
+        shd.set_mesh(None)
+        shd.set_seq_parallel(False)
+
+
+def _count_probe(cfg, shape, mesh_shape, seq_parallel, opts):
+    """One probe counted on ``meta`` over ``mesh_shape``'s data slice."""
+    return _count_on_mesh(cfg, shape, make_count_mesh(mesh_shape, "meta"),
+                          "meta", seq_parallel, opts)
+
+
+def count_probes(probes: dict, jobs: int) -> dict:
+    """``_count_probe(*args)`` for each ``{key: args}``, up to ``jobs`` at
+    once, each in a process of its own (in this one where ``jobs`` is
+    1)."""
+    if jobs <= 1 or len(probes) <= 1:
+        return {k: _count_probe(*a) for k, a in probes.items()}
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(min(jobs, len(probes)), mp_context=(
+            multiprocessing.get_context("spawn"))) as pool:
+        futures = {k: pool.submit(_count_probe, *a)
+                   for k, a in probes.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def _card_mesh_probe(cfg, shape, mesh_shape, seq_parallel, opts, counted,
+                     reps):
+    """One probe with every rank on card 0: warm-up, a run under the
+    counter (its FLOPs, launches and collective bytes must equal the
+    ``meta`` count's), then ``reps`` runs timed with CUDA events.  The
+    card holds all the ranks at once, so its peak and time are not one
+    device's.  ``launches_every_rank``: the counted run's launches over
+    all the ranks, by kernel and variant."""
+    from repro_torch.sharding import specs as shd
+    mesh = make_count_mesh(mesh_shape, "cuda:0", sliced=False)
+    shd.set_seq_parallel(seq_parallel)
+    try:
+        step, args, args_b = build_mesh_step(cfg, shape, mesh, "cuda:0",
+                                              **opts)
+        step(*args)
+        torch.cuda.synchronize()
+        counter = CostCounter(n_ranks=math.prod(mesh_shape))
+        card = count_mesh_step(step, args, args_b, counter)
+        torch.cuda.synchronize()
+        every_rank = counter.summary()["launches"]
+        times = _events_ms(step, args, reps)
+    finally:
+        shd.set_mesh(None)
+        shd.set_seq_parallel(False)
+    del step, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = [k for k in set(card) | set(counted)
+            if k.startswith(("flops:", "launches:", "collective:"))]
+    return {"ms": statistics.median(times), "ms_reps": times,
+            "ranks_on_one_card": math.prod(mesh_shape),
+            "launches_every_rank": every_rank,
+            "bytes_accessed": card["bytes_accessed"],
+            "counted_bytes_accessed": counted["bytes_accessed"],
+            "count_equal": all(card.get(k, 0) == counted.get(k, 0)
+                               for k in keys),
+            "card_count": {k: card[k] for k in sorted(card)}}
+
+
+def _dryrun_mesh(arch, cfg, shape, mesh_shape, opts, options, dev,
+                 extrapolate, reps, hw, verbose) -> dict:
+    """``dryrun_one`` over a mesh: each probe counted on ``meta`` over the
+    mesh's data slice (``data_slice``), extended along the law, and,
+    for a mesh of at most ``CARD_RANKS`` ranks, run with every rank on
+    card 0 (``_card_mesh_probe``)."""
+    n_dev = math.prod(mesh_shape)
+    dp = math.prod(mesh_shape[:-1])
+    name = mesh_name(mesh_shape)
+    seq_parallel = options["seq_parallel"]
+    pts, extrapolated = _probe_points(cfg, shape, extrapolate, dp)
+    n_periods, b_full = cfg.n_periods, shape.batch
+    t0 = time.time()
+    card = {}
+    # a production mesh's probe takes seconds to count: one process each
+    jobs = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+            else os.cpu_count() or 1) if n_dev > CARD_RANKS else 1
+    counts = count_probes({(p, b): (
+        _with_periods(cfg, p), dataclasses.replace(shape, batch=b),
+        mesh_shape, seq_parallel, opts) for p, b in pts}, jobs)
+    count_s = time.time() - t0
     if verbose:
-        print(f"== {arch} x {shape.name} on one {hw.name} ({dev.type}) ==")
-        print(f"count (extrapolated={extrapolated}): flops={flops_dev:.4e} "
-              f"{ {d: f'{f:.3e}' for d, f in flops.items()} } "
-              f"bytes={bytes_dev:.4e} launches={result['launches']}")
-        print(f"roofline: compute={terms['compute_s']:.6f}s "
-              f"memory={terms['memory_s']:.6f}s "
-              f"(floor {terms['memory_floor_s']:.6f}s) "
-              f"dominant={terms['dominant']}")
-        print(f"hbm={result['hbm_per_device_gb']:.3f} GB "
-              f"fits={result['fits_hbm']} count {count_s:.1f} s",
-              flush=True)
-        if "measured" in result:
-            print(f"measured: {result['measured']}", flush=True)
+        print(f"  {len(pts)} probes on {name} counted in {count_s:.1f} s "
+              f"over {n_dev // dp} of {n_dev} ranks ({min(jobs, len(pts))} "
+              f"at once)", flush=True)
+    card_note = None
+    if dev.type == "cuda":
+        if n_dev > CARD_RANKS:
+            card_note = (f"no card probe: {n_dev} ranks on one card would "
+                         f"measure nothing per device; counted on meta "
+                         f"only")
+        else:
+            limit = FIT_SHARE * torch.cuda.get_device_properties(
+                0).total_memory
+            for (p, b), c in counts.items():
+                need = n_dev * (c["argument_bytes"] + c["peak_bytes"])
+                if need > limit:
+                    card[p, b] = {"skipped": f"{n_dev} ranks do not fit on "
+                                  f"one card: {need / 1e9:.2f} GB"}
+                    continue
+                card[p, b] = _card_mesh_probe(
+                    _with_periods(cfg, p), dataclasses.replace(shape,
+                                                               batch=b),
+                    mesh_shape, seq_parallel, opts, c, reps)
+    full = _law(counts, n_periods, b_full)
+    notes = below_zero(full)
+    if cfg.moe is not None and extrapolated:
+        notes.append("a MoE step's capacity rounds up to 4 tokens an "
+                     "expert, so its cost is not affine in B or P: the "
+                     "law's FLOPs, bytes and collective term are a floor")
+    if card_note:
+        notes.append(card_note)
+    result = _record(
+        arch, cfg, shape, full, hw, name, n_dev, _collectives(full),
+        count_s, extrapolated, {**options, "opt_dtype": opts["opt_dtype"],
+                                "remat": opts["remat"],
+                                "loss_chunk": opts["loss_chunk"]}, dev,
+        "counted on meta: the largest one rank holds of the storages the "
+        "step creates (each storage live on the ranks it belongs to), "
+        "extended phase by phase along the law")
+    result.update(
+        counted_ranks=n_dev // dp,
+        card_probe=card_note or ("run" if card else "not run: meta"),
+        notes=notes,
+        probes=[{"periods": p, "batch": b, "count": counts[p, b],
+                 **card.get((p, b), {})} for p, b in pts])
+    if shape.kind == "decode":
+        layouts = cache_layouts(cfg, shape, make_count_mesh(
+            mesh_shape, "meta"))
+        result["cache_layouts"] = layouts
+        result["cache_bytes_per_device"] = {
+            who: sum(v[f"{who}_bytes_per_device"] for v in layouts.values())
+            for who in ("port", "reference")}
+    if verbose:
+        print(f"== {arch} x {shape.name} on {name} ({n_dev} devices, "
+              f"{dev.type}) ==")
+        _print(result)
     return result
 
 
@@ -532,11 +1117,22 @@ def main(argv=None):
     ap.add_argument("--shape", type=str, default=None,
                     choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--mesh", type=str, default=None,
+                    help="count one device of a (data x model) or (pod x "
+                    "data x model) mesh, e.g. 16x16 (default: one card)")
+    ap.add_argument("--multipod", action="store_true",
+                    help="the 2x16x16 mesh")
+    ap.add_argument("--moe-mode", type=str, default=None,
+                    choices=["tensor", "expert"])
+    ap.add_argument("--zero", action="store_true")
+    ap.add_argument("--seq-parallel", action="store_true")
     ap.add_argument("--opt-dtype", type=str, default="float32")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--loss-chunk", type=int, default=0)
     ap.add_argument("--no-extrapolate", action="store_true")
-    ap.add_argument("--out", type=str, default="build/dryrun")
+    ap.add_argument("--out", type=str, default=None,
+                    help="default build/dryrun (one card), "
+                    "build/dryrun_mesh (a mesh)")
     ap.add_argument("--tag", type=str, default="")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "meta"],
@@ -545,8 +1141,15 @@ def main(argv=None):
                     "only")
     args = ap.parse_args(argv)
     resolve_device(args.device)
+    meshed = args.mesh is not None or args.multipod
+    if not meshed and (args.moe_mode or args.zero or args.seq_parallel):
+        ap.error("--moe-mode, --zero and --seq-parallel need --mesh or "
+                 "--multipod")
+    out_dir = args.out or ("build/dryrun_mesh" if meshed else "build/dryrun")
+    # the reference's names: a 2x16x16 record ends in _mp
+    tag = args.tag + ("_mp" if args.multipod else "")
 
-    os.makedirs(args.out, exist_ok=True)
+    os.makedirs(out_dir, exist_ok=True)
     if args.all:
         combos = [(a, s) for a in list_architectures() for s in INPUT_SHAPES]
     else:
@@ -556,12 +1159,15 @@ def main(argv=None):
 
     failures = []
     for arch, shape in combos:
-        fname = os.path.join(args.out, f"{arch}__{shape}{args.tag}.json")
+        fname = os.path.join(out_dir, f"{arch}__{shape}{tag}.json")
         if args.skip_existing and os.path.exists(fname):
             print(f"skip existing {fname}")
             continue
         try:
-            res = dryrun_one(arch, shape, opt_dtype=args.opt_dtype,
+            res = dryrun_one(arch, shape, multi_pod=args.multipod,
+                             mesh=args.mesh, moe_mode=args.moe_mode,
+                             zero=args.zero, seq_parallel=args.seq_parallel,
+                             opt_dtype=args.opt_dtype,
                              remat=not args.no_remat,
                              loss_chunk=args.loss_chunk,
                              extrapolate=not args.no_extrapolate,

@@ -33,9 +33,13 @@ DevicesLike = Union[None, str, torch.device,
 
 class Mesh:
     """``devices`` (an object array of ``torch.device``s of the mesh's
-    shape) and ``axis_names``, one name per dim."""
+    shape) and ``axis_names``, one name per dim.  ``run``: how many of
+    its ranks (the first, in row-major order) a step runs, all by
+    default; the dry-run counts a production mesh over fewer
+    (``launch.dryrun.data_slice``)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 run: Optional[int] = None):
         devices = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names):
@@ -45,6 +49,7 @@ class Mesh:
             raise ValueError(f"repeated mesh axis name in {axis_names}")
         self.devices = devices
         self.axis_names = axis_names
+        self.run = self.size if run is None else int(run)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -57,8 +62,9 @@ class Mesh:
         return int(self.devices.size)
 
     def __repr__(self) -> str:
+        run = "" if self.run == self.size else f", run={self.run}"
         return (f"Mesh({self.shape}, devices="
-                f"{[str(d) for d in self.devices.flat]})")
+                f"{[str(d) for d in self.devices.flat]}{run})")
 
 
 def _visible_cards():

@@ -1,6 +1,7 @@
-"""FLOP cost model for the cascade's students (port of the student
-entries of ``repro.metrics.costs``: ``lr``, ``mlp``, ``tinytf``,
-``tinytf_flash`` and ``ssm``).
+"""FLOP cost model for the cascade (port of ``repro.metrics.costs``): the
+students' analytic FLOPs (``lr``, ``mlp``, ``tinytf``, ``tinytf_flash``,
+``ssm``), the expert LLM's prefill and decode FLOPs from its zoo config,
+and the deferral penalties built from them (``relative_costs``).
 
 Inference cost is counted in "model cost units" where logistic regression
 = 1; ``core.cascade.kernel_cascade_config`` derives the deferral
@@ -9,6 +10,10 @@ as the reference.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.kernel_students import SSMStudentSpec, TinyTFFlashSpec
 from repro_torch.models.students import LRSpec, MLPSpec, TinyTFSpec
 
@@ -69,3 +74,69 @@ def ssm_student_flops(spec: SSMStudentSpec, train: bool = False) -> float:
                  + 2.0 * L * d_in * d)                  # out_proj
     total = per_block * spec.n_layers + 2.0 * d * spec.n_classes
     return 2.0 * total if train else total
+
+
+def _attn_flops(cfg: ModelConfig, q_tokens: float, kv_tokens: float) -> float:
+    a = cfg.attn
+    if a is None:
+        return 0.0
+    n_attn = sum(1 for k in cfg.period if k in ("attn", "cross")) \
+        * cfg.n_periods
+    return 4.0 * q_tokens * kv_tokens * a.n_heads * a.head_dim * n_attn
+
+
+def expert_prefill_flops(cfg: ModelConfig, length: int) -> float:
+    """First-token cost of a classification call (paper App. B.1: prefill
+    dominates): 2 * N_active * L plus the attention term (causal: the
+    mean kv length of full attention is ~L/2)."""
+    a = cfg.attn
+    dense = 2.0 * cfg.active_param_count() * length
+    if a is None:
+        return dense
+    kv = min(length, a.window) if a.window else length
+    kv_eff = kv if a.window else length / 2.0
+    return dense + _attn_flops(cfg, length, kv_eff)
+
+
+def expert_decode_flops(cfg: ModelConfig, cache_len: int) -> float:
+    """Per-token decode cost of the expert at KV-cache length ``cache_len``."""
+    a = cfg.attn
+    dense = 2.0 * cfg.active_param_count()
+    if a is None:
+        return dense
+    kv = min(cache_len, a.window) if a.window else cache_len
+    return dense + _attn_flops(cfg, 1.0, kv)
+
+
+@dataclass(frozen=True)
+class CostModel:
+    """Deferral penalties c_i for the MDP, normalized to c_1 (LR) = 1."""
+    units: Dict[str, float]
+
+    def cost(self, level_name: str) -> float:
+        """The deferral penalty c_i of ``level_name`` in LR units."""
+        return self.units[level_name]
+
+
+def relative_costs(lr_spec: LRSpec, tf_spec: TinyTFSpec,
+                   expert_cfg: Optional[ModelConfig] = None,
+                   doc_len: int = 256,
+                   mlp_spec: Optional[MLPSpec] = None,
+                   tf_flash_spec: Optional[TinyTFFlashSpec] = None,
+                   ssm_spec: Optional[SSMStudentSpec] = None,
+                   extra: Optional[Dict[str, float]] = None) -> CostModel:
+    """Build the c_i table (LR = 1) from the analytic per-model FLOPs;
+    optional specs add their level kind to the table."""
+    base = lr_flops(lr_spec)
+    units = {"lr": 1.0, "tinytf": tinytf_flops(tf_spec) / base}
+    if mlp_spec is not None:
+        units["mlp"] = mlp_flops(mlp_spec) / base
+    if tf_flash_spec is not None:
+        units["tinytf_flash"] = tinytf_flash_flops(tf_flash_spec) / base
+    if ssm_spec is not None:
+        units["ssm"] = ssm_student_flops(ssm_spec) / base
+    if expert_cfg is not None:
+        units["expert"] = expert_prefill_flops(expert_cfg, doc_len) / base
+    if extra:
+        units.update(extra)
+    return CostModel(units=units)

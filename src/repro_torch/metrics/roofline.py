@@ -9,12 +9,14 @@ published rates:
   collective = collective bytes / link rate
 
 The counts come from ``metrics.cost.CostCounter`` (``launch/dryrun.py``).
-One card runs no collective, so the dry-run passes 0.  The zoo's model
-sharding moves bytes between ranks with the port's own collectives
+One card runs no collective, so the one-card dry-run passes 0.  Over a
+mesh the zoo moves bytes between ranks with the port's own collectives
 (``sharding/collectives.py``: all-reduce, all-gather and reduce-scatter
 over a mesh's ranks, from one process; no ``torch.distributed``); the
-dry-run's mesh half, which counts them, is ROADMAP Queue 1 item 14c.
-The cascade's lane sharding runs no collective.  The reference's
+counter records each one's result bytes on each rank, forward and
+backward, the reference's convention, and the dry-run's mesh records
+pass one device's total here, over ``link_bw``.  The cascade's lane
+sharding runs no collective.  The reference's
 ``parse_collective_bytes`` reads XLA's HLO text, which the port never
 produces, so it has no counterpart here.
 

@@ -40,7 +40,15 @@ the block's exit.
   gold logit from the rank that holds it.
 
 Prefill returns each rank's caches (``RankCaches``); ``gather_cache``
-rebuilds the unsharded cache from them.
+rebuilds the unsharded cache from them, and ``shard_cache`` is its
+inverse, each rank's cache from a whole one (what a decode step over a
+mesh takes).  The layout is the port's own: the batch over the data
+axes where it divides, else whole; kv heads over 'model', or the one
+gathered head a rank reads where 'model' does not divide them; SSD
+heads and the conv state's x channels over 'model', B and C's channels
+on every rank.  The reference's ``cache_pspecs`` instead split the
+cache length over 'model' (kv heads that do not divide) or over the
+data axes (batch 1); ``launch/dryrun.py`` records both.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ATTN, CROSS, MAMBA, ModelConfig
 from repro_torch.models import ssm as ssm_mod
@@ -58,7 +66,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, embed_shard,
 from repro_torch.models.moe import moe_ffn_sharded
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.collectives import Sharded
-from repro_torch.sharding.specs import get_mesh, rank_devices
+from repro_torch.sharding.specs import _axis_size, get_mesh, rank_devices
 
 MODEL = "model"
 
@@ -141,17 +149,17 @@ def _rank_mamba(ps, cfg: ModelConfig):
     w = col.all_gather([p["mamba"]["in_proj"] for p in ps], MODEL, dim=1)
     cw = col.all_gather([p["mamba"]["conv_w"] for p in ps], MODEL, dim=1)
     cb = col.all_gather([p["mamba"]["conv_b"] for p in ps], MODEL, dim=0)
-    out = []
-    for r, p in enumerate(ps):
-        j, dev = _j(r), w[r].device
+    def one(r, p, wr, cwr, cbr):
+        j, dev = _j(r), wr.device
         z = torch.arange(j * dl, (j + 1) * dl, device=dev)
         bc = torch.arange(2 * N, device=dev)
         dt = torch.arange(j * hl, (j + 1) * hl, device=dev)
         cols = torch.cat([z, d_in + z, 2 * d_in + bc, 2 * d_in + 2 * N + dt])
         ccols = torch.cat([z, d_in + bc])
-        out.append({**p["mamba"], "in_proj": w[r][:, cols],
-                    "conv_w": cw[r][:, ccols], "conv_b": cb[r][ccols]})
-    return out
+        return {**p["mamba"], "in_proj": wr[:, cols],
+                "conv_w": cwr[:, ccols], "conv_b": cbr[ccols]}
+
+    return col.rank_map(one, ps, w, cw, cb)
 
 
 def _mamba(mp, x: Sharded, cfg: ModelConfig, states=None, decode=False):
@@ -170,6 +178,13 @@ def _mamba(mp, x: Sharded, cfg: ModelConfig, states=None, decode=False):
     outs = col.rank_map(lambda r, p, y, s: ssm_mod.gate_out(
         p, y, s / d_in, cfg), mp, ys, ss)
     return outs, [(conv, ssm.float()) for _, (conv, ssm) in pre]
+
+
+def _zeros() -> List[torch.Tensor]:
+    """A 0-d float32 zero on each rank (made in its own ``rank_map``
+    slot, so a count holds each rank's on that rank)."""
+    return col.rank_map(lambda r: torch.zeros(
+        (), device=rank_devices(get_mesh())[r]))
 
 
 def _whole_seq(h: Sharded) -> Sharded:
@@ -209,7 +224,7 @@ def _period_full(pps, h: Sharded, cfg: ModelConfig, memory, mode: str,
     Returns (h, each rank's aux, each rank's caches)."""
     lcfg, group = (_attn_layout(cfg) if cfg.attn is not None
                    else (cfg, None))
-    aux = [torch.zeros((), device=d) for d in rank_devices(get_mesh())]
+    aux = _zeros()
     caches = [{} for _ in pps]
     for i, kind in enumerate(cfg.period):
         ps = [pp[f"b{i}"] for pp in pps]
@@ -222,8 +237,10 @@ def _period_full(pps, h: Sharded, cfg: ModelConfig, memory, mode: str,
                 {**p, "attn": a}, xr, lcfg, causal=causal), ps, att, x.parts)
             x = _residual(x, [o for o, _ in res])
             if mode == "prefill":
-                for c, (_, (k, v)) in zip(cs, res):
-                    c.update(tf._build_kv_cache(k, v, lcfg, cache_len))
+                built = col.rank_map(lambda r, kv: tf._build_kv_cache(
+                    kv[0], kv[1], lcfg, cache_len), [kv for _, kv in res])
+                for c, b in zip(cs, built):
+                    c.update(b)
         if kind == CROSS:
             mem = col.constrain(memory, (x.spec[0], None, None))
             xatt = _rank_attn(ps, "cross_attn", cfg, group)
@@ -298,16 +315,19 @@ def _stack_full(blocks, h: Sharded, cfg: ModelConfig, memory, mode: str,
                 cache_len: int = 0, remat: bool = False):
     """The loop over periods; with ``remat`` each period (its
     collectives included) is checkpointed and recomputed in the
-    backward."""
-    aux = [torch.zeros((), device=d) for d in rank_devices(get_mesh())]
+    backward, whole: stopping early would skip the last rank's final
+    products alone (the ranks run one after another), and the ranks
+    would no longer do the same work."""
+    aux = _zeros()
     caches = []
     for i in range(tf._n_stacked(blocks[0])):
         args = ([tf._take(b, i) for b in blocks], h, cfg, memory, mode,
                 cache_len)
         if remat:
-            h, aux_i, c = checkpoint(_period_full, *args,
-                                     use_reentrant=False,
-                                     preserve_rng_state=False)
+            with set_checkpoint_early_stop(False):
+                h, aux_i, c = checkpoint(_period_full, *args,
+                                         use_reentrant=False,
+                                         preserve_rng_state=False)
         else:
             h, aux_i, c = _period_full(*args)
         aux = [a + b for a, b in zip(aux, aux_i)]
@@ -458,14 +478,14 @@ def train_loss(params, batch, cfg: ModelConfig, remat: bool = True,
                                    [t[:, c0:c0 + loss_chunk] for t in ts])
             return tuple(_batch_sum(losses, bspec))
 
-        total = [torch.zeros((), device=t.device) for t in h.parts]
+        total = _zeros()
         for c0 in range(0, S, loss_chunk):
             part = checkpoint(chunk_loss, c0, h.parts, targets,
                               use_reentrant=False, preserve_rng_state=False)
             total = [t + c for t, c in zip(total, part)]
         xent = [t / (B * S) for t in total]
-    loss, a = xent[0], aux[0]
-    return loss + a, {"xent": loss, "aux": a}
+    total = col.rank_map(lambda r, x, a: x + a, xent, aux)
+    return total[0], {"xent": xent[0], "aux": aux[0]}
 
 
 def prefill(params, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
@@ -501,8 +521,48 @@ def decode_step(params, cache: RankCaches, tokens, pos, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# the unsharded cache from the ranks'
+# the unsharded cache from the ranks', and the ranks' from a whole one
 # ---------------------------------------------------------------------------
+def shard_cache(cache, cfg: ModelConfig) -> RankCaches:
+    """Each rank's cache from the unsharded tree ``cache`` (its batch rows
+    where the batch divides over the data axes, as ``decode_step``'s
+    tokens split; its kv heads, SSD heads and conv channels), on its
+    device: ``gather_cache``'s inverse."""
+    mesh = get_mesh()
+    m = _m()
+    group = _attn_layout(cfg)[1] if cfg.attn is not None else None
+    d_in = ssm_mod.dims(cfg)[0] if cfg.ssm is not None else 0
+    some = next(t for b in cache.values() for n, t in b.items()
+                if n != "pos")
+    bspec = col.token_spec((some.shape[1], 1, 1))[0] or ()
+
+    def one(r, name, t):
+        if name == "pos":
+            return t.clone()
+        if bspec:
+            rows = t.shape[1] // _axis_size(mesh, bspec)
+            t = t.narrow(1, col.axis_rank(r, bspec) * rows, rows)
+        j = _j(r)
+        if name in ("k", "v", "xk", "xv"):
+            if group is None:
+                kl = t.shape[3] // m
+                return t.narrow(3, j * kl, kl).contiguous()
+            return t.narrow(3, _kv_head(r, cfg, group), 1).contiguous()
+        if name == "ssm":
+            hl = t.shape[2] // m
+            return t.narrow(2, j * hl, hl).contiguous()
+        if name == "conv":
+            dl = d_in // m
+            return torch.cat([t[..., j * dl:(j + 1) * dl], t[..., d_in:]],
+                             dim=-1)
+        return t.contiguous()
+
+    parts = col.rank_map(lambda r: {b: {n: one(r, n, t).to(
+        rank_devices(mesh)[r]) for n, t in leaves.items()}
+        for b, leaves in cache.items()})
+    return RankCaches(parts, tuple(bspec))
+
+
 def gather_cache(cache: RankCaches, cfg: ModelConfig):
     """The unsharded cache tree from each rank's (on rank 0's device):
     batch rows concatenated over the data ranks; kv heads, SSD heads and

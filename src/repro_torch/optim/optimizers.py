@@ -19,7 +19,9 @@ and has no ``step_k``.  Updates are applied in float32 and cast back to
 each parameter's dtype; the Adams keep their moments in ``state_dtype``
 (bfloat16 moments are the memory knob of the reference's largest
 fits).  ``clip=`` scales the gradients to a global l2 norm first, in
-float32, cast back to each gradient's dtype as in the reference.
+float32, cast back to each gradient's dtype as in the reference.  A
+step over one rank's shard of a tree is handed the norm of the whole
+gradient (the Adams' ``step(..., norm=)``; ``launch.train.mesh_step``).
 """
 from __future__ import annotations
 
@@ -47,11 +49,13 @@ class Optimizer:
     step_k: Optional[Callable] = None
 
 
-def _clip_scale(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float, norm=None):
     """(scale, pre-clip norm), float32: the factor that brings the global
-    l2 norm of ``grads`` to at most ``max_norm``."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+    l2 norm of ``grads`` (or the given ``norm``) to at most
+    ``max_norm``."""
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree_leaves(grads)))
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 
@@ -177,13 +181,13 @@ def _adam_like(lr, b1, b2, eps, weight_decay, clip, state_dtype, name):
         return {"count": _count0(params),
                 "m": tree_map(z, params), "v": tree_map(z, params)}
 
-    def apply(params, grads, state, t, d1, d2, scale):
+    def apply(params, grads, state, t, d1, d2, scale, norm=None):
         """One leaf at a time: the EMAs at decays d1 / d2 and the
         parameter step (``scale`` k for ``step_k``, None for ``step``)."""
         bc1 = 1 - _pow(b1, t)
         bc2 = 1 - _pow(b2, t)
         step_lr = lr if scale is None else lr * scale
-        clip_scale = _clip_scale(grads, clip)[0] if clip is not None \
+        clip_scale = _clip_scale(grads, clip, norm)[0] if clip is not None \
             else None
 
         def leaf(p, g, m0, v0):
@@ -206,8 +210,9 @@ def _adam_like(lr, b1, b2, eps, weight_decay, clip, state_dtype, name):
                for i, like in enumerate((params, state["m"], state["v"]))]
         return new[0], {"count": t, "m": new[1], "v": new[2]}
 
-    def step(params, grads, state):
-        return apply(params, grads, state, state["count"] + 1, b1, b2, None)
+    def step(params, grads, state, norm=None):
+        return apply(params, grads, state, state["count"] + 1, b1, b2, None,
+                     norm)
 
     def step_k(params, grads, state, k):
         # the k-fold EMA recurrence with a repeated gradient

@@ -15,11 +15,20 @@ all-reduce, or a reduce-scatter where ``spec`` splits a dim over the
 summed axis (the sequence-parallel pattern); a dim split now and not in
 ``spec`` is all-gathered; a dim ``spec`` splits is sliced where it
 lies.  Axes the mesh lacks, and dims their size does not divide, stay
-whole: the reference's rule for activations.  Each collective is plain
-torch ops in a fixed rank order, so autograd differentiates it and its
-result depends on nothing but its inputs.  With no mesh installed,
-``constrain`` and ``constrain_tokens`` return their input, the
-reference's no-op.
+whole: the reference's rule for activations.  Each collective is torch
+sums and concatenations in a fixed rank order, so its result depends on
+nothing but its inputs, wrapped in an autograd Function whose backward
+is the dual collective (all-reduce for all-reduce, reduce-scatter for
+all-gather and back).  Forward and backward, each tells an active
+``metrics.cost.CostCounter`` the result bytes every rank receives (the
+reference's ``parse_collective_bytes`` convention); its own sums and
+copies count as neither FLOPs nor bytes accessed, and ranks that share a
+device hold copies of their own, as ranks on devices of their own
+would.  On a mesh that runs only some of its ranks (the dry-run's
+``data_slice``, a count on ``meta``) the absent ranks' parts are stood
+in for by a present rank's.
+With no mesh installed, ``constrain`` and ``constrain_tokens`` return
+their input, the reference's no-op.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.metrics import cost as _cost
+from repro_torch.metrics.cost import storage_key
 from repro_torch.sharding import specs
 from repro_torch.sharding.specs import (_axes, _axis_size, _fits, batch_axes,
                                         get_mesh, on_device, rank_devices,
@@ -73,10 +84,11 @@ def _mesh():
 
 
 def rank_map(fn: Callable, *rank_args: Sequence) -> list:
-    """``[fn(r, a[r], b[r], ...)]`` over the ranks, each on its device."""
+    """``[fn(r, a[r], b[r], ...)]`` over the ranks, each on its device
+    (and counted as its own, ``metrics.cost.rank``)."""
     out = []
     for r, dev in enumerate(rank_devices(_mesh())):
-        with on_device(dev):
+        with on_device(dev), _cost.rank(r):
             out.append(fn(r, *(a[r] for a in rank_args)))
     return out
 
@@ -111,73 +123,160 @@ def _groups_of(mesh, axes: Tuple[str, ...]) -> Tuple[Tuple[int, ...], ...]:
     return tuple(tuple(g) for g in groups.values())
 
 
-def _groups(axes):
+# ---------------------------------------------------------------------------
+# the collectives: each an autograd Function whose backward is its dual
+# (all-reduce <-> all-reduce, all-gather <-> reduce-scatter), and whose
+# result bytes, forward and backward, go to the active counter
+# ---------------------------------------------------------------------------
+DUAL = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter",
+        "reduce-scatter": "all-gather"}
+
+
+def _members(g, n, devs):
+    """The ranks of group ``g`` a step runs (all but on a data slice,
+    where only a count on ``meta`` may stand in for the others)."""
+    mine = [r for r in g if r < n]
+    if len(mine) < len(g) and any(devs[r].type != "meta" for r in mine):
+        raise RuntimeError("a data slice of a mesh runs on meta only")
+    return mine
+
+
+def _sum(parts, mine, dev, op="sum"):
+    acc = parts[mine[0]]
+    for r in mine[1:]:
+        p = parts[r].to(dev)
+        acc = acc + p if op == "sum" else torch.maximum(acc, p)
+    return acc
+
+
+def _run(kind, parts, groups, devs, dim, op):
+    """One collective over every group: each rank's result, in rank
+    order.  Sums are taken in rank-index order on the group's first
+    device, so the result depends on nothing but the inputs."""
+    n = len(parts)
+    out = [None] * n
+    for g in groups:
+        mine = _members(g, n, devs)
+        if not mine:
+            continue
+        if kind == "all-gather":
+            by_dev = {}
+            for r in mine:
+                d = devs[r]
+                if d not in by_dev:
+                    by_dev[d] = torch.cat(
+                        [parts[q if q < n else mine[0]].to(d) for q in g],
+                        dim=dim)
+                out[r] = by_dev[d]
+            continue
+        acc = _sum(parts, mine, devs[mine[0]], op)
+        if acc is parts[mine[0]]:            # the others are absent
+            acc = acc.clone()
+        if kind == "all-reduce":
+            for r in mine:
+                out[r] = acc.to(devs[r])
+        else:
+            chunks = acc.chunk(len(g), dim=dim)
+            for r in mine:
+                out[r] = chunks[g.index(r)].contiguous().to(devs[r])
+    return out
+
+
+def _distinct(out):
+    """One tensor a rank, each with a storage of its own: where ranks
+    share a device the result is copied for each, as ranks on devices
+    of their own would hold it (so a count holds each rank's bytes live
+    on it, and no more)."""
+    seen = set()
+    for r, t in enumerate(out):
+        if t is None:
+            continue
+        key = storage_key(t)
+        if key in seen or t.numel() * t.element_size() \
+                != t.untyped_storage().nbytes():
+            t = t.clone()
+        seen.add(storage_key(t))
+        out[r] = t
+    return out
+
+
+def _collect(kind, parts, groups, devs, dim, op):
+    with _cost.quiet():
+        out = _distinct(_run(kind, parts, groups, devs, dim, op))
+    for g in groups:
+        if len(g) > 1:
+            for r in g:
+                if r < len(out):
+                    _cost.report_collective(kind, out[r], r)
+    return out
+
+
+class _Collective(torch.autograd.Function):
+    """``_collect`` differentiated: the backward runs the dual collective
+    over the same groups on the results' gradients."""
+
+    @staticmethod
+    def forward(ctx, kind, groups, devs, dim, op, *parts):
+        ctx.kind, ctx.groups, ctx.devs, ctx.dim = kind, groups, devs, dim
+        ctx.set_materialize_grads(False)
+        out = tuple(_collect(kind, parts, groups, devs, dim, op))
+        ctx.like = [(t.shape, t.dtype, t.device) for t in out]
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # a result nothing used has no gradient: its zeros belong to the
+        # collective, as its sums do
+        with _cost.quiet():
+            grads = [g if g is not None else torch.zeros(
+                s, dtype=dt, device=d) for g, (s, dt, d) in zip(grads,
+                                                                  ctx.like)]
+        return (None,) * 5 + tuple(_collect(
+            DUAL[ctx.kind], grads, ctx.groups, ctx.devs, ctx.dim, "sum"))
+
+
+def _collective(kind, parts, axes, dim=None, op="sum"):
     mesh = _mesh()
-    return _groups_of(mesh, _present(mesh, axes)), rank_devices(mesh)
+    groups = _groups_of(mesh, _present(mesh, axes))
+    if all(len(g) == 1 for g in groups):
+        return list(parts)
+    devs = rank_devices(mesh)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in parts):
+        return list(_Collective.apply(kind, groups, devs, dim, op, *parts))
+    return _collect(kind, parts, groups, devs, dim, op)
 
 
 def all_reduce(parts: Sequence[torch.Tensor], axes,
                op: str = "sum") -> List[torch.Tensor]:
     """Each rank gets the sum (``op="max"``: the maximum) of its
     group's parts over ``axes``, added in rank-index order."""
-    groups, devs = _groups(axes)
-    out = [None] * len(parts)
-    for g in groups:
-        dev = devs[g[0]]
-        acc = parts[g[0]]
-        for r in g[1:]:
-            p = parts[r].to(dev)
-            acc = acc + p if op == "sum" else torch.maximum(acc, p)
-        for r in g:
-            out[r] = acc.to(devs[r])
-    return out
+    return _collective("all-reduce", parts, axes, op=op)
 
 
 def all_gather(parts: Sequence[torch.Tensor], axes,
                dim: int) -> List[torch.Tensor]:
     """Each rank gets its group's parts over ``axes`` concatenated along
     ``dim``, in rank-index order."""
-    groups, devs = _groups(axes)
-    out = [None] * len(parts)
-    for g in groups:
-        if len(g) == 1:
-            out[g[0]] = parts[g[0]]
-            continue
-        by_dev = {}
-        for r in g:
-            if devs[r] not in by_dev:
-                by_dev[devs[r]] = torch.cat(
-                    [parts[q].to(devs[r]) for q in g], dim=dim)
-            out[r] = by_dev[devs[r]]
-    return out
+    return _collective("all-gather", parts, axes, dim=dim)
 
 
 def reduce_scatter(parts: Sequence[torch.Tensor], axes,
                    dim: int) -> List[torch.Tensor]:
     """Each rank gets its own slice along ``dim`` (by its index over
     ``axes``) of its group's sum."""
-    groups, devs = _groups(axes)
-    out = [None] * len(parts)
-    for g in groups:
-        dev = devs[g[0]]
-        acc = parts[g[0]]
-        for r in g[1:]:
-            acc = acc + parts[r].to(dev)
-        chunks = acc.chunk(len(g), dim=dim)
-        for i, r in enumerate(g):
-            out[r] = chunks[i].contiguous().to(devs[r])
-    return out
+    return _collective("reduce-scatter", parts, axes, dim=dim)
 
 
 def _local_slice(parts, axes, dim):
     mesh = _mesh()
     n = _axis_size(mesh, axes)
-    out = []
-    for r, t in enumerate(parts):
+
+    def one(r, t):
         size = t.shape[dim] // n
-        out.append(t.narrow(dim, rank_index(mesh, r, axes) * size,
-                            size).contiguous())
-    return out
+        return t.narrow(dim, rank_index(mesh, r, axes) * size,
+                        size).contiguous()
+
+    return rank_map(one, parts)
 
 
 def replicate(x: torch.Tensor) -> Sharded:

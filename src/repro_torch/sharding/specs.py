@@ -230,8 +230,9 @@ def _axes(axes) -> Tuple[str, ...]:
 
 
 def rank_devices(mesh) -> List[torch.device]:
-    """The device of each rank, in rank (row-major mesh) order."""
-    return list(mesh.devices.flat)
+    """The device of each rank a step runs, in rank (row-major mesh)
+    order (all of them unless the mesh runs fewer, ``Mesh.run``)."""
+    return list(mesh.devices.flat)[:getattr(mesh, "run", mesh.size)]
 
 
 def rank_index(mesh, r: int, axes) -> int:
