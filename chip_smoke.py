@@ -302,7 +302,25 @@ Phases (any failure exits non-zero and prints no result line):
      2048 (layer 0 of the zoo's weights), the loss within 1e-5 and each
      gathered gradient leaf within 1e-4 (relative l2) of the unsharded
      step's; (d) (a) over two distinct cards where they exist, else a
-     line says it did not run; then the phase's seconds;
+     line says it did not run; (e') qwen3-8b at full width, 2 layers,
+     bf16, 2 x 2048 + 4 decode steps over (data 1, model 16) on cuda:0,
+     whose 8 kv heads do not divide 16, so the cache length splits into
+     128 slots a rank, and (e'') the zoo's Mixtral at batch 1 over (data
+     2, model 2), the length over 'data' and the kv heads over 'model'
+     (the reference's ``cache_pspecs``), each against its unsharded run
+     on the card (the MoE in dispatch groups of a data rank's tokens):
+     logits at the bf16 rule and greedy picks equal but for ties, the
+     gathered cache within the same rule (a MoE model's later periods
+     may hold MS_MOE_SLOT_SHARE of their rows apart: a token whose
+     routing tips the other way), each rank's k of the spec's shape,
+     "partial" launches = ranks x layers x steps, one more decode step
+     counted: rank 0's all-gather bytes = the activations the layout
+     gathers (no weight), and the "partial" kernel at a rank's shape
+     against its twin, timed beside its bound and memory-efficient SDPA
+     with its log-sum-exp; a [clock] line gives the part's seconds (alone:
+     python3 -c "import chip_smoke as c; c.phase_build(); cfg, p, t =
+     c.zoo_model(); r, runs = {}, {}; [c._ms_split_part(x, cfg, p, t,
+     r, runs) for x in c.MS_SPLIT]"); then the phase's seconds;
   16. mesh-train-dryrun (last): (a) fp32 ``train()`` of internlm2-1.8b
      at full width, 2 layers, 4 x 2048, 3 steps with remat, unmeshed and
      over (data 2, model 2) on cuda:0 four times from the same seed: the
@@ -326,7 +344,8 @@ Phases (any failure exits non-zero and prints no result line):
 The line before the last is the per-kernel JSON record (all four
 kernels; ``launches`` is the total over the cascade, Mixtral and
 zoo-archs serving runs, each counted from zero, ``launches_by_variant``
-its split by variant (decode attention: "single" / "split"; the SSD
+its split by variant (decode attention: "single" / "split" /
+"partial"; the SSD
 scan: "whole" / "parallel"), and ``paths`` has each path's own count,
 times, ``variant`` (the one its timed row took) and
 ``launches_by_variant``, ``cascade_pipelined`` the launches of phase 8
@@ -347,7 +366,9 @@ for the three cascade kernels, ``cascade_mesh`` phase 14 (b)'s meshed
 run (both shards' launches, by variant, its items/s and idle share) and
 ``cascade_shard_b4`` the timed row at one shard's 4 rows;
 ``model_sharding_<run>_<stage>`` phase 15's shard rows (Mixtral in
-tensor and expert mode, mamba2) with the launches of both ranks;
+tensor and expert mode, mamba2) with the launches of both ranks, and
+(e') / (e'')'s "partial" rows (``model_sharding_qwen3_model16_decode``,
+``model_sharding_mixtral_data2_decode``) with every rank's launches;
 ``mesh_train_internlm2`` / ``mesh_train_mixtral`` phase 16 (a) / (b)'s
 meshed runs (every rank's launches) with the timed rank row, and
 ``mesh_dryrun_internlm2_train`` (c)'s counted card run (both ranks);
@@ -442,7 +463,7 @@ from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     decode_attention_cuda, select_variant as decode_variant)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
-    decode_attention_ref)
+    decode_attention_partial_ref, decode_attention_ref)
 from repro_torch.kernels.flash_attention import ops as fl_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda)
@@ -2390,7 +2411,8 @@ def phase_zoo_serve(cfg, params, tokens):
                       f"{by_variant[phase][n]}; every one must take the "
                       f"tensor-core variant")
     # the zoo's ring (B=2, 8 kv heads, W=2048) is split across blocks
-    want = {"single": 0, "split": expect["decode"]["decode_attention"]}
+    want = {**dict.fromkeys(by_variant["decode"]["decode_attention"], 0),
+            "split": expect["decode"]["decode_attention"]}
     if by_variant["decode"]["decode_attention"] != want:
         _fail(f"decode_attention: zoo decode launches by variant "
               f"{by_variant['decode']['decode_attention']} != {want}")
@@ -3870,6 +3892,8 @@ def _ms_capture(fn):
     real = {(moe_mod, "moe_gmm"): moe_mod.moe_gmm,
             (attn_mod, "flash_attention"): attn_mod.flash_attention,
             (attn_mod, "decode_attention"): attn_mod.decode_attention,
+            (attn_mod, "decode_attention_partial"):
+                attn_mod.decode_attention_partial,
             (ssm_mod, "ssd_scan"): ssm_mod.ssd_scan}
 
     def rec(name, f):
@@ -3940,6 +3964,7 @@ def _ms_serve(tag, cfg, placed, mesh, tokens, want, fp32=None):
                 placed, cache, want["tokens"][step][:, None], S + step, cfg)
             res["logits"].append(col.unshard(logits))
         res["tokens"] = [lg.argmax(-1) for lg in res["logits"]]
+        res["cache"] = cache
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         read("decode")
@@ -3991,21 +4016,24 @@ def _ms_serve(tag, cfg, placed, mesh, tokens, want, fp32=None):
     return launches, by_variant, res, got
 
 
-def _ms_one_group(cfg, params, tokens):
-    """The unsharded prefill + MS_DECODE greedy steps with every prompt
-    token in one MoE dispatch group.  Expert mode over a data slice
-    routes its T/dp tokens ungrouped at ``capacity_for(T/dp)`` (the
-    reference's ``shard_map`` body), not in groups of MOE_GROUP at a
-    group's capacity as the local path does, so at (data 1) its function
-    is this one, not zoo-serve's; the decode steps' two tokens are one
-    group either way."""
+def _ms_one_group(cfg, params, tokens, group=None):
+    """The unsharded prefill + MS_DECODE greedy steps with the prompt's
+    tokens in MoE dispatch groups of ``group`` (all of them by default);
+    ``cache`` is the cache after the last step.  Expert mode over a data
+    slice routes its T/dp tokens ungrouped at ``capacity_for(T/dp)``
+    (the reference's ``shard_map`` body), not in groups of MOE_GROUP at
+    a group's capacity as the local path does, so at (data 1) its
+    function is this one with one group, not zoo-serve's; a batch of 1
+    over (data 2) splits its sequence, so each data rank dispatches its
+    own S/2 tokens: groups of S/2.  A decode step's tokens are one group
+    either way."""
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tfm
     B, S = tokens.shape
     real = moe_mod.MOE_GROUP
     out = {"logits": [], "tokens": []}
     try:
-        moe_mod.MOE_GROUP = B * S
+        moe_mod.MOE_GROUP = group or B * S
         with torch.no_grad():
             last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
             out["logits"].append(last)
@@ -4015,6 +4043,7 @@ def _ms_one_group(cfg, params, tokens):
                     params, cache, out["tokens"][-1][:, None], S + step, cfg)
                 out["logits"].append(logits)
                 out["tokens"].append(logits.argmax(-1))
+        out["cache"] = cache
     finally:
         moe_mod.MOE_GROUP = real
     return out
@@ -4184,6 +4213,187 @@ def _ms_beside(results, *unsharded):
                       flush=True)
 
 
+# (e') / (e''): (tag, the run's key, arch (None: the zoo's Mixtral),
+# layers, batch, mesh (data, model) on cuda:0, the axes the cache length
+# splits over, whether a decode step gathers the queries and the new
+# token's k / v over 'model')
+MS_SPLIT = (
+    ("(e') qwen3 model16", "qwen3_model16", "qwen3-8b", 2, 2, (1, 16),
+     ("model",), True, True),
+    ("(e'') mixtral data2", "mixtral_data2", None, ZOO_LAYERS, 1, (2, 2),
+     ("data",), False, False),
+)
+# the "partial" row: an fp32 state from the same bf16 inputs, its sums in
+# another order; each element within this x (1 + |plain|)
+PARTIAL_TOL = 1e-4
+# the gathered cache against the unsharded one: every slot within the
+# bf16 rule in the first period (its k / v come from the embeddings
+# alone) and in a dense model; after a MoE layer, a token whose bf16
+# routing tips the other way between the two runs (the row-parallel
+# sums round differently) takes another expert, so its later k / v
+# differ by O(1): at most this share of (row, slot) pairs there (0.0088
+# measured on Mixtral's second layer at (data 2, model 2), PERF.md §6)
+MS_MOE_SLOT_SHARE = 0.03
+
+
+def partial_plain(q, k, v, pos):
+    """The partial twin's (M, L, acc) packed as the kernel stores them."""
+    B, _, H, hd = q.shape
+    K = k.shape[2]
+    if pos.ndim == 1:
+        pos = pos[None].expand(B, pos.shape[0])
+    m, l, acc = decode_attention_partial_ref(
+        q[:, 0].reshape(B, K, H // K, hd), k, v, pos, sm_scale=hd ** -0.5)
+    return torch.cat([m.flatten(), l.flatten(), acc.flatten()])
+
+
+def partial_library(q, k, v, pos):
+    """One PyTorch call that returns the same state in another form
+    (out = acc / L and lse = M + log L): memory-efficient SDPA with its
+    log-sum-exp, on k / v repeated to the query heads before it is timed
+    (the call has no GQA), empty slots as an additive bias."""
+    B, _, H, hd = q.shape
+    G = H // k.shape[2]
+    if pos.ndim == 1:
+        pos = pos[None].expand(B, pos.shape[0])
+    qt = q.transpose(1, 2).contiguous()
+    kr = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    vr = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+    bias = None
+    if not bool((pos >= 0).all()):
+        bias = torch.zeros((B, H, 1, pos.shape[1]), dtype=q.dtype,
+                           device=q.device).masked_fill(
+            (pos < 0)[:, None, None, :], float("-inf"))
+
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kr, vr, bias, True)[0]
+
+
+def _ms_partial_row(tag, got, results):
+    """The "partial" kernel at a rank's decode shape (layer 0 of rank 0)
+    against its plain twin, timed beside its bound and the library
+    call."""
+    (q, k, v, pos), _ = got["decode_attention_partial"]
+    B, _, H, hd = q.shape
+    posb = pos[None].expand(B, pos.shape[0]) if pos.ndim == 1 else pos
+    bound = roofline.decode_cost(q.shape, k.shape, q.dtype,
+                                 int((posb >= 0).sum()),
+                                 partial=True).bound_ms()
+    check("decode_attention", f"shard {tag} decode partial W={k.shape[1]} "
+          f"H{H}/K{k.shape[2]} hd{hd}",
+          lambda: dec_ops.decode_attention_partial(q, k, v, pos)[0]._base,
+          lambda: partial_plain(q, k, v, pos), PARTIAL_TOL, results,
+          partial_library(q, k, v, pos), bound, True, variant="partial",
+          per_element=True)
+
+
+def _ms_split_part(part, zoo_cfg, zoo_params, prompts, results, runs):
+    """(e') / (e''): a model served over a mesh whose cache length is
+    split (``cache_pspecs``), against its unsharded run on the card (the
+    MoE in dispatch groups of a data rank's tokens, as the meshed prefill
+    dispatches them): logits at the bf16 rule and greedy picks equal but
+    for ties (``_ms_serve``); the gathered cache within the same rule of
+    the unsharded one (positions equal), each rank's k of the spec's
+    shape; "partial" launches = ranks x layers x steps and no other
+    decode-attention variant; one more decode step counted (``launch.
+    dryrun.count_mesh_step``): rank 0's all-gather bytes equal the
+    activations the layout gathers, and no weight; the partial kernel's
+    row.  The gathered cache is held per period (``MS_MOE_SLOT_SHARE``
+    says why a MoE model's later periods may hold a few rows apart)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharded
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import specs as shd
+    (tag, run, arch, layers, batch, mesh_shape, length, gather_q,
+     gather_kv) = part
+    t0 = time.time()
+    if arch is None:
+        cfg, params = zoo_cfg, zoo_params
+    else:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        params = tfm.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = prompts[:batch] % cfg.vocab
+    B, S = tokens.shape
+    dp, m = mesh_shape
+    n = dp * m
+    want = _ms_one_group(cfg, params, tokens, group=B * S // dp)
+    mesh = make_mesh(mesh_shape, ("data", "model"), ["cuda:0"] * n)
+    placed = shd.place(params, shd.param_pspecs(params), mesh)
+    launches, by_variant, res, got = _ms_serve(
+        f"{tag} {cfg.name} {layers} layers B={B}", cfg, placed, mesh,
+        tokens, want)
+    a, L = cfg.attn, cfg.n_layers
+    dv = by_variant["decode"]["decode_attention"]
+    expect = {**dict.fromkeys(dv, 0), "partial": n * L * MS_DECODE}
+    print(f"[model-sharding] {tag}: launches {launches}; decode attention "
+          f"by variant {dv}, expected {expect}", flush=True)
+    if dv != expect or launches["prefill"]["flash_attention"] != n * L:
+        _fail(f"{tag}: decode attention by variant {dv} != {expect}, or "
+              f"{launches['prefill']['flash_attention']} prefill flash "
+              f"launches != {n * L}")
+    cache = res["cache"]
+    split = {"data": dp, "model": m}
+    rows = B // dp if B % dp == 0 else B
+    heads = a.n_kv_heads // m if a.n_kv_heads % m == 0 else a.n_kv_heads
+    k_shape = (cfg.n_periods, rows, S // math.prod(split[x] for x in length),
+               heads, a.head_dim)
+    shd.set_mesh(mesh)
+    try:
+        whole = sharded.gather_cache(cache, cfg)
+        shapes = {tuple(c["b0"]["k"].shape) for c in cache.parts}
+        flat = dry.count_mesh_step(
+            lambda p, c: tfm.decode_step(p, c, res["tokens"][-1][:, None],
+                                         S + MS_DECODE, cfg),
+            (placed, cache), 0.0)
+    finally:
+        shd.set_mesh(None)
+    if shapes != {k_shape}:
+        _fail(f"{tag}: the ranks' k {shapes} != {k_shape}, the spec's")
+    tol = ZOO_LOGIT_TOL["consistency"]
+    worst, share = {}, {}
+    for b, leaves in want["cache"].items():
+        for name, t in leaves.items():
+            g = whole[b][name]
+            if name == "pos":
+                if not torch.equal(g, t):
+                    _fail(f"{tag}: gathered {b}/pos != the unsharded one")
+                continue
+            over = ((g.float() - t.float()).abs()
+                    - tol * (1 + t.float().abs()))      # (P, B, W, K, hd)
+            for i in range(over.shape[0]):
+                worst[f"{b}/{name}[{i}]"] = float(over[i].max())
+                share[f"{b}/{name}[{i}]"] = float(
+                    (over[i].amax((-2, -1)) > 0).float().mean())
+    print(f"[model-sharding] {tag}: share of (row, slot) pairs beyond the "
+          f"rule by leaf and period {share}", flush=True)
+    el = torch.finfo(cfg.torch_dtype).bits // 8
+    ag = L * el * rows * a.head_dim * (a.n_heads * gather_q
+                                       + 2 * a.n_kv_heads * gather_kv)
+    print(f"[model-sharding] {tag}: ranks' k {k_shape}; gathered cache "
+          f"vs unsharded, max |diff| - {tol} (1 + |ref|) by leaf {worst}; "
+          f"one decode step counted on rank 0: all-gather "
+          f"{flat.get('collective:all-gather', 0.0):.0f} B (activations "
+          f"{ag} B expected), all-reduce "
+          f"{flat.get('collective:all-reduce', 0.0):.0f} B", flush=True)
+    for key, w in worst.items():
+        later = not key.endswith("[0]") and cfg.moe is not None
+        if w > 0 and not (later and share[key] <= MS_MOE_SLOT_SHARE):
+            _fail(f"{tag}: the gathered cache's {key} disagrees with the "
+                  f"unsharded one ({share[key]} of its rows beyond the "
+                  f"rule)")
+    if flat.get("collective:all-gather", 0.0) != ag:
+        _fail(f"{tag}: a decode step all-gathers "
+              f"{flat.get('collective:all-gather', 0.0)} B, not the "
+              f"{ag} B of its activations")
+    _ms_partial_row(tag.split(" ", 1)[1], got, results)
+    runs[run] = (launches, by_variant)
+    print(f"[model-sharding] {tag}: part seconds {time.time() - t0:.1f}",
+          flush=True)
+
+
 def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
                          zoo_results):
     """15. model-sharding: (a) the zoo's Mixtral (zoo-serve's weights and
@@ -4281,6 +4491,14 @@ def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
     else:
         print(f"[model-sharding] (d) did not run: {n} CUDA device(s) "
               f"visible (it needs two cards)", flush=True)
+    # (e') / (e''): the reference's length-split cache layout
+    t_e = time.time()
+    for part in MS_SPLIT:
+        _ms_split_part(part, cfg, params, prompts, results, runs)
+        torch.cuda.empty_cache()
+    print(f"[clock] model-sharding (e') / (e'') took "
+          f"{time.time() - t_e:.1f} s, ended at {time.time() - _T0:.1f} s",
+          flush=True)
     print(f"[model-sharding] phase seconds {time.time() - t_phase:.1f}",
           flush=True)
     return results, runs
@@ -4293,7 +4511,9 @@ def model_sharding_paths(results, runs):
     for name, rows in results.items():
         for run, tag in (("mixtral_tensor", "mixtral tensor"),
                          ("mixtral_expert", "mixtral expert"),
-                         ("mamba2", "mamba2")):
+                         ("mamba2", "mamba2"),
+                         ("qwen3_model16", "qwen3 model16"),
+                         ("mixtral_data2", "mixtral data2")):
             launches, by_variant = runs[run]
             for phase in ("prefill", "decode"):
                 mine = [(lab, r) for lab, r in rows

@@ -46,6 +46,15 @@
 // slots -1e30, so a split whose every slot is empty weighs e^(-1e30 - M) =
 // 0 once another split holds a valid slot, and a cache with no valid slot
 // averages all its values, as the single pass does.
+//
+// The "partial" entry (repro_decode_attention_partial) runs the same two
+// kernels but stores the merged, unnormalised softmax state of its range
+// instead of o: M, L and acc = sum acc_s e^(m_s - M), in fp32.  One split
+// writes its block's (m, l, acc) there directly.  A decode step whose
+// cache length is split over ranks runs it on each rank's slots and
+// merges the ranks' states with the same arithmetic across the mesh
+// (models/sharded.py), so only (B, H, hd + 2) floats a rank leave the
+// kernel where an o would be (B, H, hd) in q's dtype.
 #include "common.cuh"
 
 namespace {
@@ -144,6 +153,8 @@ __device__ __forceinline__ void score_tile(const float4 (&qreg)[GREG],
 
 struct Args {
   int W, H, G, hd, hd4, ts, split_len;
+  int partial;  // store the range's (M, L, acc) instead of o
+  int to_part;  // blocks write (m, l, acc): several splits, or partial
   int qsb, qsh, qsd, ksb, ksw, ksh, ksd, vsb, vsw, vsh, vsd, psb, psw;
   float sm_scale;
 };
@@ -382,7 +393,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (d0 + e >= hd) break;
-        if (nsplit == 1)
+        if (!a.to_part)
           o[((long long)b * a.H + kh * G + g) * hd + d0 + e] =
               from_float<T>(r[e] / fmaxf(lrow[g], 1e-30f));
         else
@@ -390,7 +401,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  if (nsplit > 1)
+  if (a.to_part)
     for (int g = tid; g < G; g += THREADS) {
       part_m[row * G + g] = mrow[g];
       part_l[row * G + g] = lrow[g];
@@ -400,12 +411,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Blocks (kv head, batch, output slice): merge the splits' partials.  The
 // splits' weights e^(m_s - M) and the clamped sums go to shared memory
 // first, so each output's sum over splits is a run of independent loads.
-template <typename T>
+// PARTIAL: store M, L and the weighted sum of the accumulators to
+// out_m / out_l / out_acc, (B, H) / (B, H) / (B, H, hd) fp32, not o.
+template <typename T, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 decode_combine(const float* __restrict__ part_m,
                const float* __restrict__ part_l,
-               const float* __restrict__ part_acc, T* __restrict__ o, int H,
-               int G, int hd, int nsplit) {
+               const float* __restrict__ part_acc, T* __restrict__ o,
+               float* __restrict__ out_m, float* __restrict__ out_l,
+               float* __restrict__ out_acc, int H, int G, int hd,
+               int nsplit) {
   extern __shared__ float wsm[];  // nsplit x G weights, then G sums
   float* lsum = wsm + nsplit * G;
   const int kh = blockIdx.x, b = blockIdx.y, K = gridDim.x;
@@ -418,6 +433,7 @@ decode_combine(const float* __restrict__ part_m,
     float M = -INFINITY;
     for (int s = 0; s < nsplit; ++s) M = fmaxf(M, wsm[s * G + g]);
     lsum[g] = M;
+    if (PARTIAL && blockIdx.z == 0) out_m[(long long)b * H + kh * G + g] = M;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < nsplit * G; i += THREADS)
@@ -426,6 +442,7 @@ decode_combine(const float* __restrict__ part_m,
   for (int g = threadIdx.x; g < G; g += THREADS) {
     float L = 0.f;
     for (int s = 0; s < nsplit; ++s) L += pl[s * G + g] * wsm[s * G + g];
+    if (PARTIAL && blockIdx.z == 0) out_l[(long long)b * H + kh * G + g] = L;
     lsum[g] = fmaxf(L, 1e-30f);
   }
   __syncthreads();
@@ -437,7 +454,11 @@ decode_combine(const float* __restrict__ part_m,
 #pragma unroll 8
   for (int s = 0; s < nsplit; ++s)
     acc += pa[(long long)s * G * hd] * wsm[s * G + g];
-  o[((long long)b * H + kh * G + g) * hd + d] = from_float<T>(acc / lsum[g]);
+  const long long at = ((long long)b * H + kh * G + g) * hd + d;
+  if (PARTIAL)
+    out_acc[at] = acc;
+  else
+    o[at] = from_float<T>(acc / lsum[g]);
 }
 
 // Slots a tile stages: 64, fewer for wide heads (shared memory).
@@ -445,6 +466,22 @@ int tile_slots(int hd) { return hd <= 128 ? 64 : (hd <= 256 ? 32 : 16); }
 
 size_t smem_bytes(int G, int hd4, int ts) {
   return (size_t)(G * hd4 + kv_floats(ts, hd4) + G * ts + 3 * G + ts) * 4;
+}
+
+// out (partial only): M (B*H), L (B*H), acc (B*H*hd) fp32, one after another
+template <typename T, bool PARTIAL>
+int combine(const float* pm, const float* pl, const float* pacc, void* o,
+            float* out, int B, int K, int nsplit, const Args& a,
+            cudaStream_t stream) {
+  const size_t csmem = (size_t)(nsplit + 1) * a.G * 4;
+  cudaError_t err = set_smem(decode_combine<T, PARTIAL>, csmem);
+  if (err != cudaSuccess) return (int)err;
+  const int slices = (a.G * a.hd + THREADS - 1) / THREADS;
+  const long long bh = PARTIAL ? (long long)B * a.H : 0;
+  decode_combine<T, PARTIAL><<<dim3(K, B, slices), THREADS, csmem, stream>>>(
+      pm, pl, pacc, static_cast<T*>(o), out, out + bh, out + 2 * bh, a.H,
+      a.G, a.hd, nsplit);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool VEC>
@@ -456,18 +493,21 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
                            : decode_kernel<T, VEC, false>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
+  // "partial" with one split: the block's (m, l, acc) are the output
+  float* out = static_cast<float*>(o);
+  const long long bh = (long long)B * a.H;
+  const bool direct = a.partial && nsplit == 1;
   kernel<<<dim3(K, B, nsplit), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(o), pm, pl, pacc, a);
+      static_cast<const T*>(v), pos, static_cast<T*>(o),
+      direct ? out : pm, direct ? out + bh : pl, direct ? out + 2 * bh : pacc,
+      a);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return (int)err;
-  const size_t csmem = (size_t)(nsplit + 1) * a.G * 4;
-  err = set_smem(decode_combine<T>, csmem);
-  if (err != cudaSuccess) return (int)err;
-  const int slices = (a.G * a.hd + THREADS - 1) / THREADS;
-  decode_combine<T><<<dim3(K, B, slices), THREADS, csmem, stream>>>(
-      pm, pl, pacc, static_cast<T*>(o), a.H, a.G, a.hd, nsplit);
-  return (int)cudaGetLastError();
+  return a.partial ? combine<T, true>(pm, pl, pacc, nullptr, out, B, K,
+                                      nsplit, a, stream)
+                   : combine<T, false>(pm, pl, pacc, o, nullptr, B, K, nsplit,
+                                       a, stream);
 }
 
 template <typename T>
@@ -480,8 +520,6 @@ int launch(bool vec, const void* q, const void* k, const void* v,
                                 a, stream);
 }
 
-}  // namespace
-
 // q (B,1,H,hd) via strides (b, head, d); k/v (B,W,K,hd) via (b, w, head, d);
 // pos (B,W) int32 via (b, w); o contiguous (B,1,H,hd).  dtype 0 = fp32,
 // 1 = bf16.  Requires H % K == 0 and (H/K) * hd <= 2048.  nsplit blocks
@@ -489,12 +527,14 @@ int launch(bool vec, const void* q, const void* k, const void* v,
 // with nsplit > 1, part_m / part_l (B,K,nsplit,G) and part_acc
 // (B,K,nsplit,G,hd) fp32 are scratch.  vec = 1 promises 16-byte-aligned k
 // and v rows with a contiguous head dim of a multiple of 16 bytes.
-extern "C" int repro_decode_attention_fwd(
-    const void* q, const void* k, const void* v, const void* pos, void* o,
-    void* part_m, void* part_l, void* part_acc, int dtype, int B, int W,
-    int H, int K, int hd, int nsplit, int split_len, int vec, int qsb,
-    int qsh, int qsd, int ksb, int ksw, int ksh, int ksd, int vsb, int vsw,
-    int vsh, int vsd, int psb, int psw, float sm_scale, void* stream) {
+// partial = 1: o is instead fp32 M (B,H), L (B,H) and acc (B,H,hd), one
+// after another.
+int run(int partial, const void* q, const void* k, const void* v,
+        const void* pos, void* o, void* part_m, void* part_l, void* part_acc,
+        int dtype, int B, int W, int H, int K, int hd, int nsplit,
+        int split_len, int vec, int qsb, int qsh, int qsd, int ksb, int ksw,
+        int ksh, int ksd, int vsb, int vsw, int vsh, int vsd, int psb,
+        int psw, float sm_scale, void* stream) {
   if (hd < 1 || K < 1 || H % K != 0 || (H / K) * hd > 2048 ||
       (H / K) * ((hd + 3) / 4) > THREADS * MAX_QUADS ||
       nsplit < 1 || split_len < 1 || (long long)nsplit * split_len < W ||
@@ -508,6 +548,8 @@ extern "C" int repro_decode_attention_fwd(
   a.hd4 = (hd + 3) / 4 * 4;
   a.ts = tile_slots(hd);
   a.split_len = split_len;
+  a.partial = partial;
+  a.to_part = partial || nsplit > 1;
   a.qsb = qsb, a.qsh = qsh, a.qsd = qsd;
   a.ksb = ksb, a.ksw = ksw, a.ksh = ksh, a.ksd = ksd;
   a.vsb = vsb, a.vsw = vsw, a.vsh = vsh, a.vsd = vsd;
@@ -525,4 +567,30 @@ extern "C" int repro_decode_attention_fwd(
     return launch<__nv_bfloat16>(vec != 0, q, k, v, p, o, pm, pl, pacc, B, K,
                                  nsplit, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int repro_decode_attention_fwd(
+    const void* q, const void* k, const void* v, const void* pos, void* o,
+    void* part_m, void* part_l, void* part_acc, int dtype, int B, int W,
+    int H, int K, int hd, int nsplit, int split_len, int vec, int qsb,
+    int qsh, int qsd, int ksb, int ksw, int ksh, int ksd, int vsb, int vsw,
+    int vsh, int vsd, int psb, int psw, float sm_scale, void* stream) {
+  return run(0, q, k, v, pos, o, part_m, part_l, part_acc, dtype, B, W, H, K,
+             hd, nsplit, split_len, vec, qsb, qsh, qsd, ksb, ksw, ksh, ksd,
+             vsb, vsw, vsh, vsd, psb, psw, sm_scale, stream);
+}
+
+// The same arguments; out holds fp32 M (B,H), L (B,H) and the unnormalised
+// acc (B,H,hd) of the given slots (the "partial" variant).
+extern "C" int repro_decode_attention_partial(
+    const void* q, const void* k, const void* v, const void* pos, void* out,
+    void* part_m, void* part_l, void* part_acc, int dtype, int B, int W,
+    int H, int K, int hd, int nsplit, int split_len, int vec, int qsb,
+    int qsh, int qsd, int ksb, int ksw, int ksh, int ksd, int vsb, int vsw,
+    int vsh, int vsd, int psb, int psw, float sm_scale, void* stream) {
+  return run(1, q, k, v, pos, out, part_m, part_l, part_acc, dtype, B, W, H,
+             K, hd, nsplit, split_len, vec, qsb, qsh, qsd, ksb, ksw, ksh, ksd,
+             vsb, vsw, vsh, vsd, psb, psw, sm_scale, stream);
 }

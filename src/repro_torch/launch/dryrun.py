@@ -37,9 +37,10 @@ reference's options ``--moe-mode``, ``--zero``, ``--seq-parallel`` and
 the mesh's ranks in one process (``models.sharded``, ``launch.train``'s
 ``mesh_step``), the parameters and the optimizer state placed by the
 reference's rules (``param_pspecs``, ``zero_shard_specs``), the batch
-split as ``batch_pspecs`` says and a decode step's cache in the port's
-layout (``shard_cache``; ``cache_layouts`` sets it beside the
-reference's ``cache_pspecs``).  The counter holds each op and storage to
+split as ``batch_pspecs`` says and a decode step's cache as the
+reference's ``cache_pspecs`` says (``shard_cache``; ``cache_layouts``
+sets each leaf's bytes beside the spec's: only the conv state keeps the
+port's own layout).  The counter holds each op and storage to
 the rank it belongs to, and the record takes one rank's FLOPs, bytes,
 launches and collective bytes (by kind, forward and backward) and the
 largest any one rank holds (``count_mesh_step``).  Every data rank runs
@@ -88,8 +89,8 @@ from repro_torch.metrics.roofline import (H100, HW, compute_seconds,
                                           model_flops_6nd, roofline_terms)
 from repro_torch.models import transformer as tf_model
 from repro_torch.optim import adamw
-from repro_torch.sharding.specs import (_axes, _map_path, _zip_specs,
-                                        batch_axes)
+from repro_torch.sharding.specs import (_axes, _div, _entry, _zip_specs,
+                                        batch_axes, cache_pspecs)
 from repro_torch.tree import tree_leaves, tree_map
 
 FIT_SHARE = 0.9          # a card probe runs only where its peak fits here
@@ -110,22 +111,10 @@ AGREE = {"bytes": 0.01, "peak_rel": 0.05, "peak_abs": 256 * 2 ** 20,
 
 # ---------------------------------------------------------------------------
 # Sharding spec builders (the reference's rules; a spec is a tuple, one
-# entry a dim: None, an axis name, or a tuple of names)
+# entry a dim: None, an axis name, or a tuple of names).  The cache's,
+# ``cache_pspecs``, live in ``sharding.specs``: the meshed decode step
+# holds its cache by them.
 # ---------------------------------------------------------------------------
-def _div(n, mesh, axes) -> bool:
-    if isinstance(axes, str):
-        axes = (axes,)
-    axes = tuple(a for a in axes if a in mesh.axis_names)
-    if not axes:
-        return False
-    size = math.prod(mesh.shape[a] for a in axes)
-    return n % size == 0 and n >= size
-
-
-def _entry(axes):
-    return axes if len(axes) > 1 else axes[0]
-
-
 def batch_pspecs(batch_struct, mesh):
     """Specs sharding every batch leaf's dim 0 over the batch axes (dim 1
     where dim 0 does not divide)."""
@@ -141,46 +130,6 @@ def batch_pspecs(batch_struct, mesh):
         return tuple(dims)
 
     return tree_map(one, batch_struct)
-
-
-def cache_pspecs(cache_struct, mesh):
-    """The reference's KV / SSM cache specs: batch over (pod, data) when
-    divisible, else the cache length; kv heads / SSD heads / conv
-    channels over 'model' when divisible, else the cache length over
-    'model'.  The port's meshed decode holds another layout where these
-    split the length (``models.sharded.shard_cache``); the dry-run's
-    record sets the two side by side (``cache_layouts``)."""
-    baxes = batch_axes(mesh)
-
-    def one(path, leaf):
-        name = path[-1] if path and isinstance(path[-1], str) else ""
-        shape = leaf.shape
-        dims = [None] * len(shape)
-        if name in ("k", "v", "xk", "xv"):
-            # (Pd, B, W, K, hd)
-            if baxes and _div(shape[1], mesh, baxes):
-                dims[1] = _entry(baxes)
-            elif baxes and _div(shape[2], mesh, baxes):
-                dims[2] = _entry(baxes)
-            if _div(shape[3], mesh, ("model",)):
-                dims[3] = "model"
-            elif dims[2] is None and _div(shape[2], mesh, ("model",)):
-                dims[2] = "model"
-        elif name == "ssm":
-            # (Pd, B, H, hp, N)
-            if baxes and _div(shape[1], mesh, baxes):
-                dims[1] = _entry(baxes)
-            if _div(shape[2], mesh, ("model",)):
-                dims[2] = "model"
-        elif name == "conv":
-            # (Pd, B, d_conv-1, d_xbc)
-            if baxes and _div(shape[1], mesh, baxes):
-                dims[1] = _entry(baxes)
-            if _div(shape[3], mesh, ("model",)):
-                dims[3] = "model"
-        return tuple(dims)
-
-    return _map_path(one, cache_struct)
 
 
 def zero_shard_specs(specs, struct, mesh):
@@ -562,8 +511,9 @@ def _collectives(flat: Dict[str, float]) -> Dict[str, float]:
 
 def cache_layouts(cfg, shape: InputShape, mesh) -> Dict[str, dict]:
     """Each cache leaf of a decode shape: the reference's spec
-    (``cache_pspecs``), its bytes a device under it and under the port's
-    layout (``shard_cache``, on ``meta``), and whether they differ."""
+    (``cache_pspecs``), its bytes a device under it and as the port's
+    decode step holds it (``shard_cache``, on ``meta``), and whether
+    they differ (the conv state alone, which keeps the port's layout)."""
     from repro_torch.models.sharded import shard_cache
     from repro_torch.sharding import specs as shd
     cache = input_specs(cfg, shape)["cache"]

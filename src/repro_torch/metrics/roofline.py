@@ -168,17 +168,20 @@ def flash_cost(q_shape, k_shape, dtype, causal: bool = True,
                       nbytes, dtype_name(dtype))
 
 
-def decode_cost(q_shape, k_shape, dtype,
-                valid: Optional[int] = None) -> KernelCost:
+def decode_cost(q_shape, k_shape, dtype, valid: Optional[int] = None,
+                partial: bool = False) -> KernelCost:
     """One-token attention over a (B, W) cache: q and the (B, W) int32
     positions read, o written, and K / V read at the ``valid`` (batch,
     slot) pairs only (every slot when None: a count that cannot read the
-    positions)."""
+    positions).  ``partial``: the ``"partial"`` variant, which writes
+    fp32 (M, L, acc), (B, H, hd + 2), in o's stead."""
     B, _, H, hd = q_shape
     W, K = k_shape[1], k_shape[2]
     valid = B * W if valid is None else valid
     el = _elsize(dtype)
-    nbytes = 2 * math.prod(q_shape) * el + B * W * 4 + 2 * valid * K * hd * el
+    out = B * H * (hd + 2) * 4 if partial else math.prod(q_shape) * el
+    nbytes = (math.prod(q_shape) * el + out + B * W * 4
+              + 2 * valid * K * hd * el)
     return KernelCost(valid * H * 4 * hd, nbytes, dtype_name(dtype))
 
 

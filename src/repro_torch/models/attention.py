@@ -11,7 +11,10 @@ schedules for TPU".  Here every attention over more than one query is
 one call of the flash-attention kernel (which skips the kv tiles above
 the diagonal and left of the window itself) and every one-query
 attention one call of the decode-attention kernel.  Both are called
-through this module's globals ``flash_attention`` / ``decode_attention``.
+through this module's globals ``flash_attention`` / ``decode_attention``
+(and ``decode_attention_partial``, the kernel's partial state of a
+slot range, for a decode step whose cache is split over a mesh's ranks:
+``models.sharded``).
 
 Position conventions (as in the reference):
 * ``q_positions`` (Sq,) and ``kv_positions`` (Skv,) are absolute token
@@ -25,7 +28,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_partial)
 from repro_torch.kernels.flash_attention import flash_attention
 
 
@@ -72,14 +76,23 @@ def ring_decode_attention(q, k, v, *, kv_positions, q_position: int,
     -1 for empty slots.
 
     The kernel masks only slots whose position is negative, so the causal
-    and window masks are folded into the positions first: a slot after
-    the query, or at or before ``q_position - window``, is passed as -1.
-    A ring longer than the window thus attends to the window alone."""
+    and window masks are folded into the positions first
+    (``fold_positions``).  A ring longer than the window thus attends to
+    the window alone."""
+    return decode_attention(q, k, v, fold_positions(kv_positions, q_position,
+                                                    window))
+
+
+def fold_positions(kv_positions, q_position: int,
+                   window: Optional[int]) -> torch.Tensor:
+    """The causal and window masks folded into slot positions: a slot
+    after the query, or at or before ``q_position - window``, becomes
+    -1 (empty), the only mask the decode-attention kernel applies."""
     pos = kv_positions
     drop = pos > q_position
     if window is not None:
         drop = drop | (pos <= q_position - window)
-    return decode_attention(q, k, v, torch.where(drop, -1, pos).to(pos.dtype))
+    return torch.where(drop, -1, pos).to(pos.dtype)
 
 
 def encoder_attention(q, k, v) -> torch.Tensor:

@@ -21,9 +21,10 @@ the block's exit.
   heads [j, j+1) x H/m and kv heads [j, j+1) x K/m.  Where 'model' does
   not divide the kv heads (2 kv heads at model=4; 8 at the production
   mesh's 16), the rule still splits wk / wv by columns, so a rank holds
-  part of a kv head: wk / wv are all-gathered over 'model' and each rank
-  takes the one kv head its query heads read (q head h reads h // (H/K)).
-  Its caches hold that head.
+  part of a kv head.  The whole-sequence paths (forward, prefill, the
+  loss) then all-gather wk / wv over 'model' and each rank takes the one
+  kv head its query heads read (q head h reads h // (H/K)); a decode
+  step gathers activations instead (below).
 * Dense MLP: w_gate / w_in column-parallel, w_out row-parallel.
 * MoE: ``moe.moe_ffn_sharded`` (tensor or expert mode).
 * Mamba2: in_proj's columns are [z | x | B | C | dt] and conv's are
@@ -42,13 +43,37 @@ the block's exit.
 Prefill returns each rank's caches (``RankCaches``); ``gather_cache``
 rebuilds the unsharded cache from them, and ``shard_cache`` is its
 inverse, each rank's cache from a whole one (what a decode step over a
-mesh takes).  The layout is the port's own: the batch over the data
-axes where it divides, else whole; kv heads over 'model', or the one
-gathered head a rank reads where 'model' does not divide them; SSD
-heads and the conv state's x channels over 'model', B and C's channels
-on every rank.  The reference's ``cache_pspecs`` instead split the
-cache length over 'model' (kv heads that do not divide) or over the
-data axes (batch 1); ``launch/dryrun.py`` records both.
+mesh takes).  The layout is the reference's ``cache_pspecs``
+(``sharding.specs``) for every leaf but the conv state:
+
+* k / v / xk / xv (B, W, K, hd): the batch over the data axes where it
+  divides, else the length W over them; the kv heads over 'model' where
+  they divide, else the length over 'model' (each rank all K heads of
+  its W/m slots), or, where the data axes split the length already,
+  every kv head on every model rank.  ``pos`` is whole on every rank.
+* ssm: the batch and the SSD heads.  conv keeps the port's layout: the
+  x channels of the rank's heads and every B and C channel (the
+  reference splits d_xbc contiguously, ROADMAP item 15b).
+
+The prefill computes its attention as the whole-sequence paths do and
+then lays its k / v out so: a rank's slots of the length split over the
+data axes are a slice of what it computed; where every model rank holds
+all K heads, the rank that owns each kv head (the first whose query
+heads read it) places it in a zero (B, W, K, hd) and the ranks
+reduce-scatter over 'model' along W (all-reduce where W stays whole).
+
+A decode step gathers activations, never weights.  Each rank projects
+its column shards of q, k and v; where it holds more kv heads than its
+columns give, the new token's k / v columns are all-gathered over
+'model', (B, 1, K·hd/m) each; where the length is split over 'model',
+so are its queries, (B, 1, H/m, hd).  The rank owning slot pos % W
+writes it (into a copy, as the unsharded step does), each rank runs the
+decode-attention kernel's ``"partial"`` variant over its own slots and
+the ranks that split the length merge their (m, l, acc) with the
+kernel's combine arithmetic: an all-reduce of the max, then one of
+(l, acc) rescaled, (B, H, hd + 2) floats in all; each rank keeps its
+H/m heads for the row-parallel wo.  A CROSS layer's decode does the
+same over xk / xv.
 """
 from __future__ import annotations
 
@@ -59,14 +84,19 @@ import torch
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ATTN, CROSS, MAMBA, ModelConfig
+from repro_torch.metrics.cost import quiet
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import rope
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_shard,
-                                       lm_logits_shard)
+                                       lm_logits_shard, rms_norm_headwise)
 from repro_torch.models.moe import moe_ffn_sharded
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.collectives import Sharded
-from repro_torch.sharding.specs import _axis_size, get_mesh, rank_devices
+from repro_torch.sharding.specs import (_axes, _axis_size, cache_pspecs,
+                                        gather_tree, get_mesh, place,
+                                        rank_devices)
 
 MODEL = "model"
 
@@ -74,11 +104,13 @@ MODEL = "model"
 @dataclasses.dataclass
 class RankCaches:
     """``prefill``'s caches over a mesh: one tree a rank (the unsharded
-    cache's structure, holding the rank's batch rows, kv heads, SSD
-    heads and conv channels) and the axes the batch is split over."""
+    cache's structure, each leaf the rank's part of it), the axes the
+    batch is split over, and the whole stacked tree's ``cache_pspecs``,
+    by which every leaf but ``conv`` is held."""
 
     parts: list
     batch: Tuple[str, ...]
+    specs: dict
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +154,8 @@ def _kv_head(r: int, cfg: ModelConfig, group: int) -> int:
 def _rank_attn(ps, name: str, cfg: ModelConfig, group: Optional[int]):
     """Each rank's params of attention ``name``; where the kv heads do not
     divide over 'model', wk / wv are all-gathered and replaced by the
-    columns of the kv head the rank reads."""
+    columns of the kv head the rank reads (the whole-sequence paths'
+    weight gather: forward, prefill and the loss)."""
     if group is None:
         return [p[name] for p in ps]
     hd = cfg.attn.head_dim
@@ -219,9 +252,10 @@ def _ffn(ps, x: Sharded, cfg: ModelConfig, i: int):
 # periods and stacks
 # ---------------------------------------------------------------------------
 def _period_full(pps, h: Sharded, cfg: ModelConfig, memory, mode: str,
-                 cache_len: int = 0):
+                 cache_len: int = 0, specs=None):
     """One period over every rank (the unsharded ``_apply_period_full``).
-    Returns (h, each rank's aux, each rank's caches)."""
+    Returns (h, each rank's aux, each rank's caches, laid out by
+    ``specs``, the whole cache's ``cache_pspecs``)."""
     lcfg, group = (_attn_layout(cfg) if cfg.attn is not None
                    else (cfg, None))
     aux = _zeros()
@@ -239,6 +273,11 @@ def _period_full(pps, h: Sharded, cfg: ModelConfig, memory, mode: str,
             if mode == "prefill":
                 built = col.rank_map(lambda r, kv: tf._build_kv_cache(
                     kv[0], kv[1], lcfg, cache_len), [kv for _, kv in res])
+                for name in ("k", "v"):
+                    laid = _lay_out([b[name] for b in built],
+                                    specs[f"b{i}"][name], cfg, group)
+                    for b, t in zip(built, laid):
+                        b[name] = t
                 for c, b in zip(cs, built):
                     c.update(b)
         if kind == CROSS:
@@ -249,8 +288,11 @@ def _period_full(pps, h: Sharded, cfg: ModelConfig, memory, mode: str,
                 x.parts, mem.parts)
             x = _residual(x, [o for o, _ in res])
             if mode == "prefill":
-                for c, (_, (xk, xv)) in zip(cs, res):
-                    c["xk"], c["xv"] = xk, xv
+                for n, name in enumerate(("xk", "xv")):
+                    laid = _lay_out([kv[n] for _, kv in res],
+                                    specs[f"b{i}"][name], cfg, group)
+                    for c, t in zip(cs, laid):
+                        c[name] = t
         elif kind == MAMBA:
             xn = Sharded(_norm(ps, "norm1", x, cfg), x.spec)
             outs, states = _mamba(_rank_mamba(ps, cfg), xn, cfg)
@@ -270,29 +312,24 @@ def _period_full(pps, h: Sharded, cfg: ModelConfig, memory, mode: str,
     return h, aux, caches
 
 
-def _period_decode(pps, h: Sharded, cfg: ModelConfig, caches, pos: int):
-    """One period, one token, over every rank.  Returns (h, each rank's
-    new cache)."""
-    lcfg, group = (_attn_layout(cfg) if cfg.attn is not None
-                   else (cfg, None))
+def _period_decode(pps, h: Sharded, cfg: ModelConfig, caches, pos: int,
+                   specs):
+    """One period, one token, over every rank; ``specs``: the cache's
+    ``cache_pspecs``.  Returns (h, each rank's new cache)."""
+    group = _attn_layout(cfg)[1] if cfg.attn is not None else None
     new = [{} for _ in pps]
     for i, kind in enumerate(cfg.period):
         ps = [pp[f"b{i}"] for pp in pps]
         cs = [c[f"b{i}"] for c in caches]
+        sp = specs[f"b{i}"]
         x = _whole_seq(h)
         if kind in (ATTN, CROSS):
-            att = _rank_attn(ps, "attn", cfg, group)
-            res = col.rank_map(lambda r, p, a, xr, c: tf._self_attn_decode(
-                {**p, "attn": a}, xr, lcfg, c, pos), ps, att, x.parts, cs)
-            x = _residual(x, [o for o, _ in res])
-            ncs = [nc for _, nc in res]
+            outs, ncs = _self_decode(ps, x, cfg, cs, pos, _kv(sp["k"]), group)
+            x = _residual(x, outs)
         if kind == CROSS:
             # the memory's k / v are cached: wk / wv are not read
-            xatt = [p["cross_attn"] for p in ps]
-            res = col.rank_map(lambda r, p, a, xr, c: tf._cross_attn(
-                {**p, "cross_attn": a}, xr, lcfg, mem_kv=(c["xk"], c["xv"])),
-                ps, xatt, x.parts, cs)
-            x = _residual(x, [o for o, _ in res])
+            x = _residual(x, _cross_decode(ps, x, cfg, cs, _kv(sp["xk"]),
+                                           group))
             for nc, c in zip(ncs, cs):
                 nc["xk"], nc["xv"] = c["xk"], c["xv"]
         elif kind == MAMBA:
@@ -311,8 +348,197 @@ def _period_decode(pps, h: Sharded, cfg: ModelConfig, caches, pos: int):
     return h, new
 
 
+# ---------------------------------------------------------------------------
+# the attention caches' layout, and a decode step over it
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class _KV:
+    """How the ranks hold one attention cache leaf (B, W, K, hd), read off
+    its ``cache_pspecs`` entry: the mesh axes its length W is split over
+    (() whole), and whether its kv heads are split over 'model' (else
+    every rank holds all K)."""
+
+    length: Tuple[str, ...]
+    heads: bool
+
+
+def _kv(spec) -> _KV:
+    """The layout of a stacked leaf's spec, (Pd, B, W, K, hd)."""
+    mesh = get_mesh()
+    axes = [tuple(a for a in _axes(e) if a in mesh.axis_names)
+            for e in spec]
+    return _KV(axes[2], MODEL in axes[3] or _m() == 1)
+
+
+def _first_slot(r: int, held: int, lay: _KV) -> int:
+    """The first of the whole cache's slots rank r holds ``held`` of."""
+    return col.axis_rank(r, lay.length) * held
+
+
+def _lay_out(ts, spec, cfg: ModelConfig, group: Optional[int]):
+    """Each rank's prefill cache leaf ``ts[r]`` (its batch rows, the whole
+    length, the kv heads its attention computed: its K/m, or the one its
+    query heads read) in the layout of ``spec``.  A length split over
+    the data axes is a slice of what every rank holds; where every model
+    rank holds all K heads, each head's owner (the first rank whose
+    query heads read it) places it in zeros and the model ranks
+    reduce-scatter along the length (all-reduce where it stays whole),
+    exact since every element has one nonzero addend."""
+    lay = _kv(spec)
+    if lay.length and MODEL not in lay.length:
+        n = _axis_size(get_mesh(), lay.length)
+        ts = col.rank_map(lambda r, t: t.narrow(
+            1, _first_slot(r, t.shape[1] // n, lay),
+            t.shape[1] // n).contiguous(), ts)
+    if lay.heads:
+        return ts
+    K, hl = cfg.attn.n_kv_heads, cfg.attn.n_heads // _m()
+
+    def place_head(r, t):
+        full = t.new_zeros(t.shape[:2] + (K,) + t.shape[3:])
+        if _j(r) * hl % group == 0:
+            full[:, :, _kv_head(r, cfg, group)] = t[:, :, 0]
+        return full
+
+    full = col.rank_map(place_head, ts)
+    if MODEL in lay.length:
+        return col.reduce_scatter(full, MODEL, dim=1)
+    return col.all_reduce(full, MODEL)
+
+
+def _merge(parts, axes, dtype) -> List[torch.Tensor]:
+    """The decode-attention kernel's combine across the ranks that split
+    a cache's length: M = the max of their m, then one all-reduce of
+    (l, acc) x e^(m - M); each rank's output acc / max(L, 1e-30), (B, 1,
+    H, hd) in ``dtype``.  A rank whose slots are all empty (m = -1e30)
+    weighs 0 beside one that holds a valid slot."""
+    M = col.all_reduce([m for m, _, _ in parts], axes, op="max")
+
+    def scaled(r, part, mr):
+        m, l, acc = part
+        w = torch.exp(m - mr)[..., None]
+        return torch.cat([l[..., None] * w, acc * w], dim=-1)
+
+    la = col.all_reduce(col.rank_map(scaled, parts, M), axes)
+    return col.rank_map(lambda r, t: (t[..., 1:] / t[..., :1].clamp_min(
+        1e-30)).to(dtype)[:, None], la)
+
+
+def _attend(qs, ks, vs, poss, lay: _KV, cfg: ModelConfig,
+            group: Optional[int]) -> List[torch.Tensor]:
+    """Each rank's one-token attention output for its H/m query heads,
+    (B, 1, H/m, hd): ``qs`` its queries, ``ks`` / ``vs`` its cache as it
+    holds it, ``poss`` its slots' positions (masks folded in).  Where
+    the length is split over 'model' the queries are all-gathered over
+    it; where a rank holds every kv head and only its own queries, those
+    read the one kv head ``_kv_head`` names.  A length split runs the
+    kernel's ``"partial"`` variant on each rank's slots and merges the
+    ranks' states (``_merge``)."""
+    hl = cfg.attn.n_heads // _m()
+    over_model = MODEL in lay.length
+    if over_model:
+        qs = col.all_gather(qs, MODEL, dim=2)
+    elif not lay.heads:
+        ks = [k.narrow(2, _kv_head(r, cfg, group), 1)
+              for r, k in enumerate(ks)]
+        vs = [v.narrow(2, _kv_head(r, cfg, group), 1)
+              for r, v in enumerate(vs)]
+    if not lay.length:
+        return col.rank_map(lambda r, q, k, v, p: attn_mod.decode_attention(
+            q, k, v, p), qs, ks, vs, poss)
+    parts = col.rank_map(lambda r, q, k, v, p: attn_mod.
+                         decode_attention_partial(q, k, v, p),
+                         qs, ks, vs, poss)
+    outs = _merge(parts, lay.length, qs[0].dtype)
+    if over_model:
+        outs = col.rank_map(lambda r, o: o[:, :, _j(r) * hl:(_j(r) + 1)
+                                           * hl], outs)
+    return outs
+
+
+def _self_decode(ps, x: Sharded, cfg: ModelConfig, cs, pos: int, lay: _KV,
+                 group: Optional[int]):
+    """One token's self-attention over each rank's ring cache (the
+    unsharded ``_self_attn_decode`` over the layout ``lay``): the ranks'
+    wo addends and their new caches, each a copy with slot pos % W
+    written by the rank that holds it and ``pos`` (whole on every rank)
+    updated.  Where a rank holds more kv heads than its columns of wk /
+    wv give, the new token's k / v columns are all-gathered over
+    'model'."""
+    a = cfg.attn
+    hd, hl = a.head_dim, a.n_heads // _m()
+
+    def at(t):
+        return torch.full((1,), pos, dtype=torch.int32, device=t.device)
+
+    def project(r, p, xr):
+        xn = apply_norm(p["norm1"], xr, cfg)
+        w = p["attn"]
+        q = (xn @ w["wq"]).reshape(xr.shape[0], 1, hl, hd)
+        if a.qk_norm:
+            q = rms_norm_headwise(q, w["q_scale"])
+        return rope(q, at(xr), a.rope_theta), xn @ w["wk"], xn @ w["wv"]
+
+    qkv = col.rank_map(project, ps, x.parts)
+    kc, vc = [t[1] for t in qkv], [t[2] for t in qkv]
+    if not lay.heads:
+        kc = col.all_gather(kc, MODEL, dim=-1)
+        vc = col.all_gather(vc, MODEL, dim=-1)
+
+    def write(r, p, c, kr, vr):
+        B = kr.shape[0]
+        k = kr.reshape(B, 1, -1, hd)
+        if a.qk_norm:
+            k = rms_norm_headwise(k, p["attn"]["k_scale"])
+        k = rope(k, at(kr), a.rope_theta)
+        ck, cv, cpos = (c[n].clone() for n in ("k", "v", "pos"))
+        held = ck.shape[1]
+        lo, slot = _first_slot(r, held, lay), pos % cpos.shape[0]
+        cpos[slot] = pos
+        if lo <= slot < lo + held:
+            ck[:, slot - lo] = k[:, 0]
+            cv[:, slot - lo] = vr.reshape(B, -1, hd)
+        return {"k": ck, "v": cv, "pos": cpos}
+
+    new = col.rank_map(write, ps, cs, kc, vc)
+
+    def slots(r, c):
+        lo, held = _first_slot(r, c["k"].shape[1], lay), c["k"].shape[1]
+        return attn_mod.fold_positions(c["pos"][lo:lo + held], pos,
+                                       a.window)
+
+    outs = _attend([t[0] for t in qkv], [c["k"] for c in new],
+                   [c["v"] for c in new], col.rank_map(slots, new), lay, cfg,
+                   group)
+    return col.rank_map(lambda r, p, o: tf._attn_out(p["attn"], o, cfg),
+                        ps, outs), new
+
+
+def _cross_decode(ps, x: Sharded, cfg: ModelConfig, cs, lay: _KV,
+                  group: Optional[int]) -> List[torch.Tensor]:
+    """One token's cross-attention over each rank's part of the memory's
+    cached k / v (the unsharded ``_cross_attn`` with ``mem_kv``: slot
+    positions arange(Skv), every one valid): the ranks' wo addends."""
+    a = cfg.attn
+    hd, hl = a.head_dim, a.n_heads // _m()
+    qs = col.rank_map(lambda r, p, xr: (apply_norm(p["norm_x"], xr, cfg)
+                                        @ p["cross_attn"]["wq"]).reshape(
+        xr.shape[0], 1, hl, hd), ps, x.parts)
+
+    def slots(r, c):
+        held = c["xk"].shape[1]
+        lo = _first_slot(r, held, lay)
+        return torch.arange(lo, lo + held, dtype=torch.int32,
+                            device=c["xk"].device)
+
+    outs = _attend(qs, [c["xk"] for c in cs], [c["xv"] for c in cs],
+                   col.rank_map(slots, cs), lay, cfg, group)
+    return col.rank_map(lambda r, p, o: tf._attn_out(p["cross_attn"], o,
+                                                     cfg), ps, outs)
+
+
 def _stack_full(blocks, h: Sharded, cfg: ModelConfig, memory, mode: str,
-                cache_len: int = 0, remat: bool = False):
+                cache_len: int = 0, remat: bool = False, specs=None):
     """The loop over periods; with ``remat`` each period (its
     collectives included) is checkpointed and recomputed in the
     backward, whole: stopping early would skip the last rank's final
@@ -322,7 +548,7 @@ def _stack_full(blocks, h: Sharded, cfg: ModelConfig, memory, mode: str,
     caches = []
     for i in range(tf._n_stacked(blocks[0])):
         args = ([tf._take(b, i) for b in blocks], h, cfg, memory, mode,
-                cache_len)
+                cache_len, specs)
         if remat:
             with set_checkpoint_early_stop(False):
                 h, aux_i, c = checkpoint(_period_full, *args,
@@ -341,10 +567,12 @@ def _stack_decode(blocks, h: Sharded, cfg: ModelConfig, cache: RankCaches,
     caches = []
     for i in range(tf._n_stacked(blocks[0])):
         h, nc = _period_decode([tf._take(b, i) for b in blocks], h, cfg,
-                               [tf._take(c, i) for c in cache.parts], pos)
+                               [tf._take(c, i) for c in cache.parts], pos,
+                               cache.specs)
         caches.append(nc)
     return h, RankCaches([tf._stack([c[r] for c in caches])
-                          for r in range(len(blocks))], cache.batch)
+                          for r in range(len(blocks))], cache.batch,
+                         cache.specs)
 
 
 # ---------------------------------------------------------------------------
@@ -495,14 +723,30 @@ def prefill(params, batch, cfg: ModelConfig, cache_len: Optional[int] = None):
         cache_len = S if cfg.attn is None or cfg.attn.window is None \
             else min(S, cfg.attn.window)
     memory = _memory_from_batch(params, batch, cfg)
+    specs = _cache_specs(cfg, tokens.shape[0], cache_len,
+                         memory.shape[1] if memory is not None else 0)
     h = _embed(params, tokens)
     h, _, caches = _stack_full([p["blocks"] for p in params], h, cfg,
-                               memory, mode="prefill", cache_len=cache_len)
+                               memory, mode="prefill", cache_len=cache_len,
+                               specs=specs)
     h = _whole_seq(h)
     last = Sharded(col.rank_map(lambda r, p, hr: apply_norm(
         p["final_norm"], hr[:, -1:], cfg), params, h.parts), h.spec)
     logits = _logits(params, last, cfg)
-    return _first_position(logits), RankCaches(caches, h.spec[0])
+    return _first_position(logits), RankCaches(caches, h.spec[0], specs)
+
+
+def _cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
+                 memory_len: int):
+    """``cache_pspecs`` of the whole cache ``prefill`` builds: its rings
+    hold ``cache_len`` slots (``cache_struct``'s tree with no window to
+    cap them, on ``meta``: a count holds none of it as allocated)."""
+    if cfg.attn is not None:
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+            cfg.attn, window=None))
+    with quiet():
+        struct = tf.cache_struct(cfg, batch, cache_len, memory_len)
+    return cache_pspecs(struct, get_mesh())
 
 
 def _first_position(logits: Sharded) -> Sharded:
@@ -523,91 +767,67 @@ def decode_step(params, cache: RankCaches, tokens, pos, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # the unsharded cache from the ranks', and the ranks' from a whole one
 # ---------------------------------------------------------------------------
+def _without_conv(tree):
+    return {b: {n: t for n, t in leaves.items() if n != "conv"}
+            for b, leaves in tree.items()}
+
+
 def shard_cache(cache, cfg: ModelConfig) -> RankCaches:
-    """Each rank's cache from the unsharded tree ``cache`` (its batch rows
-    where the batch divides over the data axes, as ``decode_step``'s
-    tokens split; its kv heads, SSD heads and conv channels), on its
-    device: ``gather_cache``'s inverse."""
+    """Each rank's cache from the unsharded tree ``cache``, on its device,
+    in a storage of its own: every leaf but ``conv`` split as
+    ``cache_pspecs`` says (``sharding.place``), the conv state's batch
+    rows as ``decode_step``'s tokens split and the channels of the
+    rank's SSD heads with every B and C channel.  ``gather_cache``'s
+    inverse."""
     mesh = get_mesh()
-    m = _m()
-    group = _attn_layout(cfg)[1] if cfg.attn is not None else None
-    d_in = ssm_mod.dims(cfg)[0] if cfg.ssm is not None else 0
+    specs = cache_pspecs(cache, mesh)
     some = next(t for b in cache.values() for n, t in b.items()
                 if n != "pos")
-    bspec = col.token_spec((some.shape[1], 1, 1))[0] or ()
+    bspec = tuple(col.token_spec((some.shape[1], 1, 1))[0] or ())
+    placed = place(_without_conv(cache), _without_conv(specs), mesh)
+    d_in = ssm_mod.dims(cfg)[0] if cfg.ssm is not None else 0
 
-    def one(r, name, t):
-        if name == "pos":
-            return t.clone()
+    def conv(r, t):
         if bspec:
             rows = t.shape[1] // _axis_size(mesh, bspec)
             t = t.narrow(1, col.axis_rank(r, bspec) * rows, rows)
-        j = _j(r)
-        if name in ("k", "v", "xk", "xv"):
-            if group is None:
-                kl = t.shape[3] // m
-                return t.narrow(3, j * kl, kl).contiguous()
-            return t.narrow(3, _kv_head(r, cfg, group), 1).contiguous()
-        if name == "ssm":
-            hl = t.shape[2] // m
-            return t.narrow(2, j * hl, hl).contiguous()
-        if name == "conv":
-            dl = d_in // m
-            return torch.cat([t[..., j * dl:(j + 1) * dl], t[..., d_in:]],
-                             dim=-1)
-        return t.contiguous()
+        j, dl = _j(r), d_in // _m()
+        return torch.cat([t[..., j * dl:(j + 1) * dl], t[..., d_in:]],
+                         dim=-1)
 
-    parts = col.rank_map(lambda r: {b: {n: one(r, n, t).to(
-        rank_devices(mesh)[r]) for n, t in leaves.items()}
-        for b, leaves in cache.items()})
-    return RankCaches(parts, tuple(bspec))
+    parts = col.rank_map(lambda r: {b: {n: (conv(r, t).to(
+        rank_devices(mesh)[r]) if n == "conv" else placed[r][b][n].clone())
+        for n, t in leaves.items()} for b, leaves in cache.items()})
+    return RankCaches(parts, bspec, specs)
 
 
 def gather_cache(cache: RankCaches, cfg: ModelConfig):
     """The unsharded cache tree from each rank's (on rank 0's device):
-    batch rows concatenated over the data ranks; kv heads, SSD heads and
-    the conv state's x channels over the model ranks (a kv head shared
-    by several ranks taken from the first); B and C's conv channels from
+    every leaf but ``conv`` by its spec (``sharding.gather_tree``: the
+    split dims concatenated in rank order, a replicated part taken from
+    the first rank that holds it); the conv state's batch rows over the
+    data ranks, its x channels over the model ranks and B and C's from
     model rank 0."""
+    mesh = get_mesh()
+    whole = gather_tree([_without_conv(p) for p in cache.parts],
+                        _without_conv(cache.specs), mesh)
+    return {b: {n: (_gather_conv(cache, b, cfg) if n == "conv"
+                    else whole[b][n]) for n in leaves}
+            for b, leaves in cache.parts[0].items()}
+
+
+def _gather_conv(cache: RankCaches, b: str, cfg: ModelConfig):
     mesh = get_mesh()
     dev = rank_devices(mesh)[0]
     m = _m()
-    group = _attn_layout(cfg)[1] if cfg.attn is not None else None
-    d_in = ssm_mod.dims(cfg)[0] if cfg.ssm is not None else 0
-    batch_groups = {}
+    dl = ssm_mod.dims(cfg)[0] // m
+    rows = {}
     for r in range(mesh.size):
-        batch_groups.setdefault(col.axis_rank(r, cache.batch), []).append(r)
-    rows = [g for _, g in sorted(batch_groups.items())] \
-        if cache.batch else [list(range(mesh.size))]
-
-    def over_model(ranks, name, leaf):
-        by_j = {}
-        for r in ranks:
-            by_j.setdefault(_j(r), leaf(r).to(dev))
-        parts = [by_j[j] for j in range(m)]
-        if name in ("k", "v", "xk", "xv"):
-            if group is None:
-                return torch.cat(parts, dim=3)
-            K = cfg.attn.n_kv_heads
-            owner = {}
-            for r in ranks:
-                owner.setdefault(_kv_head(r, cfg, group), _j(r))
-            return torch.cat([by_j[owner[k]] for k in range(K)], dim=3)
-        if name == "ssm":
-            return torch.cat(parts, dim=2)
-        if name == "conv":
-            dl = d_in // m
-            return torch.cat([p[..., :dl] for p in parts]
-                             + [parts[0][..., dl:]], dim=-1)
-        return parts[0]                                    # pos
-
-    out = {}
-    for b, leaves in cache.parts[0].items():
-        out[b] = {}
-        for name in leaves:
-            blocks = [over_model(g, name,
-                                 lambda r: cache.parts[r][b][name])
-                      for g in rows]
-            out[b][name] = blocks[0] if name == "pos" \
-                else torch.cat(blocks, dim=1)
-    return out
+        rows.setdefault(col.axis_rank(r, cache.batch), {}).setdefault(
+            _j(r), cache.parts[r][b]["conv"].to(dev))
+    blocks = []
+    for i in sorted(rows):
+        parts = [rows[i][j] for j in range(m)]
+        blocks.append(torch.cat([p[..., :dl] for p in parts]
+                                + [parts[0][..., dl:]], dim=-1))
+    return torch.cat(blocks, dim=1)

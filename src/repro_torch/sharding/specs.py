@@ -332,6 +332,65 @@ def param_pspecs(params, moe_mode: str = "tensor"):
     return _map_path(one, params)
 
 
+def _div(n, mesh, axes) -> bool:
+    """Whether ``axes`` (those the mesh has; none: False) split a dim of
+    size n evenly, at least one element a part (the reference's rule for
+    the dry-run's specs)."""
+    if isinstance(axes, str):
+        axes = (axes,)
+    axes = tuple(a for a in axes if a in mesh.axis_names)
+    if not axes:
+        return False
+    size = math.prod(mesh.shape[a] for a in axes)
+    return n % size == 0 and n >= size
+
+
+def _entry(axes):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def cache_leaf_spec(name: str, shape: Sequence[int], mesh) -> Tuple:
+    """The spec of one stacked cache leaf ``name`` of ``shape`` (the
+    reference's ``cache_pspecs`` rule).  Attention caches (Pd, B, W, K,
+    hd): the batch over (pod, data) where it divides, else the length
+    W; the kv heads over 'model' where they divide, else the length
+    over 'model' where the data axes left it whole (with the length
+    over the data axes and heads that do not divide, the cache is
+    replicated over 'model').  SSM states (Pd, B, H, hp, N): batch and
+    SSD heads.  Conv states (Pd, B, d_conv-1, d_xbc): batch and
+    channels.  ``pos`` is replicated."""
+    baxes = batch_axes(mesh)
+    dims = [None] * len(shape)
+    if name in ("k", "v", "xk", "xv"):
+        if baxes and _div(shape[1], mesh, baxes):
+            dims[1] = _entry(baxes)
+        elif baxes and _div(shape[2], mesh, baxes):
+            dims[2] = _entry(baxes)
+        if _div(shape[3], mesh, ("model",)):
+            dims[3] = "model"
+        elif dims[2] is None and _div(shape[2], mesh, ("model",)):
+            dims[2] = "model"
+    elif name in ("ssm", "conv"):
+        if baxes and _div(shape[1], mesh, baxes):
+            dims[1] = _entry(baxes)
+        c = 2 if name == "ssm" else 3
+        if _div(shape[c], mesh, ("model",)):
+            dims[c] = "model"
+    return tuple(dims)
+
+
+def cache_pspecs(cache_struct, mesh):
+    """The reference's KV / SSM cache specs for the stacked cache tree
+    ``cache_struct`` (``cache_leaf_spec`` leaf by leaf).  The meshed
+    decode step holds its caches so (``models.sharded.shard_cache``),
+    all but the conv state, which keeps the port's per-head layout."""
+    def one(path, leaf):
+        name = path[-1] if path and isinstance(path[-1], str) else ""
+        return cache_leaf_spec(name, leaf.shape, mesh)
+
+    return _map_path(one, cache_struct)
+
+
 def _zip_specs(fn, tree, specs, path=()):
     """``fn(path, leaf, spec)`` over ``tree``'s leaves; ``specs`` is the
     matching tree whose leaves are spec tuples."""

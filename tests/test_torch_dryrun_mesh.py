@@ -379,12 +379,12 @@ def test_mesh_records_have_the_reference_keys(tmp_path):
     assert pod["flops_per_device"] < one["flops_per_device"] / 300
     layouts = rec["cache_layouts"]
     # qwen3-8b: 8 kv heads do not divide over model 16; the reference
-    # splits the length over 'model', the port keeps one whole kv head
+    # splits the length over 'model', and so does the port's decode step
     assert layouts["b0/k"]["reference_spec"] == [None, "data", "model",
                                                  None, None]
-    assert layouts["b0/k"]["differ"]
+    assert not layouts["b0/k"]["differ"]
     assert layouts["b0/k"]["port_bytes_per_device"] == \
-        2 * layouts["b0/k"]["reference_bytes_per_device"]
+        layouts["b0/k"]["reference_bytes_per_device"]
 
 
 def test_mesh_options_need_a_mesh():

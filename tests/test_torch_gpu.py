@@ -23,7 +23,10 @@ slots) and decode attention over a memory whose every slot is valid.  The SSD sc
 chunk-parallel variant (the zoo's chunk 256 x state 128, at
 mamba2-370m's and Jamba's layer shapes), each of its four passes against
 its plain pass, and both variants' final state are held to the twin, and decode attention at Llama-3-405B's
-16 query heads a kv head.  The engine
+16 query heads a kv head.  Decode attention's "partial" variant (the
+unnormalised state of a slot range, for a cache split over a mesh) is
+held to its twin and, merged over two halves, to the whole cache's
+output.  The engine
 matrix: pipelined depth 2 routes as depth 0 with bitwise state, stage B
 waits for the level-0 copy's event (device work queued ahead of it with
 ``torch.cuda._sleep``), and the model expert's pool threads run on
@@ -202,6 +205,59 @@ def test_decode_forced_splits_match_plain(cuda, n_split):
     ref = decode_attention_ref(q[:, 0].reshape(B, H, 1, hd), k, v,
                                pos).reshape(B, 1, H, hd)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,W,H,K,hd,dtype,pos_kind,n_split", [
+    (2, 128, 32, 8, 128, torch.bfloat16, "all", None),   # qwen3 model 16
+    (1, 1024, 24, 4, 128, torch.bfloat16, "all", None),  # mixtral data 2
+    (2, 200, 8, 2, 64, torch.float32, "lens", 1),
+    (2, 200, 8, 2, 64, torch.float32, "lens", 3),         # ragged last
+    (2, 1024, 8, 2, 64, torch.float32, "split empty", None),
+    (2, 256, 8, 2, 64, torch.float32, "empty", 2),
+    (2, 300, 32, 2, 64, torch.bfloat16, "lens", None),    # G 16
+])
+def test_decode_partial_matches_plain(cuda, B, W, H, K, hd, dtype, pos_kind,
+                                      n_split):
+    """The "partial" variant's (M, L, acc) against the twin's (fp32 from
+    the same inputs: 1e-4 x (1 + |twin|)), one launch counted as
+    "partial"; merged over two halves of the slots it is the whole
+    cache's decode attention."""
+    from repro_torch.kernels.decode_attention import decode_attention_partial
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_partial_cuda)
+    from repro_torch.kernels.decode_attention.ref import (
+        combine_partials, decode_attention_partial_ref)
+    gen = torch.Generator().manual_seed(6)
+    q = _randn(gen, B, 1, H, hd, dtype=dtype)
+    k = _randn(gen, B, W, K, hd, dtype=dtype)
+    v = _randn(gen, B, W, K, hd, dtype=dtype)
+    pos = _decode_pos(pos_kind, gen, B, K, W)
+    pos_b = pos if pos.ndim == 2 else pos[None].expand(B, W)
+    n0 = decode_attention_cuda.launches
+    v0 = dict(decode_attention_cuda.launches_by_variant)
+    got = decode_attention_partial_cuda(q, k, v, pos_b, n_split=n_split)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == n0 + 1
+    moved = {n: c - v0[n]
+             for n, c in decode_attention_cuda.launches_by_variant.items()}
+    assert moved == {n: int(n == "partial") for n in moved}
+    G = H // K
+    want = decode_attention_partial_ref(q[:, 0].reshape(B, K, G, hd), k, v,
+                                        pos_b)
+    for g, w in zip(got, want):
+        w = w.reshape(g.shape)
+        assert g.dtype == torch.float32
+        assert float(((g - w).abs() / (1 + w.abs())).max()) <= 1e-4
+    halves = [decode_attention_partial(q, k[:, lo:hi], v[:, lo:hi],
+                                       pos_b[:, lo:hi])
+              for lo, hi in ((0, W // 2), (W // 2, W))]
+    out = combine_partials(halves, dtype)
+    ref = decode_attention_ref(q[:, 0].reshape(B, K, G, hd), k, v,
+                               pos_b).reshape(B, H, hd)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        decode_attention_partial(q.requires_grad_(), k, v, pos)
 
 
 @pytest.mark.parametrize("Bsz,S,H,hp,N,chunk,strided", [

@@ -223,9 +223,13 @@ def test_model2_serves_as_the_unsharded_reference(arch, mode, mesh):
     ("mixtral-8x22b", "expert")])
 def test_model4_gathers_the_kv_heads_it_reads(arch, mode, mesh):
     """(model 4): 2 kv heads over 4 ranks, so wk / wv's column shards are
-    half a kv head and each rank gathers the one its query head reads
-    (the vision model's CROSS layers too); Mixtral's 4 experts go one a
-    rank.  No data axis: the MoE takes the local path."""
+    half a kv head: the prefill gathers wk / wv and each rank computes
+    the one kv head its query head reads, and the cache's length is
+    split over 'model' (each rank all kv heads of its 10 slots); a
+    decode step gathers the new token's k / v columns and the queries
+    and merges the ranks' partial states (the vision model's CROSS
+    layers too); Mixtral's 4 experts go one a rank.  No data axis: the
+    MoE takes the local path."""
     m = mesh((4,), ("model",))
     cfg = get_smoke_config(arch)
     assert cfg.attn.n_kv_heads % 4 != 0
