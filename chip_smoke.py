@@ -53,7 +53,8 @@ Phases (any failure exits non-zero and prints no result line):
      model expert (trained once, reused) at max_delay 2 — every commit
      within 2 ticks, every annotated lane committed exactly once — and
      profiled at max_delay 0 and 2; (b) per-lane commits at max_delay 2,
-     simulated expert, W=1 against W=4 under an adversarial latency:
+     simulated expert, W=1 against W=4 under an adversarial latency, on
+     a 512-item imdb stream (seed 0), as phases 9 (a') and 10 (b) take:
      identical predictions, routing, expert calls, commit log, every
      parameter ``torch.equal``; (b') the same pair with the model
      expert, its per-item labels compared on the batches the engine sent
@@ -320,7 +321,23 @@ Phases (any failure exits non-zero and prints no result line):
      with its log-sum-exp; a [clock] line gives the part's seconds (alone:
      python3 -c "import chip_smoke as c; c.phase_build(); cfg, p, t =
      c.zoo_model(); r, runs = {}, {}; [c._ms_split_part(x, cfg, p, t,
-     r, runs) for x in c.MS_SPLIT]"); then the phase's seconds;
+     r, runs) for x in c.MS_SPLIT]"); (e''') the Mamba half of the
+     layout (in_proj / conv as contiguous column shards, the conv cache
+     by ``cache_pspecs``): mamba2-370m at published widths and 16
+     layers over (data 1, model 16) and Jamba-1.5-Large at published
+     widths cut to its first two blocks (MAMBA, then MAMBA with the MoE
+     FFN) over (data 1, model 4), bf16, 2 x 2048 + 4 decode steps on
+     cuda:0, each against its unsharded run by (b)'s rule (the logits
+     and every gathered conv / ssm leaf against the fp32 run; greedy
+     picks equal but for ties), each rank's cache of ``shard_cache``'s
+     shapes, launches = ranks x unsharded, one decode step's all-gather
+     bytes on rank 0 = rows x (d_proj + d_xbc) a layer = the ``meta``
+     count at the same shapes (every gathered part one token's), decode
+     ms a step meshed vs unsharded, the SSD "parallel" and moe_gmm "tc"
+     rows at a rank's shape; a [clock] line gives its seconds (alone:
+     python3 -c "import chip_smoke as c; c.phase_build(); _, _, t =
+     c.zoo_model(); [c._ms_mamba_part(x, t, {}, {}) for x in
+     c.MS_MAMBA_SPLIT]"); then the phase's seconds;
   16. mesh-train-dryrun (last): (a) fp32 ``train()`` of internlm2-1.8b
      at full width, 2 layers, 4 x 2048, 3 steps with remat, unmeshed and
      over (data 2, model 2) on cuda:0 four times from the same seed: the
@@ -368,7 +385,10 @@ run (both shards' launches, by variant, its items/s and idle share) and
 ``model_sharding_<run>_<stage>`` phase 15's shard rows (Mixtral in
 tensor and expert mode, mamba2) with the launches of both ranks, and
 (e') / (e'')'s "partial" rows (``model_sharding_qwen3_model16_decode``,
-``model_sharding_mixtral_data2_decode``) with every rank's launches;
+``model_sharding_mixtral_data2_decode``) and (e''')'s SSD and moe_gmm
+rows (``model_sharding_mamba2_model16_prefill``,
+``model_sharding_jamba_model4_prefill`` / ``_decode``) with every
+rank's launches;
 ``mesh_train_internlm2`` / ``mesh_train_mixtral`` phase 16 (a) / (b)'s
 meshed runs (every rank's launches) with the timed rank row, and
 ``mesh_dryrun_internlm2_train`` (c)'s counted card run (both ranks);
@@ -1072,6 +1092,10 @@ def phase_default_serve():
 # engine-matrix: the serving options of BatchedCascadeEngine at full width
 # ---------------------------------------------------------------------------
 MATRIX_ITEMS, MATRIX_BATCH, MATRIX_MU = 2048, 64, 3e-7
+# (b) / (b'): per-lane commits serve 14-54 items/s on the card, so the
+# W=1 / W=4 pairs serve a stream of 8 ticks (2048 items took 225 s of a
+# 1148 s script on a slow host)
+MATRIX_LANE_ITEMS = 512
 MATRIX_DEVICE = "cuda"
 # (e): the seeded fault schedule and the requeue deadline (s)
 MATRIX_FAULTS = {"timeout_rate": 0.1, "death_rate": 0.05, "slow_rate": 0.2,
@@ -1487,7 +1511,8 @@ def phase_engine_matrix(phase4_launches):
     from repro_torch.data import make_stream
     stream = make_stream("imdb", seed=0, n_samples=MATRIX_ITEMS)
     expert = _matrix_async(stream)
-    _matrix_pool(stream, expert)
+    _matrix_pool(make_stream("imdb", seed=0, n_samples=MATRIX_LANE_ITEMS),
+                 expert)
     expert.close()
     pipelined, unmeshed = _matrix_pipeline(stream, phase4_launches)
     _matrix_converged(stream)
@@ -4050,10 +4075,11 @@ def _ms_one_group(cfg, params, tokens, group=None):
 
 
 def _ms_check_launches(tag, cfg, n_tokens, mode, launches, by_variant,
-                       unsharded):
-    """Launches equal what the layers imply over two ranks, every one in
-    the model's unsharded variant; printed beside the unsharded counts."""
-    expect = _ms_expected(cfg, n_tokens, mode)
+                       unsharded, ranks=2):
+    """Launches equal what the layers imply over ``ranks`` ranks, every
+    one in the model's unsharded variant; printed beside the unsharded
+    counts."""
+    expect = _ms_expected(cfg, n_tokens, mode, ranks)
     want = _arch_variants(cfg)
     print(f"[model-sharding] {tag}: launches {launches} expected {expect}; "
           f"by variant {by_variant}; unsharded {unsharded}", flush=True)
@@ -4394,6 +4420,205 @@ def _ms_split_part(part, zoo_cfg, zoo_params, prompts, results, runs):
           flush=True)
 
 
+# (e'''): the Mamba half of the reference's layout: (tag, the run's key,
+# arch, depth (layers; fewer than the period's blocks: its first ones),
+# mesh (data, model) on cuda:0).  mamba2's 32 heads give 2 a rank over
+# 16, and a rank's 274 in_proj columns do not line up with heads;
+# Jamba's first two blocks (MAMBA, then MAMBA with the MoE FFN) hold its
+# unsharded bf16 weights and their shards near 46 GB (the fp32 copy the
+# rule needs, 47 GB, is made and freed before the shards are placed)
+MS_MAMBA_SPLIT = (
+    ("(e''') mamba2 model16", "mamba2_model16", "mamba2-370m",
+     MS_MAMBA_LAYERS, (1, 16)),
+    ("(e''') jamba model4", "jamba_model4", "jamba-1.5-large-398b", 2,
+     (1, 4)),
+)
+
+
+def _ms_cut(arch, depth):
+    """``arch`` at published widths, ``depth`` layers: the first
+    ``depth`` blocks of its period where that is longer."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    if depth >= len(full.period):
+        return dataclasses.replace(full, n_layers=depth)
+    return dataclasses.replace(
+        full, n_layers=depth, period=full.period[:depth],
+        moe_period_idx=tuple(i for i in full.moe_period_idx if i < depth))
+
+
+def _cast_leaves(tree, dtypes):
+    """Cast ``tree``'s leaves in place to ``dtypes`` (a dtype, or a tree
+    of them), one leaf at a time, so that each old leaf is freed as soon
+    as its copy exists."""
+    for k, v in tree.items():
+        d = dtypes[k] if isinstance(dtypes, dict) else dtypes
+        if isinstance(v, dict):
+            _cast_leaves(v, d)
+        else:
+            tree[k] = v.to(d)
+
+
+def _ms_unsharded(cfg, params, tokens, fed=None):
+    """The unsharded prefill + MS_DECODE decode steps on the card, greedy
+    or fed ``fed``'s tokens: logits, greedy tokens, the cache after the
+    last step, decode ms a step and the launches by variant of the
+    whole run."""
+    from repro_torch.models import transformer as tfm
+    S = tokens.shape[1]
+    for fn in ARCH_LAUNCHERS.values():
+        fn.launches = 0
+    _zero_variant_counts()
+    out = {"logits": [], "tokens": []}
+    with torch.no_grad():
+        last, cache = tfm.prefill(params, {"tokens": tokens}, cfg)
+        out["logits"].append(last)
+        out["tokens"].append(last.argmax(-1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(MS_DECODE):
+            tok = (fed or out["tokens"])[step]
+            logits, cache = tfm.decode_step(params, cache, tok[:, None],
+                                            S + step, cfg)
+            out["logits"].append(logits)
+            out["tokens"].append(logits.argmax(-1))
+        torch.cuda.synchronize()
+    out["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / MS_DECODE
+    out["cache"] = cache
+    out["by_variant"] = {n: c for n, c in _variant_counts().items()
+                         if n in ARCH_LAUNCHERS}
+    return out
+
+
+def _ms_mamba_part(part, prompts, results, runs):
+    """(e'''): a Mamba model served over a mesh whose in_proj / conv are
+    contiguous column shards and whose conv cache follows
+    ``cache_pspecs``, against its unsharded run on the card by (b)'s
+    rule (the logits and each gathered conv / ssm leaf no farther from
+    the fp32 run than TRAIN_TOL's ratio x the unsharded bf16 run's plus
+    its slack, relative l2; greedy picks equal but for ties); each
+    rank's cache leaves of ``shard_cache``'s shapes; launches = ranks x
+    unsharded, in its variants; one more decode step counted on the
+    card: rank 0's all-gather bytes = the activations (rows x (d_proj +
+    d_xbc) a layer) = the ``meta`` count at the same shapes, and every
+    gathered part one token's; ms a decode step meshed vs unsharded;
+    the SSD and moe_gmm shard rows."""
+    from repro_torch.launch import dryrun as dry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import sharded
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import collectives as col
+    from repro_torch.sharding import specs as shd
+    tag, run, arch, depth, mesh_shape = part
+    t0 = time.time()
+    cfg = _ms_cut(arch, depth)
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    tokens = prompts % cfg.vocab
+    B, S = tokens.shape
+    dp, m = mesh_shape
+    n = dp * m
+    want = _ms_unsharded(cfg, params, tokens)
+    torch.cuda.empty_cache()
+    dtypes = tree_map(lambda t: t.dtype, params)
+    _cast_leaves(params, torch.float32)
+    ref32 = _ms_unsharded(dataclasses.replace(cfg, dtype="float32"), params,
+                          tokens, fed=want["tokens"])
+    _cast_leaves(params, dtypes)
+    torch.cuda.empty_cache()
+    mesh = make_mesh(mesh_shape, ("data", "model"), ["cuda:0"] * n)
+    placed = shd.place(params, shd.param_pspecs(params), mesh)
+    del params
+    torch.cuda.empty_cache()
+    label = f"{tag} {cfg.name} {cfg.n_layers} layers {cfg.period} B={B}"
+    launches, by_variant, res, got = _ms_serve(
+        label, cfg, placed, mesh, tokens, want, ref32["logits"])
+    _ms_check_launches(tag, cfg, B * S, "tensor", launches, by_variant,
+                       want["by_variant"], ranks=n)
+    parts = []
+    real = col.all_gather
+
+    def gather(ps, *args, **kw):
+        parts.extend(tuple(p.shape) for p in ps)
+        return real(ps, *args, **kw)
+
+    shd.set_mesh(mesh)
+    try:
+        whole = sharded.gather_cache(res["cache"], cfg)
+        split = sharded.shard_cache(want["cache"], cfg).parts
+        col.all_gather = gather
+        try:
+            flat = dry.count_mesh_step(
+                lambda p, c: tfm.decode_step(p, c, res["tokens"][-1][:, None],
+                                             S + MS_DECODE, cfg),
+                (placed, res["cache"]), 0.0)
+        finally:
+            col.all_gather = real
+    finally:
+        shd.set_mesh(None)
+    bad = [(r, b, name) for r, (mine, spec) in enumerate(zip(
+        res["cache"].parts, split)) for b in spec for name in spec[b]
+        if mine[b][name].shape != spec[b][name].shape]
+    if bad:
+        _fail(f"{tag}: rank, block, leaf {bad[:4]} not of cache_pspecs' "
+              f"shape")
+    ratio, slack = TRAIN_TOL["bf16_ratio"], TRAIN_TOL["bf16_slack"]
+    dist = {f"{b}/{name}": (_rel_l2(whole[b][name], f),
+                            _rel_l2(want["cache"][b][name], f))
+            for b, leaves in ref32["cache"].items()
+            for name, f in leaves.items()}
+    print(f"[model-sharding] {tag}: a rank's conv "
+          f"{tuple(split[0]['b0']['conv'].shape)}, ssm "
+          f"{tuple(split[0]['b0']['ssm'].shape)} (cache_pspecs); the "
+          f"gathered cache's relative l2 to the fp32 run, meshed / "
+          f"unsharded bf16, by leaf "
+          f"{ {k: f'{dm:.4g} / {du:.4g}' for k, (dm, du) in dist.items()} } "
+          f"(allowed {ratio} x + {slack})", flush=True)
+    over = {k: dm - (ratio * du + slack) for k, (dm, du) in dist.items()}
+    if max(over.values()) > 0:
+        _fail(f"{tag}: gathered cache leaves beyond (b)'s rule: "
+              f"{ {k: v for k, v in over.items() if v > 0} }")
+    mm = make_mesh(mesh_shape, ("data", "model"), "meta")
+    step, args, args_b = dry.build_mesh_step(
+        cfg, InputShape("decode_mesh", "decode", S + MS_DECODE, B), mm,
+        "meta")
+    try:
+        meta = dry.count_mesh_step(step, args, args_b)
+    finally:
+        shd.set_mesh(None)
+    d_in, n_heads, d_xbc = ssm_mod.dims(cfg)
+    d_proj = 2 * d_in + 2 * cfg.ssm.d_state + n_heads
+    rows = B // dp if B % dp == 0 else B
+    el = torch.finfo(cfg.torch_dtype).bits // 8
+    n_mamba = cfg.n_periods * cfg.period.count("mamba")
+    ag = n_mamba * rows * (d_proj + d_xbc) * el
+    got_ag = flat.get("collective:all-gather", 0.0)
+    meta_ag = meta.get("collective:all-gather", 0.0)
+    print(f"[model-sharding] {tag}: one decode step on rank 0: all-gather "
+          f"{got_ag:.0f} B on the card, {meta_ag:.0f} B counted on meta, "
+          f"{ag} B expected ({n_mamba} layers x {rows} rows x "
+          f"(d_proj {d_proj} + d_xbc {d_xbc}) x {el} B), all-reduce "
+          f"{flat.get('collective:all-reduce', 0.0):.0f} / "
+          f"{meta.get('collective:all-reduce', 0.0):.0f} B; gathered part "
+          f"shapes {sorted(set(parts))}; decode ms a step meshed "
+          f"{res['decode_ms_per_step']:.6g} vs unsharded "
+          f"{want['decode_ms_per_step']:.6g}", flush=True)
+    if not got_ag == meta_ag == ag:
+        _fail(f"{tag}: a decode step all-gathers {got_ag} B on the card, "
+              f"{meta_ag} B on meta, not the {ag} B of its activations")
+    if not parts or any(p[:2] != (rows, 1) for p in parts):
+        _fail(f"{tag}: an all-gather of a decode step carries more than "
+              f"one token's activations: {sorted(set(parts))}")
+    _ms_rows(tag.split(" ", 1)[1], got, results)
+    runs[run] = (launches, by_variant)
+    del placed, res, got, want, ref32, whole, split
+    torch.cuda.empty_cache()
+    print(f"[model-sharding] {tag}: part seconds {time.time() - t0:.1f}",
+          flush=True)
+
+
 def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
                          zoo_results):
     """15. model-sharding: (a) the zoo's Mixtral (zoo-serve's weights and
@@ -4403,7 +4628,9 @@ def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
     (``_ms_one_group``); (b) mamba2-370m
     at MS_MAMBA_LAYERS the same way against its own unsharded run; (c) one
     training step at 1 layer in fp32; (d) (a) over distinct cards where
-    there are more than one.  Returns the kernel rows and each run's
+    there are more than one; (e') / (e'') length-split attention caches
+    (``_ms_split_part``); (e''') the Mamba half of the layout
+    (``_ms_mamba_part``).  Returns the kernel rows and each run's
     launches for the record."""
     from repro_torch.models import transformer as tfm
     from repro_torch.sharding import specs as shd
@@ -4499,6 +4726,12 @@ def phase_model_sharding(cfg, params, prompts, zoo_out, zoo_by_variant,
     print(f"[clock] model-sharding (e') / (e'') took "
           f"{time.time() - t_e:.1f} s, ended at {time.time() - _T0:.1f} s",
           flush=True)
+    # (e'''): the Mamba half of the reference's layout
+    t_e = time.time()
+    for part in MS_MAMBA_SPLIT:
+        _ms_mamba_part(part, prompts, results, runs)
+    print(f"[clock] model-sharding (e''') took {time.time() - t_e:.1f} s, "
+          f"ended at {time.time() - _T0:.1f} s", flush=True)
     print(f"[model-sharding] phase seconds {time.time() - t_phase:.1f}",
           flush=True)
     return results, runs
@@ -4513,7 +4746,9 @@ def model_sharding_paths(results, runs):
                          ("mixtral_expert", "mixtral expert"),
                          ("mamba2", "mamba2"),
                          ("qwen3_model16", "qwen3 model16"),
-                         ("mixtral_data2", "mixtral data2")):
+                         ("mixtral_data2", "mixtral data2"),
+                         ("mamba2_model16", "mamba2 model16"),
+                         ("jamba_model4", "jamba model4")):
             launches, by_variant = runs[run]
             for phase in ("prefill", "decode"):
                 mine = [(lab, r) for lab, r in rows

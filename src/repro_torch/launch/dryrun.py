@@ -39,11 +39,10 @@ the mesh's ranks in one process (``models.sharded``, ``launch.train``'s
 reference's rules (``param_pspecs``, ``zero_shard_specs``), the batch
 split as ``batch_pspecs`` says and a decode step's cache as the
 reference's ``cache_pspecs`` says (``shard_cache``; ``cache_layouts``
-sets each leaf's bytes beside the spec's: only the conv state keeps the
-port's own layout).  The counter holds each op and storage to
-the rank it belongs to, and the record takes one rank's FLOPs, bytes,
-launches and collective bytes (by kind, forward and backward) and the
-largest any one rank holds (``count_mesh_step``).  Every data rank runs
+sets each leaf's bytes beside the spec's).  The counter holds each op
+and storage to the rank it belongs to, and the record takes one rank's
+FLOPs, bytes, launches and collective bytes (by kind, forward and
+backward) and the largest any one rank holds (``count_mesh_step``).  Every data rank runs
 the same shapes, so a production mesh is counted over its ranks at data
 index 0 only (``data_slice``: 16 ranks stand for 256 or 512);
 tests/test_torch_dryrun_mesh.py holds that to all the ranks of small
@@ -513,7 +512,7 @@ def cache_layouts(cfg, shape: InputShape, mesh) -> Dict[str, dict]:
     """Each cache leaf of a decode shape: the reference's spec
     (``cache_pspecs``), its bytes a device under it and as the port's
     decode step holds it (``shard_cache``, on ``meta``), and whether
-    they differ (the conv state alone, which keeps the port's layout)."""
+    they differ."""
     from repro_torch.models.sharded import shard_cache
     from repro_torch.sharding import specs as shd
     cache = input_specs(cfg, shape)["cache"]

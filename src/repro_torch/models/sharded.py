@@ -29,11 +29,12 @@ the block's exit.
 * MoE: ``moe.moe_ffn_sharded`` (tensor or expert mode).
 * Mamba2: in_proj's columns are [z | x | B | C | dt] and conv's are
   [x | B | C], split contiguously by the rule, which does not align with
-  heads.  Both are all-gathered and each rank takes the columns of its
-  heads (z, x and dt) and the shared B and C; the SSD scan, A_log, D,
-  dt_bias, gate_norm and out_proj's rows are the rank's heads' own.  The
-  gated RMSNorm's mean over all of d_inner is an all-reduce of the sum
-  of squares.  A rank's conv state is its [x_j | B | C] channels.
+  heads; A_log, D, dt_bias, gate_norm and out_proj's rows are split by
+  heads.  The whole-sequence paths (forward, prefill, the loss)
+  all-gather in_proj and conv and each rank takes the columns of its
+  heads (z, x and dt) and the shared B and C; a decode step gathers
+  activations instead (below).  The gated RMSNorm's mean over all of
+  d_inner is an all-reduce of the sum of squares.
 * Embedding and head: vocab-parallel.  The lookup zeroes ids outside a
   rank's rows and the ranks all-reduce; logits stay split over vocab
   (``constrain(logits, (batch, None, "model"))``), and the loss is exact
@@ -44,16 +45,15 @@ Prefill returns each rank's caches (``RankCaches``); ``gather_cache``
 rebuilds the unsharded cache from them, and ``shard_cache`` is its
 inverse, each rank's cache from a whole one (what a decode step over a
 mesh takes).  The layout is the reference's ``cache_pspecs``
-(``sharding.specs``) for every leaf but the conv state:
+(``sharding.specs``) for every leaf:
 
 * k / v / xk / xv (B, W, K, hd): the batch over the data axes where it
   divides, else the length W over them; the kv heads over 'model' where
   they divide, else the length over 'model' (each rank all K heads of
   its W/m slots), or, where the data axes split the length already,
   every kv head on every model rank.  ``pos`` is whole on every rank.
-* ssm: the batch and the SSD heads.  conv keeps the port's layout: the
-  x channels of the rank's heads and every B and C channel (the
-  reference splits d_xbc contiguously, ROADMAP item 15b).
+* ssm: the batch and the SSD heads; conv (B, d_conv-1, d_xbc): the
+  batch and a contiguous 1/m of the [x | B | C] channels.
 
 The prefill computes its attention as the whole-sequence paths do and
 then lays its k / v out so: a rank's slots of the length split over the
@@ -61,6 +61,10 @@ data axes are a slice of what it computed; where every model rank holds
 all K heads, the rank that owns each kv head (the first whose query
 heads read it) places it in a zero (B, W, K, hd) and the ranks
 reduce-scatter over 'model' along W (all-reduce where W stays whole).
+Its conv state, the last d_conv-1 rows of the pre-conv [x | B | C],
+is made whole by an all-gather of each rank's heads' x channels over
+'model' (every rank holds B and C), and each rank keeps its contiguous
+share of the channels.
 
 A decode step gathers activations, never weights.  Each rank projects
 its column shards of q, k and v; where it holds more kv heads than its
@@ -74,6 +78,16 @@ kernel's combine arithmetic: an all-reduce of the max, then one of
 (l, acc) rescaled, (B, H, hd + 2) floats in all; each rank keeps its
 H/m heads for the row-parallel wo.  A CROSS layer's decode does the
 same over xk / xv.
+
+A Mamba2 block's decode step does the same.  Each rank projects with
+its in_proj columns and the projection is all-gathered over 'model',
+(B, 1, d_proj): the one place z, x, B, C and dt are whole.  Each rank
+convolves its contiguous [x | B | C] channels with its conv_w / conv_b
+and its conv-cache shard (the conv is depthwise: no channel mixes) and
+the conv output is all-gathered, (B, 1, d_xbc).  Each rank then takes,
+by global column, its heads' z, x and dt and all of B and C for its
+heads' SSD step on its ssm shard; the gated RMSNorm and out_proj's rows
+follow as in the whole-sequence paths.
 """
 from __future__ import annotations
 
@@ -81,6 +95,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ATTN, CROSS, MAMBA, ModelConfig
@@ -106,7 +121,7 @@ class RankCaches:
     """``prefill``'s caches over a mesh: one tree a rank (the unsharded
     cache's structure, each leaf the rank's part of it), the axes the
     batch is split over, and the whole stacked tree's ``cache_pspecs``,
-    by which every leaf but ``conv`` is held."""
+    by which every leaf is held."""
 
     parts: list
     batch: Tuple[str, ...]
@@ -169,16 +184,30 @@ def _rank_attn(ps, name: str, cfg: ModelConfig, group: Optional[int]):
     return out
 
 
-def _rank_mamba(ps, cfg: ModelConfig):
-    """Each rank's Mamba2 params as a block of its own heads: in_proj's
-    [z_j | x_j | B | C | dt_j] and conv's [x_j | B | C] columns from the
-    all-gathered leaves, the per-head leaves as placed."""
+def _mamba_dims(cfg: ModelConfig):
+    """(d_inner, SSD heads, d_xbc) of ``cfg`` and their shares of a rank;
+    raises where 'model' does not divide the heads or the columns of
+    in_proj or conv_w (naming the leaf, as ``place`` does)."""
     s, m = cfg.ssm, _m()
-    d_in, n_heads, _ = ssm_mod.dims(cfg)
+    d_in, n_heads, d_xbc = ssm_mod.dims(cfg)
     if n_heads % m:
         raise ValueError(f"{cfg.name}: {n_heads} SSD heads do not divide "
                          f"over model={m}")
-    dl, hl, N = d_in // m, n_heads // m, s.d_state
+    for leaf, n in (("mamba/in_proj", 2 * d_in + 2 * s.d_state + n_heads),
+                    ("mamba/conv_w", d_xbc)):
+        if n % m:
+            raise ValueError(f"{cfg.name} {leaf}: {n} columns do not divide "
+                             f"over model={m}")
+    return d_in, n_heads, d_xbc, d_in // m, n_heads // m, d_xbc // m
+
+
+def _rank_mamba(ps, cfg: ModelConfig):
+    """Each rank's Mamba2 params as a block of its own heads: in_proj's
+    [z_j | x_j | B | C | dt_j] and conv's [x_j | B | C] columns from the
+    all-gathered leaves, the per-head leaves as placed (the
+    whole-sequence paths' weight gather)."""
+    d_in, _, _, dl, hl, _ = _mamba_dims(cfg)
+    N = cfg.ssm.d_state
     w = col.all_gather([p["mamba"]["in_proj"] for p in ps], MODEL, dim=1)
     cw = col.all_gather([p["mamba"]["conv_w"] for p in ps], MODEL, dim=1)
     cb = col.all_gather([p["mamba"]["conv_b"] for p in ps], MODEL, dim=0)
@@ -195,22 +224,79 @@ def _rank_mamba(ps, cfg: ModelConfig):
     return col.rank_map(one, ps, w, cw, cb)
 
 
-def _mamba(mp, x: Sharded, cfg: ModelConfig, states=None, decode=False):
-    """Each rank's Mamba2 block on ``x`` (whole sequences): (the ranks'
-    out_proj addends, their (conv, ssm) states)."""
+def _gate_out(mp, ys, cfg: ModelConfig) -> List[torch.Tensor]:
+    """The ranks' out_proj addends of their heads' gated ``ys``: the
+    gated RMSNorm's sum of squares over d_inner all-reduced."""
     d_in = ssm_mod.dims(cfg)[0]
-    if decode:
-        pre = col.rank_map(lambda r, p, xr, st: ssm_mod.mamba_decode_scan(
-            p, xr, cfg, st[0], st[1]), mp, x.parts, states)
-    else:
-        pre = col.rank_map(lambda r, p, xr: ssm_mod.mamba_scan(
-            p, xr, cfg, ssd_impl=ssm_mod.ssd_kernel), mp, x.parts)
-    ys = [y for y, _ in pre]
     ss = col.all_reduce([torch.sum(torch.square(y), dim=-1, keepdim=True)
                          for y in ys], MODEL)
-    outs = col.rank_map(lambda r, p, y, s: ssm_mod.gate_out(
+    return col.rank_map(lambda r, p, y, s: ssm_mod.gate_out(
         p, y, s / d_in, cfg), mp, ys, ss)
-    return outs, [(conv, ssm.float()) for _, (conv, ssm) in pre]
+
+
+def _mamba(mp, x: Sharded, cfg: ModelConfig):
+    """Each rank's Mamba2 block (``_rank_mamba``'s params) on ``x`` (whole
+    sequences): (the ranks' out_proj addends, their (conv, ssm) states,
+    the conv state in ``_rank_mamba``'s [x_j | B | C] channels)."""
+    pre = col.rank_map(lambda r, p, xr: ssm_mod.mamba_scan(
+        p, xr, cfg, ssd_impl=ssm_mod.ssd_kernel), mp, x.parts)
+    return (_gate_out(mp, [y for y, _ in pre], cfg),
+            [(conv, ssm.float()) for _, (conv, ssm) in pre])
+
+
+def _lay_out_conv(convs, spec, cfg: ModelConfig):
+    """Each rank's prefill conv state ``convs[r]`` (B, d_conv-1, its
+    heads' x channels, then every B and C channel) in the layout of
+    ``spec``: the x channels all-gathered over 'model' and the B and C
+    ones every rank holds make the whole [x | B | C] state, of which each
+    rank keeps its contiguous share (all of it where the channels stay
+    whole)."""
+    d_in, _, _, dl, _, cl = _mamba_dims(cfg)
+    xs = col.all_gather([t[..., :dl] for t in convs], MODEL, dim=-1)
+    split = MODEL in _axes(spec[-1])
+
+    def keep(r, x, t):
+        full = torch.cat([x, t[..., dl:]], dim=-1)
+        return full[..., _j(r) * cl:(_j(r) + 1) * cl].contiguous() \
+            if split else full
+
+    return col.rank_map(keep, xs, convs)
+
+
+def _mamba_decode(ps, x: Sharded, cfg: ModelConfig, cs):
+    """One token's Mamba2 block over the placed column shards and each
+    rank's conv / ssm cache (the unsharded ``mamba_decode_scan`` and gate
+    over the layout in the module's docstring): the ranks' out_proj
+    addends and their new caches.  Every slice of z, x, B, C and dt is
+    taken from a gathered tensor by global column: a rank's in_proj
+    columns may end inside z and start inside x, and a head's dt may lie
+    on another rank than its x."""
+    d_in, _, _, dl, hl, cl = _mamba_dims(cfg)
+    N = cfg.ssm.d_state
+    xn = _norm(ps, "norm1", x, cfg)
+    u = col.all_gather(col.rank_map(lambda r, p, xr: xr @ p["mamba"][
+        "in_proj"], ps, xn), MODEL, dim=-1)               # (B, 1, d_proj)
+
+    def conv(r, p, ur, c):
+        c0 = d_in + _j(r) * cl
+        return ssm_mod._causal_conv(ur[..., c0:c0 + cl], p["mamba"]["conv_w"],
+                                    p["mamba"]["conv_b"], c["conv"])
+
+    convs = col.rank_map(conv, ps, u, cs)
+    xbc = col.all_gather([o for o, _ in convs], MODEL, dim=-1)  # (B,1,d_xbc)
+
+    def ssd(r, p, ur, xr, c):
+        j, xr = _j(r), F.silu(xr)
+        dt0 = 2 * d_in + 2 * N + j * hl
+        return ssm_mod.decode_ssd(
+            p["mamba"], ur[..., j * dl:(j + 1) * dl],
+            xr[..., j * dl:(j + 1) * dl], xr[..., d_in:d_in + N],
+            xr[..., d_in + N:], ur[..., dt0:dt0 + hl], cfg, c["ssm"])
+
+    pre = col.rank_map(ssd, ps, u, xbc, cs)
+    outs = _gate_out([p["mamba"] for p in ps], [y for y, _ in pre], cfg)
+    return outs, [{"conv": cv, "ssm": h.float()}
+                  for (_, cv), (_, h) in zip(convs, pre)]
 
 
 def _zeros() -> List[torch.Tensor]:
@@ -298,7 +384,9 @@ def _period_full(pps, h: Sharded, cfg: ModelConfig, memory, mode: str,
             outs, states = _mamba(_rank_mamba(ps, cfg), xn, cfg)
             x = _residual(x, outs)
             if mode == "prefill":
-                for c, (conv, ssm) in zip(cs, states):
+                laid = _lay_out_conv([conv for conv, _ in states],
+                                     specs[f"b{i}"]["conv"], cfg)
+                for c, conv, (_, ssm) in zip(cs, laid, states):
                     c["conv"], c["ssm"] = conv, ssm
         delta, a = _ffn(ps, x, cfg, i)
         h = col.constrain_tokens(x)
@@ -333,12 +421,8 @@ def _period_decode(pps, h: Sharded, cfg: ModelConfig, caches, pos: int,
             for nc, c in zip(ncs, cs):
                 nc["xk"], nc["xv"] = c["xk"], c["xv"]
         elif kind == MAMBA:
-            xn = Sharded(_norm(ps, "norm1", x, cfg), x.spec)
-            outs, states = _mamba(_rank_mamba(ps, cfg), xn, cfg,
-                                  [(c["conv"], c["ssm"]) for c in cs],
-                                  decode=True)
+            outs, ncs = _mamba_decode(ps, x, cfg, cs)
             x = _residual(x, outs)
-            ncs = [{"conv": conv, "ssm": ssm} for conv, ssm in states]
         delta, _ = _ffn(ps, x, cfg, i)
         h = col.constrain_tokens(x)
         if delta is not None:
@@ -767,67 +851,25 @@ def decode_step(params, cache: RankCaches, tokens, pos, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # the unsharded cache from the ranks', and the ranks' from a whole one
 # ---------------------------------------------------------------------------
-def _without_conv(tree):
-    return {b: {n: t for n, t in leaves.items() if n != "conv"}
-            for b, leaves in tree.items()}
-
-
 def shard_cache(cache, cfg: ModelConfig) -> RankCaches:
     """Each rank's cache from the unsharded tree ``cache``, on its device,
-    in a storage of its own: every leaf but ``conv`` split as
-    ``cache_pspecs`` says (``sharding.place``), the conv state's batch
-    rows as ``decode_step``'s tokens split and the channels of the
-    rank's SSD heads with every B and C channel.  ``gather_cache``'s
-    inverse."""
+    in a storage of its own, every leaf split as ``cache_pspecs`` says
+    (``sharding.place``).  ``gather_cache``'s inverse."""
     mesh = get_mesh()
     specs = cache_pspecs(cache, mesh)
     some = next(t for b in cache.values() for n, t in b.items()
                 if n != "pos")
     bspec = tuple(col.token_spec((some.shape[1], 1, 1))[0] or ())
-    placed = place(_without_conv(cache), _without_conv(specs), mesh)
-    d_in = ssm_mod.dims(cfg)[0] if cfg.ssm is not None else 0
-
-    def conv(r, t):
-        if bspec:
-            rows = t.shape[1] // _axis_size(mesh, bspec)
-            t = t.narrow(1, col.axis_rank(r, bspec) * rows, rows)
-        j, dl = _j(r), d_in // _m()
-        return torch.cat([t[..., j * dl:(j + 1) * dl], t[..., d_in:]],
-                         dim=-1)
-
-    parts = col.rank_map(lambda r: {b: {n: (conv(r, t).to(
-        rank_devices(mesh)[r]) if n == "conv" else placed[r][b][n].clone())
-        for n, t in leaves.items()} for b, leaves in cache.items()})
+    placed = place(cache, specs, mesh)
+    parts = col.rank_map(lambda r: {b: {n: t.clone() for n, t in
+                                        leaves.items()}
+                                    for b, leaves in placed[r].items()})
     return RankCaches(parts, bspec, specs)
 
 
 def gather_cache(cache: RankCaches, cfg: ModelConfig):
-    """The unsharded cache tree from each rank's (on rank 0's device):
-    every leaf but ``conv`` by its spec (``sharding.gather_tree``: the
-    split dims concatenated in rank order, a replicated part taken from
-    the first rank that holds it); the conv state's batch rows over the
-    data ranks, its x channels over the model ranks and B and C's from
-    model rank 0."""
-    mesh = get_mesh()
-    whole = gather_tree([_without_conv(p) for p in cache.parts],
-                        _without_conv(cache.specs), mesh)
-    return {b: {n: (_gather_conv(cache, b, cfg) if n == "conv"
-                    else whole[b][n]) for n in leaves}
-            for b, leaves in cache.parts[0].items()}
-
-
-def _gather_conv(cache: RankCaches, b: str, cfg: ModelConfig):
-    mesh = get_mesh()
-    dev = rank_devices(mesh)[0]
-    m = _m()
-    dl = ssm_mod.dims(cfg)[0] // m
-    rows = {}
-    for r in range(mesh.size):
-        rows.setdefault(col.axis_rank(r, cache.batch), {}).setdefault(
-            _j(r), cache.parts[r][b]["conv"].to(dev))
-    blocks = []
-    for i in sorted(rows):
-        parts = [rows[i][j] for j in range(m)]
-        blocks.append(torch.cat([p[..., :dl] for p in parts]
-                                + [parts[0][..., dl:]], dim=-1))
-    return torch.cat(blocks, dim=1)
+    """The unsharded cache tree from each rank's (on rank 0's device), by
+    the spec of each leaf (``sharding.gather_tree``: the split dims
+    concatenated in rank order, a replicated part taken from the first
+    rank that holds it)."""
+    return gather_tree(cache.parts, cache.specs, get_mesh())

@@ -219,7 +219,6 @@ def mamba_decode_scan(params, x, cfg: ModelConfig, conv_prev, ssm_state):
     d_in) fp32, (conv_state, ssm_state))."""
     s = cfg.ssm
     d_in, n_heads = _block_dims(params)
-    B = x.shape[0]
     proj = x @ params["in_proj"]
     z, xi, Bm, Cm, dt = _split_proj(proj, d_in, n_heads, cfg)
     xbc = torch.cat([xi, Bm, Cm], dim=-1)                   # (B, 1, d_xbc)
@@ -227,7 +226,18 @@ def mamba_decode_scan(params, x, cfg: ModelConfig, conv_prev, ssm_state):
                                  conv_prev)
     xbc = F.silu(xbc)
     xi, Bm, Cm = torch.split(xbc, [d_in, s.d_state, s.d_state], dim=-1)
+    y, h_new = decode_ssd(params, z, xi, Bm, Cm, dt, cfg, ssm_state)
+    return y, (conv_new, h_new)
 
+
+def decode_ssd(params, z, xi, Bm, Cm, dt, cfg: ModelConfig, ssm_state):
+    """``mamba_decode_scan`` after its conv: one token's SSD step of the
+    heads ``params`` hold (their z, x and dt columns; B and C whole, after
+    the SiLU) on ``ssm_state`` (B, H, P, N) fp32, gated by silu(z).
+    Returns (y * silu(z) (B, 1, d_in) fp32, the new state)."""
+    s = cfg.ssm
+    d_in, n_heads = _block_dims(params)
+    B = xi.shape[0]
     dt = F.softplus(dt.float() + params["dt_bias"])[:, 0]  # (B, H)
     A = -torch.exp(params["A_log"])
     dA = torch.exp(A * dt)                                  # (B, H)
@@ -239,8 +249,7 @@ def mamba_decode_scan(params, x, cfg: ModelConfig, conv_prev, ssm_state):
     h_new = ssm_state * dA[:, :, None, None] + upd
     y = torch.einsum("bn,bhpn->bhp", Cv, h_new)
     y = y + params["D"][None, :, None] * xh
-    y = y.reshape(B, 1, d_in) * F.silu(z.float())
-    return y, (conv_new, h_new)
+    return y.reshape(B, 1, d_in) * F.silu(z.float()), h_new
 
 
 def mamba_decode_step(params, x, cfg: ModelConfig, conv_prev, ssm_state):

@@ -17,7 +17,8 @@ summed axis (the sequence-parallel pattern); a dim split now and not in
 lies.  Axes the mesh lacks, and dims their size does not divide, stay
 whole: the reference's rule for activations.  Each collective is torch
 sums and concatenations in a fixed rank order, so its result depends on
-nothing but its inputs, wrapped in an autograd Function whose backward
+nothing but its inputs (a sum of bf16 / fp16 parts is taken in fp32
+and rounded once), wrapped in an autograd Function whose backward
 is the dual collective (all-reduce for all-reduce, reduce-scatter for
 all-gather and back).  Forward and backward, each tells an active
 ``metrics.cost.CostCounter`` the result bytes every rank receives (the
@@ -142,11 +143,19 @@ def _members(g, n, devs):
 
 
 def _sum(parts, mine, dev, op="sum"):
+    """The group's sum (or maximum) on ``dev``; a sum of half-precision
+    parts is taken in fp32 and rounded once, as the unsharded product
+    whose addends the parts are rounds its fp32 accumulator once (a
+    bf16 running sum over 16 ranks rounds 15 times)."""
     acc = parts[mine[0]]
+    low = (op == "sum" and len(mine) > 1 and acc.is_floating_point()
+           and acc.element_size() < 4)
+    if low:
+        acc = acc.float()
     for r in mine[1:]:
         p = parts[r].to(dev)
         acc = acc + p if op == "sum" else torch.maximum(acc, p)
-    return acc
+    return acc.to(parts[mine[0]].dtype) if low else acc
 
 
 def _run(kind, parts, groups, devs, dim, op):

@@ -382,8 +382,8 @@ def cache_leaf_spec(name: str, shape: Sequence[int], mesh) -> Tuple:
 def cache_pspecs(cache_struct, mesh):
     """The reference's KV / SSM cache specs for the stacked cache tree
     ``cache_struct`` (``cache_leaf_spec`` leaf by leaf).  The meshed
-    decode step holds its caches so (``models.sharded.shard_cache``),
-    all but the conv state, which keeps the port's per-head layout."""
+    decode step holds its caches so, every leaf
+    (``models.sharded.shard_cache``)."""
     def one(path, leaf):
         name = path[-1] if path and isinstance(path[-1], str) else ""
         return cache_leaf_spec(name, leaf.shape, mesh)

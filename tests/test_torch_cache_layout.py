@@ -9,9 +9,9 @@ step that gathers activations only, against the JAX package.
   ``decode_attention_ref`` on the same numpy inputs: 1e-5 in fp32, and
   ``tests/test_torch_kernels.py``'s 2e-2 in bf16 (the ranges' sums are
   taken in another order).
-* ``shard_cache`` holds every attention and SSM leaf as ``cache_pspecs``
-  splits it: each rank's bytes equal ``_split_bytes`` of the spec, and
-  the dry-run's ``cache_layouts`` reports no difference.
+* ``shard_cache`` holds every attention, SSM and conv leaf as
+  ``cache_pspecs`` splits it: each rank's bytes equal ``_split_bytes`` of
+  the spec, and the dry-run's ``cache_layouts`` reports no difference.
 * A meshed ``prefill`` + 4 greedy ``decode_step`` s equal the
   reference's unsharded ones (the logits, and every leaf of the gathered
   cache after prefill and after the last step, the ring wrapping) at
@@ -21,10 +21,15 @@ step that gathers activations only, against the JAX package.
   over 'model' (batch 1 at (data 2, model 2)), and the length over
   'data' with every kv head on every model rank (batch 1 at (data 2,
   model 4)).  Each rank's partial state is computed once a layer and
-  step where the length is split.
+  step where the length is split.  The Mamba half: Jamba at (model 4),
+  whose smoke in_proj (552 columns) and conv (288 channels) split into
+  138 / 72 a rank across the z | x and x | B boundaries, and mamba2 at
+  batch 1 over (data 2, model 2), its conv cache replicated over 'data'.
 * A decode step counted on ``meta`` all-gathers only its activations:
   the queries where the length is split over 'model', the new token's
-  k / v columns where a rank holds every kv head; never wk / wv.
+  k / v columns where a rank holds every kv head, a Mamba block's
+  projection (d_proj) and conv output (d_xbc); never wk / wv, in_proj
+  or conv_w.
 """
 import dataclasses
 
@@ -44,6 +49,7 @@ from repro.models import moe as j_moe  # noqa: E402
 from repro.models import transformer as j_tf  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs.base import MAMBA  # noqa: E402
 from repro_torch.configs import list_architectures  # noqa: E402
 from repro_torch.data import lm_batches  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -55,13 +61,14 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.shapes import InputShape  # noqa: E402
 from repro_torch.models import attention as t_attn  # noqa: E402
 from repro_torch.models import sharded  # noqa: E402
+from repro_torch.models import ssm as t_ssm  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
 from repro_torch.sharding import collectives as col  # noqa: E402
 from repro_torch.sharding import specs  # noqa: E402
 
 FP32_TOL, BF16_TOL, MODEL_TOL = 1e-5, 2e-2, 1e-4
 S, S_MEM, N_DECODE = 40, 48, 4
-LEAVES = ("k", "v", "xk", "xv", "ssm")
+LEAVES = ("k", "v", "xk", "xv", "ssm", "conv")
 
 
 @pytest.fixture
@@ -155,7 +162,7 @@ _MESHES = [((4,), 2), ((2, 2), 1), ((2, 2), 2), ((2, 4), 1)]
 @pytest.mark.parametrize("mesh_shape,batch", _MESHES)
 @pytest.mark.parametrize("arch", list_architectures())
 def test_shard_cache_bytes_are_cache_pspecs(arch, mesh_shape, batch, mesh):
-    """Every rank's k / v / xk / xv / ssm bytes are the spec's share of
+    """Every rank's k / v / xk / xv / ssm / conv bytes are the spec's share of
     the whole leaf (on ``meta``), and ``cache_layouts`` agrees: (model
     4), where 2 kv heads do not divide; (data 2, model 2) at batch 1 and
     2; (data 2, model 4) at batch 1."""
@@ -261,7 +268,9 @@ def _close_cache(cache, want, cfg):
     ("internlm2-1.8b", (4,), 1, ("model",)),
     ("llama-3.2-vision-11b", (4,), 1, ("model",)),
     ("mixtral-8x22b", (2, 2), 1, ("data",)),
-    ("internlm2-1.8b", (2, 4), 1, ("data",))])
+    ("internlm2-1.8b", (2, 4), 1, ("data",)),
+    ("jamba-1.5-large-398b", (4,), 2, ("model",)),
+    ("mamba2-370m", (2, 2), 1, ())])
 def test_meshed_decode_is_the_reference(arch, mesh_shape, batch, split,
                                         mesh, monkeypatch):
     """The port's meshed prefill + decode steps, fed the reference's
@@ -272,7 +281,8 @@ def test_meshed_decode_is_the_reference(arch, mesh_shape, batch, split,
     splits its sequence over 'data' in the prefill, and each data rank's
     MoE dispatches its own S/2 tokens (the reference's ``shard_map``
     blocks), so its reference dispatches in groups of S/2 tokens: the
-    unsharded function that run computes."""
+    unsharded function that run computes.  The Mamba blocks' conv and
+    ssm caches are gathered and held like every other leaf."""
     dp = mesh_shape[0] if len(mesh_shape) == 2 else 1
     want = _reference(arch, batch, batch * S // dp)
     cfg = _fp32(get_smoke_config(arch))
@@ -312,30 +322,48 @@ def test_meshed_decode_is_the_reference(arch, mesh_shape, batch, split,
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch,mesh_shape,batch", [
     ("qwen3-8b", (1, 4), 2), ("mixtral-8x22b", (2, 2), 1),
-    ("internlm2-1.8b", (2, 4), 1)])
-def test_decode_step_gathers_activations_only(arch, mesh_shape, batch):
+    ("internlm2-1.8b", (2, 4), 1), ("jamba-1.5-large-398b", (1, 4), 2),
+    ("mamba2-370m", (2, 2), 1)])
+def test_decode_step_gathers_activations_only(arch, mesh_shape, batch,
+                                              monkeypatch):
     """One rank's all-gather bytes in a decode step on ``meta``: at
-    (model 4) the length is split over 'model', so each layer gathers
-    the queries (B, 1, H, hd) and the new token's k and v (B, 1, K·hd);
-    at (data 2, model 2) batch 1 the kv heads divide and nothing is
+    (model 4) the length is split over 'model', so each attention layer
+    gathers the queries (B, 1, H, hd) and the new token's k and v (B, 1,
+    K·hd); at (data 2, model 2) batch 1 the kv heads divide and nothing is
     gathered; at (data 2, model 4) batch 1 each rank holds every kv head
-    of its slots, so each layer gathers the new k and v alone.  No wk /
-    wv: the all-reduce carries the merge of the ranks' states."""
+    of its slots, so each layer gathers the new k and v alone.  Each
+    Mamba layer gathers its projection (B, 1, d_proj) and its conv output
+    (B, 1, d_xbc) (Jamba's smoke 552 + 288 columns, mamba2's the same).
+    Every gathered part is one token's activations: no wk / wv, in_proj
+    or conv_w; the all-reduce carries the merge of the ranks' states."""
     cfg = get_smoke_config(arch)
     a = cfg.attn
     shape = InputShape("decode_small", "decode", 64, batch)
     m = make_mesh(mesh_shape, ("data", "model"), "meta")
+    rows = batch // m.shape["data"] if batch % m.shape["data"] == 0 \
+        else batch
+    parts = []
+    real = col.all_gather
+    monkeypatch.setattr(col, "all_gather", lambda ps, *args, **kw: parts.
+                        extend(tuple(p.shape) for p in ps) or real(
+                            ps, *args, **kw))
     step, args, args_b = dryrun.build_mesh_step(cfg, shape, m, "meta")
     try:
         flat = dryrun.count_mesh_step(step, args, args_b)
     finally:
         specs.set_mesh(None)
     el = torch.finfo(cfg.torch_dtype).bits // 8
-    rows = batch // m.shape["data"] if batch % m.shape["data"] == 0 \
-        else batch
-    per_layer = {"qwen3-8b": rows * (a.n_heads + 2 * a.n_kv_heads),
-                 "mixtral-8x22b": 0,
-                 "internlm2-1.8b": rows * 2 * a.n_kv_heads}[arch]
-    want = cfg.n_layers * per_layer * a.head_dim * el
+    n_attn = cfg.n_periods * sum(k != MAMBA for k in cfg.period)
+    n_mamba = cfg.n_layers - n_attn
+    attn_cols = 0 if a is None else a.head_dim * {
+        "qwen3-8b": a.n_heads + 2 * a.n_kv_heads, "mixtral-8x22b": 0,
+        "internlm2-1.8b": 2 * a.n_kv_heads,
+        "jamba-1.5-large-398b": a.n_heads + 2 * a.n_kv_heads}[arch]
+    mamba_cols = 0
+    if cfg.ssm is not None:
+        d_in, n_heads, d_xbc = t_ssm.dims(cfg)
+        mamba_cols = (2 * d_in + 2 * cfg.ssm.d_state + n_heads) + d_xbc
+    want = rows * el * (n_attn * attn_cols + n_mamba * mamba_cols)
     assert flat.get("collective:all-gather", 0.0) == want
-    assert flat["launches:decode_attention:partial"] == cfg.n_layers
+    assert all(p[:2] == (rows, 1) for p in parts), parts
+    assert flat.get("launches:decode_attention:partial", 0) == n_attn

@@ -1502,3 +1502,60 @@ def test_model_sharding_on_one_card_serves_like_unsharded(cuda, arch, mode):
     assert sum(sum(c.values()) for c in plain.values()) > 0
     assert meshed == {k: {v: 2 * n for v, n in c.items()}
                       for k, c in plain.items()}
+
+
+def test_meshed_mamba_decode_keeps_conv_by_cache_pspecs(cuda):
+    """Phase 15 (e''') at the smoke config in fp32: Jamba over a (data 1,
+    model 2) mesh on cuda:0 twice decodes as the unsharded model (logits
+    within 1e-4, the same greedy tokens), its in_proj / conv held as
+    contiguous column shards, and each rank's conv and ssm cache is
+    ``cache_pspecs``' split of the unsharded cache (``shard_cache``)
+    within 1e-4, after the prefill and after the last step."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharded
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import param_pspecs, place, set_mesh, unshard
+    cfg = dataclasses.replace(get_smoke_config("jamba-1.5-large-398b"),
+                              dtype="float32")
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+
+    def run(p):
+        caches, logits = [], []
+        with torch.no_grad():
+            last, cache = tfm.prefill(p, {"tokens": toks}, cfg)
+            logits.append(unshard(last))
+            caches.append(cache)
+            for step in range(3):
+                out, cache = tfm.decode_step(
+                    p, cache, logits[-1].argmax(-1)[:, None],
+                    toks.shape[1] + step, cfg)
+                logits.append(unshard(out))
+        caches.append(cache)
+        return logits, caches
+
+    want, want_caches = run(params)
+    mesh = make_mesh((1, 2), ("data", "model"), ["cuda:0", "cuda:0"])
+    placed = place(params, param_pspecs(params), mesh)
+    assert placed[1]["blocks"]["b0"]["mamba"]["in_proj"].shape[-1] \
+        == params["blocks"]["b0"]["mamba"]["in_proj"].shape[-1] // 2
+    set_mesh(mesh)
+    try:
+        got, got_caches = run(placed)
+        for g, w in zip(got, want):
+            assert torch.equal(g.argmax(-1), w.argmax(-1))
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        for mine, whole in zip(got_caches, want_caches):
+            split = sharded.shard_cache(whole, cfg)
+            for r in range(2):
+                for name in ("conv", "ssm"):
+                    torch.testing.assert_close(
+                        mine.parts[r]["b0"][name],
+                        split.parts[r]["b0"][name], atol=1e-4, rtol=1e-4)
+    finally:
+        set_mesh(None)
