@@ -54,11 +54,20 @@ Phases (any failure exits non-zero and prints no result line):
      within 2 ticks, every annotated lane committed exactly once — and
      profiled at max_delay 0 and 2; (b) per-lane commits at max_delay 2,
      simulated expert, W=1 against W=4 under an adversarial latency, on
-     a 512-item imdb stream (seed 0), as phases 9 (a') and 10 (b) take:
-     identical predictions, routing, expert calls, commit log, every
-     parameter ``torch.equal``; (b') the same pair with the model
-     expert, its per-item labels compared on the batches the engine sent
-     and its pool threads' streams checked, then the process backend
+     an imdb stream of 2560 items (seed 0), resumed from one warm run's
+     checkpoint: the default ladder at W=1, saved after every tick until
+     the first tick at which students answer some lanes and the expert
+     the rest, is restored at the tick T before it (printed) into all
+     four engines of (b) and (b'), whose level state must be
+     ``torch.equal``; each serves 8 ticks (512 items, as phases 9 (a')
+     and 10 (b) take) and fails if no student answered on them
+     (``student_routed``, the gate that phase 9 (a') and phase 10's
+     served runs also pass): identical predictions, routing, expert calls, commit
+     log, every parameter ``torch.equal``; (b') the same pair with the
+     model expert, its per-item labels compared on the batches the
+     engine sent (failing if none was compared, or none at a shard size
+     other than 64 / W) and its pool threads' streams checked, then the
+     process backend
      (labels against the thread backend, device memory per child, its
      children killed and the pool rebuilt); (c) the kernel ladder at
      depth 2 against 0, at max_delay 0 (profiled) and 2: identical runs
@@ -1092,10 +1101,14 @@ def phase_default_serve():
 # engine-matrix: the serving options of BatchedCascadeEngine at full width
 # ---------------------------------------------------------------------------
 MATRIX_ITEMS, MATRIX_BATCH, MATRIX_MU = 2048, 64, 3e-7
-# (b) / (b'): per-lane commits serve 14-54 items/s on the card, so the
-# W=1 / W=4 pairs serve a stream of 8 ticks (2048 items took 225 s of a
-# 1148 s script on a slow host)
-MATRIX_LANE_ITEMS = 512
+# (b) / (b'): a fresh engine sends every item of its first ticks to the
+# expert, so the W=1 / W=4 pairs resume from one checkpoint of a warm run
+# on a stream of MATRIX_LANE_STREAM items, taken T ticks in, where tick
+# T + 1 is the first at which students answer some lanes and the pool
+# labels the rest; they serve MATRIX_LANE_TICKS more.  Per-lane commits
+# serve 14-54 items/s on the card, so the served stream stays at 8 ticks
+# (2048 items took 225 s of a 1148 s script on a slow host)
+MATRIX_LANE_STREAM, MATRIX_LANE_TICKS = 2560, 8
 MATRIX_DEVICE = "cuda"
 # (e): the seeded fault schedule and the requeue deadline (s)
 MATRIX_FAULTS = {"timeout_rate": 0.1, "death_rate": 0.05, "slow_rate": 0.2,
@@ -1137,6 +1150,17 @@ def _matrix_report(tag, eng, m, wall):
           f"pipeline_stats={eng.pipeline_stats} commit_stats: lanes="
           f"{cs['lanes']} mean_age={age:.3f} age_max={cs['age_max']} "
           f"fault_stats={eng.fault_stats}", flush=True)
+
+
+def _student_routed(tag, fractions):
+    """Print the share of items a student answered (the last level is
+    the expert) and fail at 0: a pair of runs held to each other (W=1 vs
+    W=4, resumed vs uninterrupted) is checked on ticks where students
+    answer some lanes and the expert the rest, or on nothing."""
+    share = 1.0 - float(fractions[-1])
+    print(f"{tag}: student_routed={share:.4f}", flush=True)
+    if share <= 0:
+        _fail(f"{tag}: no item was routed to a student")
 
 
 def _matrix_run(tag, eng, stream):
@@ -1193,14 +1217,16 @@ def _same_run(tag, a, ma, b, mb, state=True):
         _fail(f"{tag}: the two runs differ")
 
 
-def _commit_log_checks(tag, eng, bound):
+def _commit_log_checks(tag, eng, bound, t0=0):
     """Every annotated (tick, lane) committed exactly once, within
-    ``bound`` ticks (fault-free runs: nothing dropped)."""
+    ``bound`` ticks (fault-free runs: nothing dropped).  ``t0``: the tick
+    the engine was restored at; the ticks up to it are not checked."""
     called = {(t, int(s)) for t, c in
-              enumerate(eng.history["expert_called"], 1)
+              enumerate(eng.history["expert_called"], t0 + 1)
               for s in np.flatnonzero(c)}
-    keys = [(t, s) for t, s, _ in eng.commit_log]
-    ages = [c - t for t, _, c in eng.commit_log]
+    log = [e for e in eng.commit_log if e[0] > t0]
+    keys = [(t, s) for t, s, _ in log]
+    ages = [c - t for t, _, c in log]
     if len(eng._pending) or len(set(keys)) != len(keys) \
             or set(keys) != called:
         _fail(f"{tag}: annotated lanes not committed exactly once "
@@ -1234,42 +1260,132 @@ def _matrix_async(stream):
     return expert
 
 
-def _matrix_pool(stream, expert):
+def _students_a_tick(eng):
+    """Items a student answered, tick by tick of the engine's history."""
+    return [int((np.asarray(lv) < len(eng.levels)).sum())
+            for lv in eng.history["level"]]
+
+
+def _matrix_warm(stream, tmp):
+    """(b) / (b')'s warm start: the default ladder, per-lane commits at
+    max_delay 2, simulated expert, W=1, saved after every tick until the
+    first tick at which students answer some lanes and the expert is
+    called on the rest.  Returns T (the ticks before that one), the
+    checkpoint taken after T ticks, and the run's seconds, saves
+    included."""
+    from repro_torch.core import SimulatedExpert
+    S = MATRIX_BATCH
+    t0 = time.time()
+    eng = _matrix_engine("default", SimulatedExpert(stream), per_lane=True,
+                         max_delay=2)
+    nlev = len(eng.levels)
+    for T in range(len(stream) // S - MATRIX_LANE_TICKS + 1):
+        path = str(Path(tmp) / f"warm{T % 2}")
+        eng.save_state(path)
+        idxs = list(range(T * S, (T + 1) * S))
+        out = eng.process_tick(idxs, [stream.docs[i] for i in idxs])
+        if 0 < int((np.asarray(out["levels"]) < nlev).sum()) < S:
+            break
+    else:
+        _fail(f"(b) no tick of the first {T + 1} had students answer some "
+              "lanes and the expert the rest")
+    eng.close()
+    _sync()
+    warm_s = time.time() - t0
+    print(f"[engine-matrix] (b) warm run: first tick with students on "
+          f"some lanes {T + 1}, so T={T} ({T * S} items), students a tick "
+          f"{_students_a_tick(eng)}, expert calls {eng.expert_calls_total} "
+          f"by then, {warm_s:.2f} s with a save a tick", flush=True)
+    return T, path, warm_s
+
+
+def _matrix_served(tag, eng, stream, counts0):
+    """Serve a restored engine to the end of ``stream``; the students'
+    share is gated over the ticks this run served (``counts0``: the level
+    counts at the restore)."""
+    m = _matrix_run(tag, eng, stream)
+    served = eng.level_counts.sum(axis=0) - counts0
+    print(f"[engine-matrix] {tag}: students a tick "
+          f"{_students_a_tick(eng)}", flush=True)
+    first = eng.t - MATRIX_LANE_TICKS + 1
+    _student_routed(f"[engine-matrix] {tag}, ticks {first}..{eng.t}",
+                    served / served.sum())
+    return m
+
+
+def _matrix_pool(expert):
     """(b) per-lane commits at max_delay 2, W=1 against W=4 (simulated
     expert, adversarial latency at W=4); (b') the same pair with the
-    model expert, its per-item labels compared; the process backend."""
+    model expert, its per-item labels compared; all four resumed from one
+    warm run's checkpoint.  Then the process backend.  Returns the warm
+    run's seconds."""
+    import tempfile
     from repro_torch.core import ModelExpert, SimulatedExpert
-    runs = {}
-    for w in (1, 4):
-        ex = SimulatedExpert(stream, workers=w,
-                             latency=_pool_latency if w > 1 else None)
-        eng = _matrix_engine("default", ex, per_lane=True, max_delay=2)
-        runs[w] = (eng, _matrix_run(f"(b) per-lane, simulated, W={w}", eng,
-                                    stream))
-    _same_run("(b) W=1 vs W=4", *runs[1], *runs[4])
-    if runs[1][0].commit_log != runs[4][0].commit_log:
-        _fail("(b) the commit logs of W=1 and W=4 differ")
-    _commit_log_checks("(b) W=4", runs[4][0], 2)
-    del runs
-
+    from repro_torch.data import make_stream
+    S = MATRIX_BATCH
+    full = make_stream("imdb", seed=0, n_samples=MATRIX_LANE_STREAM)
     experts = {w: ModelExpert(params=expert.params, spec=expert.spec,
                               workers=w, device=MATRIX_DEVICE)
                for w in (1, 4)}
+    sides = {("(b)", w): SimulatedExpert(
+        full, workers=w, latency=_pool_latency if w > 1 else None)
+        for w in (1, 4)}
+    sides.update({("(b')", w): ex for w, ex in experts.items()})
+    engines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        T, path, warm_s = _matrix_warm(full, tmp)
+        for key, ex in sides.items():
+            eng = _matrix_engine("default", ex, per_lane=True, max_delay=2)
+            eng.restore_state(path)
+            engines[key] = eng
+    # the served ticks: T + 1 .. T + MATRIX_LANE_TICKS
+    n = (T + MATRIX_LANE_TICKS) * S
+    stream = dataclasses.replace(
+        full, docs=full.docs[:n], labels=full.labels[:n],
+        categories=full.categories[:n], lengths=full.lengths[:n],
+        _expert_cache={})
+    first = engines["(b)", 1]
+    same = all(_states_equal(first, e) for e in engines.values())
+    counts0 = first.level_counts.sum(axis=0)
+    print(f"[engine-matrix] (b) / (b') {len(engines)} engines restored at "
+          f"tick {first.t}: level state torch.equal {same}", flush=True)
+    if not same or any(e.t != T for e in engines.values()):
+        _fail("(b) / (b') the restored engines' level state differs")
+
     runs = {}
-    for w, ex in experts.items():
-        eng = _matrix_engine("default", ex, per_lane=True, max_delay=2)
-        runs[w] = (eng, _matrix_run(f"(b') per-lane, model expert, W={w}",
-                                    eng, stream))
+    for w in (1, 4):
+        eng = engines["(b)", w]
+        runs[w] = (eng, _matrix_served(f"(b) per-lane, simulated, W={w}",
+                                       eng, stream, counts0))
+    _same_run("(b) W=1 vs W=4", *runs[1], *runs[4])
+    if runs[1][0].commit_log != runs[4][0].commit_log:
+        _fail("(b) the commit logs of W=1 and W=4 differ")
+    _commit_log_checks("(b) W=4", runs[4][0], 2, t0=T)
+    del runs
+
+    runs = {}
+    for w in (1, 4):
+        eng = engines["(b')", w]
+        runs[w] = (eng, _matrix_served(
+            f"(b') per-lane, model expert, W={w}", eng, stream, counts0))
     _same_run("(b') W=1 vs W=4", *runs[1], *runs[4])
-    # per-item labels, on the batches the engine sent (tick by tick)
-    n_cmp = n_diff = 0
-    for t, called in enumerate(runs[1][0].history["expert_called"]):
-        idxs = [t * MATRIX_BATCH + int(s) for s in np.flatnonzero(called)]
+    if runs[1][0].commit_log != runs[4][0].commit_log:
+        _fail("(b') the commit logs of W=1 and W=4 differ")
+    # per-item labels, on the batches the engine sent (tick by tick), and
+    # the shard sizes M they ran at (64 / W when every lane calls)
+    from repro_torch.core.experts import shard_bounds
+    n_cmp = n_diff = ragged = 0
+    for t, called in enumerate(runs[1][0].history["expert_called"], T):
+        idxs = [t * S + int(s) for s in np.flatnonzero(called)]
+        if not idxs:
+            continue
         docs = [stream.docs[i] for i in idxs]
         a = experts[1].poll(experts[1].submit_many(idxs, docs))
         b = experts[4].poll(experts[4].submit_many(idxs, docs))
         n_cmp += len(idxs)
         n_diff += int((a != b).sum())
+        ragged += sum(hi - lo != S // w for w in (1, 4)
+                      for lo, hi in shard_bounds(len(idxs), w))
     streams_ok = [s != torch.cuda.default_stream()
                   for s in experts[4].worker_streams()]
     # are the shard forwards' bits independent of the shard's batch?
@@ -1283,16 +1399,20 @@ def _matrix_pool(stream, expert):
         part = tinytf_predict(expert.params, ids[:16], spec)
     bits = bool(torch.equal(full[:16], part))
     print(f"[engine-matrix] (b') per-item expert labels W=1 vs W=4: "
-          f"{n_cmp} compared, {n_diff} differ; shard probs bitwise equal "
+          f"{n_cmp} compared, {n_diff} differ, {ragged} shards at an M "
+          f"other than {S} / W; shard probs bitwise equal "
           f"at M=16 vs inside M=64: {bits}; pool streams "
           f"{len(streams_ok)}, none the default stream: {all(streams_ok)}",
           flush=True)
+    if n_cmp == 0 or ragged == 0:
+        _fail("(b') the per-item label comparison saw no item at a "
+              "ragged shard size")
     if n_diff or not streams_ok or not all(streams_ok):
         _fail("(b') the model expert's labels depend on W, or a pool "
               "worker ran on the default stream")
     for ex in experts.values():
         ex.close()
-    del runs
+    del runs, engines
 
     # the process backend: children on the card, one CUDA context each
     import os
@@ -1339,6 +1459,7 @@ def _matrix_pool(stream, expert):
     if not (np.array_equal(got, want) and np.array_equal(again, want)
             and rebuilt):
         _fail("(b') the process backend mislabels or was not rebuilt")
+    return warm_s
 
 
 def _unprofiled_rep(m):
@@ -1507,18 +1628,18 @@ def phase_engine_matrix(phase4_launches):
     64, seed 0, mu 3e-7).  Returns the pipelined kernel-ladder run's
     launches and launches by variant ((c), max_delay 0, depth 2), and
     (c)'s depth-0 / max_delay-0 and depth-2 / max_delay-2 runs as phase
-    14's unmeshed sides (``_unmeshed_side``)."""
+    14's unmeshed sides (``_unmeshed_side``), and (b)'s warm run's
+    seconds."""
     from repro_torch.data import make_stream
     stream = make_stream("imdb", seed=0, n_samples=MATRIX_ITEMS)
     expert = _matrix_async(stream)
-    _matrix_pool(make_stream("imdb", seed=0, n_samples=MATRIX_LANE_ITEMS),
-                 expert)
+    warm_s = _matrix_pool(expert)
     expert.close()
     pipelined, unmeshed = _matrix_pipeline(stream, phase4_launches)
     _matrix_converged(stream)
     _matrix_faults(stream)
     _matrix_card_vs_cpu()
-    return pipelined, unmeshed
+    return pipelined, unmeshed, warm_s
 
 
 # ---------------------------------------------------------------------------
@@ -1706,6 +1827,8 @@ def _admit_lane_resume(tmp):
     _sync()
     _run_report("(a') per-lane, W=4, uninterrupted", mf, time.time() - t0,
                 len(small))
+    _student_routed("[checkpoint-admission] (a') uninterrupted",
+                    mf["level_fractions"])
     part = build()
     for t in range(ADMIT_LANE_CUT):
         idxs = list(range(t * S, (t + 1) * S))
@@ -1722,6 +1845,8 @@ def _admit_lane_resume(tmp):
     first = ADMIT_LANE_CUT * S
     _run_report(f"(a') per-lane, restored at tick {ADMIT_LANE_CUT}", mr,
                 time.time() - t0, len(small) - first)
+    _student_routed(f"[checkpoint-admission] (a') restored at tick "
+                    f"{ADMIT_LANE_CUT}", mr["level_fractions"])
     same = (bool(np.array_equal(mf["predictions"][first:],
                                 mr["predictions"][first:]))
             and mf["expert_calls"] == mr["expert_calls"]
@@ -1920,8 +2045,8 @@ DISTILL_EPOCHS = 3        # as benchmarks/common.py runs the reference
 def _san_run(counts, tag, eng, stream):
     """Serve ``stream`` on ``eng`` with every kernel's launches counted
     from zero against its layer forwards; prints items/s, wall s, the
-    level fractions and the share of items a student answered (the last
-    level is the expert)."""
+    level fractions and the share of items a student answered
+    (``_student_routed``, failing at 0)."""
     t0 = time.time()
     m, got, by_variant = counts.run(tag, lambda: [eng],
                                     lambda: eng.run(stream))
@@ -1930,8 +2055,8 @@ def _san_run(counts, tag, eng, stream):
     print(f"[sanitize-distill] {tag}: items_per_sec="
           f"{m['items_per_sec']:.1f} wall_s={wall:.2f} accuracy="
           f"{m['accuracy']:.4f} expert_calls={m['expert_calls']} "
-          f"level_fractions={[round(f, 4) for f in fr]} "
-          f"student_routed={1.0 - fr[-1]:.4f}", flush=True)
+          f"level_fractions={[round(f, 4) for f in fr]}", flush=True)
+    _student_routed(f"[sanitize-distill] {tag}", fr)
     return m, got, by_variant
 
 
@@ -5248,9 +5373,10 @@ def kernel_record(results, launches, by_variant, zoo_results, zoo_launches,
 _T0 = time.time()
 
 
-def _clock(phase):
+def _clock(phase, note=""):
     """The script's seconds so far, at the end of ``phase``."""
-    print(f"[clock] {phase} ended at {time.time() - _T0:.1f} s", flush=True)
+    print(f"[clock] {phase} ended at {time.time() - _T0:.1f} s"
+          + (f" ({note})" if note else ""), flush=True)
 
 
 def main():
@@ -5271,8 +5397,9 @@ def main():
     del eng
     phase_default_serve()
     _clock("default-serve")
-    pipelined, unmeshed = phase_engine_matrix(launches)
-    _clock("engine-matrix")
+    pipelined, unmeshed, warm_s = phase_engine_matrix(launches)
+    _clock("engine-matrix", f"the warm run of (b) / (b') {warm_s:.1f} s of "
+           "it")
     admission = phase_checkpoint_admission()
     _clock("checkpoint-admission")
     sanitized = phase_sanitize_distill()

@@ -7,6 +7,11 @@ CPU, against the JAX engine (setup and contract: ``test_torch_async.py``).
 * W and latency invariance, port against port: W in {1, 2, 4} under four
   latency schedules give identical routing, bitwise state and the same
   commit log, per lane and per tick.
+* W=1 and W=4 resumed from one warm per-lane checkpoint (``chip_smoke.py``
+  phase 8 (b)): students answer some lanes of the served ticks, the runs
+  are bitwise equal with one commit log, and the JAX engine restored from
+  the same checkpoint matches the W=4 run.  Every W pair here must route
+  a share of its items to the students.
 * Per-lane commits at S = 1 are the sequential engine's per-item update
   schedule, bitwise.
 * The commit log: every annotated lane exactly once, within D ticks, in
@@ -43,13 +48,28 @@ LATENCIES = {
 }
 
 
-def _port_run(n, *, workers, latency=None, per_lane=True, D=2, s=S):
-    _, ps = streams(n)
-    eng = P.BatchedCascadeEngine(
+# the warm run's ticks: on the CI ladder (hatespeech, S = 8, per-lane
+# commits at D = 2) students first answer at tick 3
+WARM_TICKS, SERVED_TICKS = 2, 8
+
+
+def _port_engine(ps, *, workers=1, latency=None, per_lane=True, D=2, s=S):
+    return P.BatchedCascadeEngine(
         port_cfg(), P.SimulatedExpert(ps, EXPERT, workers=workers,
                                       latency=latency),
         n_streams=s, max_delay=D, per_lane=per_lane, device="cpu")
+
+
+def _port_run(n, **kw):
+    _, ps = streams(n)
+    eng = _port_engine(ps, **kw)
     return eng, eng.run(ps)
+
+
+def student_share(level_counts) -> float:
+    """The share of items a student answered (the last level is the
+    expert), from per-level item counts."""
+    return 1.0 - level_counts[-1] / level_counts.sum()
 
 
 def test_per_lane_pool_matches_jax(ref):
@@ -75,6 +95,7 @@ def test_worker_and_latency_invariance_bitwise(max_delay):
                                D=max_delay)
             assert_port_runs_equal(ref_eng, m_ref, eng, m)
             assert eng.commit_log == ref_eng.commit_log, (workers, name)
+    assert student_share(np.asarray(m_ref["level_fractions"])) > 0
 
 
 def test_per_tick_mode_is_worker_invariant_too():
@@ -83,6 +104,41 @@ def test_per_tick_mode_is_worker_invariant_too():
                       latency=LATENCIES["pseudo_random"])
     assert_port_runs_equal(a, ma, b, mb)
     assert a.commit_log == b.commit_log
+    assert student_share(np.asarray(ma["level_fractions"])) > 0
+
+
+def test_w_pair_resumed_from_one_warm_checkpoint(ref, tmp_path):
+    """Phase 8 (b) of ``chip_smoke.py`` on the CPU: a per-lane engine
+    served the ticks before the students first answer, saved, and
+    restored into W=1 and W=4 (pseudo-random latency) and into the JAX
+    engine; the next ticks route items to students and to the pool."""
+    lat = LATENCIES["pseudo_random"]
+    js, ps = streams((WARM_TICKS + SERVED_TICKS) * S)
+    warm = _port_engine(ps)
+    for t in range(WARM_TICKS):
+        idxs = list(range(t * S, (t + 1) * S))
+        warm.process_tick(idxs, [ps.docs[i] for i in idxs])
+    path = str(tmp_path / "warm")
+    warm.save_state(path)
+    assert student_share(warm.level_counts.sum(axis=0)) == 0
+    counts0 = warm.level_counts.sum(axis=0)
+    runs = {}
+    for w in (1, 4):
+        eng = _port_engine(ps, workers=w, latency=lat if w > 1 else None)
+        if w == 4:          # the JAX engine, configured like this one
+            je = ref.start(eng, J.SimulatedExpert(js, EXPERT, workers=4,
+                                                  latency=lat),
+                           max_delay=2, per_lane=True)
+            je.restore_state(path)
+        eng.restore_state(path)
+        runs[w] = (eng, eng.run(ps))
+    for eng, _ in runs.values():
+        assert student_share(eng.level_counts.sum(axis=0) - counts0) > 0
+        called = np.stack(eng.history["expert_called"]).sum(axis=1)
+        assert ((0 < called) & (called < S)).any()     # ragged ticks
+    assert_port_runs_equal(*runs[1], *runs[4])
+    assert runs[1][0].commit_log == runs[4][0].commit_log
+    assert_matches(je, je.run(js), *runs[4])
 
 
 def test_per_lane_s1_bitwise_parity_with_sequential():
